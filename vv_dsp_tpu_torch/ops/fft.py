@@ -1,0 +1,24 @@
+"""FFT wrappers on ``torch.fft`` (the public ``fft``/``rfft`` of
+``vv_dsp_tpu/ops/fft.py`` that the plain STFT path uses).
+
+Scaling follows the JAX package: forward unscaled. Its matmul-DFT,
+four-step, CT3 and Bluestein tiers exist to work around the TPU and are
+not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def fft(x: torch.Tensor, n: int | None = None, axis: int = -1) -> torch.Tensor:
+    """Complex-to-complex forward FFT, unscaled (real input is promoted)."""
+    return torch.fft.fft(x, n=n, dim=axis)
+
+
+def rfft(x: torch.Tensor, n: int | None = None,
+         axis: int = -1) -> torch.Tensor:
+    """Real-to-complex FFT: n real -> n//2+1 Hermitian-packed bins."""
+    if x.is_complex():
+        raise TypeError("rfft requires real input; use fft() for complex")
+    return torch.fft.rfft(x, n=n, dim=axis)

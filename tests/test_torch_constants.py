@@ -177,10 +177,10 @@ def test_params_from_reference_equal_port_builders():
 def test_chain_from_reference_params_computes_the_same(rng):
     x = torch.as_tensor(rng.standard_normal((2, 9000)), dtype=torch.float32)
     params = params_from_reference(**_reference_arrays())
-    a = NorthStarChain(params=params)(x)
-    b = NorthStarChain()(x)
+    a = NorthStarChain(params=params, device="cpu")(x)
+    b = NorthStarChain(device="cpu")(x)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
-    chain = NorthStarChain(params=params)
+    chain = NorthStarChain(params=params, device="cpu")
     for name in ("head_taps", "window", "mel_fb", "dct_lift"):
         assert getattr(chain, name).dtype == torch.float32
     assert chain.mel_bands.dtype == torch.int32

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes and at the edges of each kernel's geometry (ratios whose
 phases differ within a thread, short and ragged signals, every tier, both
-spectrum forms, mel energies). Needs an NVIDIA GPU and nvcc; skips
+spectrum forms, mel energies, the power spectrogram, and the inverse STFT
+at q = nfft/hop = 1, 2, 4 and 8 with and without its gate). Needs an
+NVIDIA GPU and nvcc; skips
 without them. Run on the card (this file imports neither jax nor the JAX
 package, so the suite's jax conftest is not needed):
 
@@ -22,6 +24,12 @@ applied to the kernel's own mel energies: the same operands, so only the
 float32 summation order differs, bounded per element by 2 k 2^-24 times
 sum_b |dct[q, b] log mel_b| for k products per element.
 
+The inverse kernel is held to its plain version fed the same spectrum:
+5e-6 of the plain version's max |value| before the norm is divided out
+(after it, the 1/w^2 norm amplifies float32 rounding without bound where
+the frames' cover thins out). The gate compares squared magnitudes with no
+fused multiply-add in both, so both keep the same bins.
+
 Which tier a kernel computed is checked on the tier probes (inputs on which
 both versions form the same products at one tier), where every other tier
 must land beyond the limit; chip_smoke.py runs the same probes at the main
@@ -33,12 +41,14 @@ import pytest
 import torch
 
 from vv_dsp_tpu_torch import config
-from vv_dsp_tpu_torch.models import NorthStarChain
+from vv_dsp_tpu_torch.models import MFCCFrontend, NorthStarChain, SpectralGate
+from vv_dsp_tpu_torch.ops import istft_kernels as tik
 from vv_dsp_tpu_torch.ops import mel as tmel
 from vv_dsp_tpu_torch.ops import resample as trs
 from vv_dsp_tpu_torch.ops import stft_kernels as tsk
 from vv_dsp_tpu_torch.ops import upfirdn as tuf
 from vv_dsp_tpu_torch.ops.stft import STFT
+from vv_dsp_tpu_torch.ops.window import get_window_np
 
 pytestmark = pytest.mark.cuda
 ALGORITHMS = ("f32", "bf16x3", "bf16")
@@ -89,7 +99,7 @@ def test_upfirdn_kernel_matches_plain(dev, gen, up, down, algorithm):
 
 @pytest.mark.parametrize("n", [1, 40, 700, 24000])
 def test_fused_head_kernel_matches_plain(dev, gen, n):
-    h = NorthStarChain().fir_coeffs.astype(np.float64)
+    h = NorthStarChain(device=dev).fir_coeffs.astype(np.float64)
     g, off = trs._fused_fir_resample_filter(tuple(h), 4, 3)
     x = torch.as_tensor(gen.standard_normal((2, n)), dtype=torch.float32,
                         device=dev)
@@ -148,7 +158,7 @@ def test_mfcc_kernel_matches_plain(dev, gen, nfft, hop, n_mels, n_mfcc, sr,
 
 def test_chain_on_card_matches_cpu(dev, gen):
     x = torch.as_tensor(gen.standard_normal((2, 24000)), dtype=torch.float32)
-    chain = NorthStarChain()
+    chain = NorthStarChain(device="cpu")
     want = chain(x)
     counts = [f.launches for f in (tuf.upfirdn_banded, tsk.stft_mfcc)]
     got = chain.to(dev)(x.to(dev))
@@ -173,8 +183,8 @@ def test_chain_gradient_on_card(dev, gen):
     grads = []
     for d in ("cpu", dev):
         xt = x.detach().to(d).requires_grad_(True)
-        NorthStarChain(head_algorithm="f32",
-                       stft_algorithm="f32").to(d)(xt).sum().backward()
+        NorthStarChain(head_algorithm="f32", stft_algorithm="f32",
+                       device=d)(xt).sum().backward()
         grads.append(xt.grad)
     assert _rel(grads[1], grads[0]) < 1e-4
 
@@ -205,7 +215,7 @@ def test_upfirdn_tier_probe(dev, gen, algorithm):
     """One impulse per 1500 samples, more than a phase's 1044 taps: every
     output is one product at the tier, so the kernel matches the plain
     version at its own tier to a rounding and lands away from the others."""
-    h = NorthStarChain().fir_coeffs.astype(np.float64)
+    h = NorthStarChain(device=dev).fir_coeffs.astype(np.float64)
     g, off = trs._fused_fir_resample_filter(tuple(h), 4, 3)
     taps = tuf.polyphase_table(g, 4, dev)
     x = _impulses((2, 24000), 1500, 700, gen, dev)
@@ -253,5 +263,117 @@ def test_unsupported_geometry_raises_on_card(dev, gen):
     with pytest.raises(RuntimeError):
         trs.fir_resample_fused(long_h, x, 4, 3)
     # the refused launch leaves no error behind for the next one
-    h = NorthStarChain().fir_coeffs
+    h = NorthStarChain(device=dev).fir_coeffs
     assert trs.fir_resample_fused(h, x, 4, 3).shape == (2, 40000)
+
+
+@pytest.mark.parametrize("nfft,hop", [(256, 64), (1024, 256), (2048, 300),
+                                      (4096, 1024)])
+@pytest.mark.parametrize("n", [700, 9001])
+def test_power_kernel_matches_plain(dev, gen, nfft, hop, n):
+    x = torch.as_tensor(gen.standard_normal((2, n)), dtype=torch.float32,
+                        device=dev)
+    win = STFT(nfft, hop).win(dev)
+    before = tsk.stft_power.launches
+    got = tsk.stft_power(x, nfft, hop, win)
+    torch.cuda.synchronize()
+    assert tsk.stft_power.launches == before + 1
+    want = tsk.stft_power_plain(x, nfft, hop, win)
+    assert got.shape == want.shape == (2, want.shape[1], nfft // 2 + 1)
+    assert _rel(got, want) < 5e-5
+
+
+@pytest.mark.parametrize("nfft,hop", [(256, 256), (256, 64), (1024, 512),
+                                      (1024, 256), (1024, 128),
+                                      (4096, 1024), (4096, 512)])
+@pytest.mark.parametrize("n", [700, 9001])
+def test_istft_kernel_matches_plain(dev, gen, nfft, hop, n):
+    """q = nfft/hop in {1, 2, 4, 8}; n < nfft; output_len at, short of and
+    beyond the frames' cover; no gate and gates at 0, 0.1 and 1; the same
+    bits on a second run."""
+    x = torch.as_tensor(gen.standard_normal((2, n)), dtype=torch.float32,
+                        device=dev)
+    win = STFT(nfft, hop).win(dev)
+    spec = tsk.stft_spectrum(x, nfft, hop, win, onesided=True)
+    nf = spec.shape[1]
+    cover = (nf - 1) * hop + nfft
+    for out_len in (cover, max(cover - hop - 5, nfft // 2),
+                    cover + 2 * nfft + 3):
+        norm = tik.ola_norm(get_window_np("hann", nfft), hop, nf, out_len,
+                            dev)
+        for gate in (None, 0.0, 0.1, 1.0):
+            before = tik.istft.launches
+            got = tik.istft(spec, nfft, hop, out_len, win, norm, gate)
+            again = tik.istft(spec, nfft, hop, out_len, win, norm, gate)
+            torch.cuda.synchronize()
+            assert tik.istft.launches == before + 2
+            want = tik.istft_plain(spec, nfft, hop, out_len, win, norm, gate)
+            assert got.shape == (2, out_len)
+            assert torch.equal(got, again)
+            assert _rel(got * norm, want * norm) < 5e-6, (out_len, gate)
+            if out_len > cover:
+                assert (got[:, cover:] == 0).all()
+
+
+def test_istft_gate_one_keeps_only_the_peaks(dev, gen):
+    x = torch.as_tensor(gen.standard_normal((1, 6000)), dtype=torch.float32,
+                        device=dev)
+    win = STFT(512, 128).win(dev)
+    spec = tsk.stft_spectrum(x, 512, 128, win, onesided=True)
+    p2 = spec.real * spec.real + spec.imag * spec.imag
+    peaks = torch.where(p2 == p2.amax(-1, keepdim=True), spec,
+                        torch.zeros_like(spec))
+    norm = tik.ola_norm(get_window_np("hann", 512), 128, spec.shape[1], 6000,
+                        dev)
+    got = tik.istft(spec, 512, 128, 6000, win, norm, 1.0)
+    want = tik.istft_plain(peaks, 512, 128, 6000, win, norm)
+    assert _rel(got * norm, want * norm) < 5e-6
+
+
+def test_synthesis_entry_points_on_card_match_cpu(dev):
+    """SpectralGate, reconstruct, the packed roundtrip, power and
+    MFCCFrontend through the kernels, against the CPU (seed 1: no bin
+    within 1e-4 of the gate's threshold)."""
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal((2, 8192)),
+                        dtype=torch.float32)
+    xd = x.to(dev)
+    names = ("stft_spectrum", "stft_power", "stft_mfcc")
+    counts = [getattr(tsk, f).launches for f in names] + [tik.istft.launches]
+    got = SpectralGate(device=dev)(xd)
+    want = SpectralGate(device="cpu")(x)
+    assert _rel(got, want) < 5e-6
+    plan = STFT(1024, 256)
+    got = plan.reconstruct(plan.process(xd, rfft=True), 8192, rfft=True)
+    want = plan.reconstruct(plan.process(x, rfft=True), 8192, rfft=True)
+    assert _rel(got[:, 1024:-1024], want[:, 1024:-1024]) < 5e-6
+    ps = plan.process_packed(xd).apply_mask(np.ones(513))
+    assert _rel(plan.reconstruct_packed(ps, 8192)[:, 1024:-1024],
+                want[:, 1024:-1024]) < 5e-6
+    assert _rel(plan.power(xd), plan.power(x)) < 5e-5
+    front = MFCCFrontend(device=dev)
+    err = (front(xd).cpu() - MFCCFrontend(device="cpu")(x)).abs().max()
+    assert err.item() < 5e-4
+    torch.cuda.synchronize()
+    after = [getattr(tsk, f).launches for f in names] + [tik.istft.launches]
+    # spectrum: the gate, process and process_packed; istft: the gate and
+    # both roundtrips
+    assert [a - b for a, b in zip(after, counts)] == [3, 1, 1, 3]
+
+
+def test_synthesis_refuses_what_the_kernels_do_not_take(dev, gen):
+    x = torch.as_tensor(gen.standard_normal((2, 9000)), dtype=torch.float32,
+                        device=dev)
+    with pytest.raises(ValueError):
+        SpectralGate(1024, 384, device=dev)(x)
+    plan = STFT(1024, 384)
+    spec = plan.process(x, rfft=True)        # the forward kernel takes it
+    with pytest.raises(ValueError):
+        plan.reconstruct(spec, 9000, rfft=True)
+    with pytest.raises(ValueError):
+        STFT(128, 32).power(x)
+    with pytest.raises(TypeError):
+        tik.istft(torch.zeros(2, 5, 513, dtype=torch.complex128, device=dev),
+                  1024, 256, 2048, STFT(1024, 256).win(dev),
+                  torch.ones(2048, device=dev))
+    with pytest.raises(ValueError):
+        SpectralGate(device=dev)(x.cpu())

@@ -47,8 +47,8 @@ def test_chain_matches_jax_chain(rng, algorithm, tol):
     x = rng.standard_normal((2, 24000)).astype(np.float32)
     want = JaxChain(head_algorithm=algorithm,
                     stft_algorithm=algorithm)(jnp.asarray(x))
-    got = NorthStarChain(head_algorithm=algorithm,
-                         stft_algorithm=algorithm)(torch.as_tensor(x))
+    got = NorthStarChain(head_algorithm=algorithm, stft_algorithm=algorithm,
+                         device="cpu")(torch.as_tensor(x))
     assert got.shape == want.shape == (2, 60, 20)
     assert got.dtype == torch.float32
     assert _rel(got, want) < tol
@@ -83,7 +83,8 @@ def _chain_oracle(x64, chain):
 @pytest.mark.parametrize("algorithm,tol", [("bf16x3", 5e-5), ("f32", 1e-5)])
 def test_chain_f64_oracle_parity(rng, algorithm, tol):
     x64 = rng.standard_normal((2, 48000))
-    chain = NorthStarChain(head_algorithm=algorithm, stft_algorithm=algorithm)
+    chain = NorthStarChain(head_algorithm=algorithm, stft_algorithm=algorithm,
+                           device="cpu")
     got = chain(torch.as_tensor(x64, dtype=torch.float32))
     want = _chain_oracle(x64, chain)
     assert got.shape == want.shape
@@ -114,7 +115,7 @@ def test_stft_process_rank_and_complex(rng):
 def test_kernel_with_torch_vjp_gradient_is_the_plain_one(rng):
     """Forward is the fast callable's, backward the reference's VJP: here
     fast = the bf16x3 head, ref = the f32 head."""
-    h = NorthStarChain().fir_coeffs.astype(np.float64)
+    h = NorthStarChain(device="cpu").fir_coeffs.astype(np.float64)
     g, off = trs._fused_fir_resample_filter(tuple(h), 4, 3)
     taps = tuf.polyphase_table(g, 4, "cpu")
     fast = lambda v: tuf.upfirdn_banded(v, taps, 4, 3, off, 4000, "bf16x3")
@@ -146,8 +147,8 @@ def test_chain_gradient_matches_jax(rng):
     ref = JaxChain(head_algorithm="f32", stft_algorithm="f32")
     want = jax.grad(lambda v: jnp.sum(ref(v)))(jnp.asarray(x))
     xt = torch.as_tensor(x).requires_grad_(True)
-    NorthStarChain(head_algorithm="f32",
-                   stft_algorithm="f32")(xt).sum().backward()
+    NorthStarChain(head_algorithm="f32", stft_algorithm="f32",
+                   device="cpu")(xt).sum().backward()
     assert torch.isfinite(xt.grad).all()
     assert _rel(xt.grad, want) < 1e-4
 
@@ -188,16 +189,28 @@ def test_precision_and_dtype_policy():
 
 def test_unported_chain_options_raise():
     with pytest.raises(NotImplementedError):
-        NorthStarChain(fused_head=False)
+        NorthStarChain(fused_head=False, device="cpu")
 
 
 def test_chain_module_moves_its_buffers():
-    chain = NorthStarChain().to(torch.float32)
+    chain = NorthStarChain(device="cpu").to(torch.float32)
     assert chain.head_taps.shape == (4, 1044)
     assert chain.window.shape == (2048,)
     assert chain.mel_fb.shape == (80, 1025)
     assert chain.dct_lift.shape == (20, 80)
     assert all(b.device.type == "cpu" for b in chain.buffers())
+
+
+def test_chain_builds_on_the_card_by_default(monkeypatch):
+    """The default device is the card: without one the chain raises
+    instead of building on the CPU, and an input on another device than
+    the buffers is refused, not moved."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NorthStarChain()
+    chain = NorthStarChain(device="cpu")
+    with pytest.raises(ValueError, match="buffers on cpu"):
+        chain(torch.zeros(1, 4000, device="meta"))
 
 
 def _imported_modules(path):
@@ -215,7 +228,8 @@ def test_port_never_imports_jax():
     may import jax into every process, so a fresh import could not tell."""
     files = sorted((REPO / "vv_dsp_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) >= 15
+    assert len(files) >= 24
+    assert {"istft_kernels.py", "packed.py"} <= {p.name for p in files}
     for path in files:
         for mod in _imported_modules(path):
             root = mod.split(".")[0]
@@ -223,5 +237,7 @@ def test_port_never_imports_jax():
 
 
 def test_counters_start_as_plain_integers():
-    for fn in (tuf.upfirdn_banded, tsk.stft_mfcc, tsk.stft_spectrum):
+    from vv_dsp_tpu_torch.ops import istft_kernels as tik
+    for fn in (tuf.upfirdn_banded, tsk.stft_mfcc, tsk.stft_spectrum,
+               tsk.stft_power, tik.istft):
         assert isinstance(fn.launches, int)

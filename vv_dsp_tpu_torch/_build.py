@@ -2,7 +2,10 @@
 
 The kernels live as CUDA C++ under ``csrc/`` with a plain C interface. On
 first use, ``library()`` compiles every ``csrc/*.cu`` with ``nvcc`` for
-Hopper (``sm_90a``) into one shared library under
+Hopper (``sm_90a``), one ``nvcc`` per source, all started together (so
+the build takes as long as the slowest source, not the sum of them, as
+sources are added within chip_smoke.py's fixed time limit), links the
+objects into one shared library under
 ``build/vv_dsp_tpu_torch/<hash of the sources and flags>/`` beside the
 package, and loads it with ``ctypes``. A later process with the same
 sources reuses the library. A failed build raises with nvcc's stderr.
@@ -25,7 +28,7 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = (Path(__file__).resolve().parent.parent / "build"
               / "vv_dsp_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvv_dsp_kernels.so"
 
 
@@ -55,18 +58,29 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: a concurrent process sees
-    # either no library or a whole one
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(p) for p in srcs if p.suffix == ".cu")]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(r.stdout + r.stderr)
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, lib)
+    # build in a temporary directory, then rename the library: a concurrent
+    # process sees either no library or a whole one
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        cus = [p for p in srcs if p.suffix == ".cu"]
+        objs = [os.path.join(tmp_dir, p.stem + ".o") for p in cus]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o,
+                                   str(p)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(cus, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        tmp = os.path.join(tmp_dir, LIB_NAME)
+        failed = [f"{p.name}:\n{log}" for p, proc, log in zip(cus, procs, logs)
+                  if proc.returncode != 0]
+        if not failed:
+            r = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs],
+                               capture_output=True, text=True)
+            logs.append(r.stdout + r.stderr)
+            if r.returncode != 0:
+                failed.append(f"link:\n{r.stdout + r.stderr}")
+        (out_dir / "build.log").write_text("".join(logs))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(tmp, lib)
     return lib
 
 
@@ -80,7 +94,10 @@ def library() -> ctypes.CDLL:
     lib.vv_stft_spectrum.argtypes = [P, P, P, P, P, I, L, I, I, I, I, I, P]
     lib.vv_stft_mfcc.argtypes = [P, P, P, P, P, P, P, P, P, I, L, I, I, I, I,
                                  I, F, I, I, I, P]
-    for fn in (lib.vv_upfirdn, lib.vv_stft_spectrum, lib.vv_stft_mfcc):
+    lib.vv_stft_power.argtypes = [P, P, P, P, P, I, L, I, I, I, I, P]
+    lib.vv_istft.argtypes = [P, P, P, P, P, P, I, I, I, I, L, I, F, I, P]
+    for fn in (lib.vv_upfirdn, lib.vv_stft_spectrum, lib.vv_stft_mfcc,
+               lib.vv_stft_power, lib.vv_istft):
         fn.restype = I
     lib.vv_error_string.argtypes = [I]
     lib.vv_error_string.restype = ctypes.c_char_p

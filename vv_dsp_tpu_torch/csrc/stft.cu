@@ -1,14 +1,18 @@
-// Windowed packed-real STFT kernels: the complex spectrum and the fused
-// STFT -> power -> mel -> log -> DCT (MFCC) front end.
+// Windowed packed-real STFT kernels: the complex spectrum, the power
+// spectrogram and the fused STFT -> power -> mel -> log -> DCT (MFCC) front
+// end.
 //
-// Both replace kernels of vv_dsp_tpu/ops/pallas_fft.py:
+// They replace kernels of vv_dsp_tpu/ops/pallas_fft.py:
 //   stft_spectrum_kernel replaces _stft_spectrum_packed_kernel and its
 //     _manual variant (launcher _spectrum_packed_planes, entry
 //     stft_spectrum_packed) together with its XLA epilogue
 //     _packed_natural_full / _packed_natural_onesided;
 //   stft_mfcc_kernel replaces _stft_mel_packed_kernel (launcher
 //     _stft_mel_call_packed, entries stft_mfcc_pallas and
-//     stft_mel_energies_pallas).
+//     stft_mel_energies_pallas);
+//   stft_power_kernel replaces _stft_power_packed_kernel (entry
+//     stft_power_packed) together with its _packed_natural_onesided
+//     epilogue.
 //
 // Per (channel, frame) block: frame f covers x[f*hop, f*hop + nfft), zero
 // past the signal. Its nfft-point real FFT is an m = nfft/2 point complex
@@ -22,6 +26,10 @@
 // STFT row (16 x 1873 frames x 1024 bins), so it is bound by device-memory
 // writes; each thread stores whole (re, im) pairs at consecutive bins, and
 // the Hermitian mirror bins nfft/2+1..nfft-1 are written by the same kernel.
+// The power kernel reads 4 bytes a sample and writes 4 bytes a bin (92 MB
+// at 16 x 480000, 1024/256), so it is bound by device memory too; it
+// writes re^2 + im^2 of bins 0..m in natural order, so the TPU kernel's
+// storage-order permutation epilogue has no counterpart.
 // The MFCC kernel reads the signal and writes 20 floats a frame; the
 // frames, the spectrum and the power never leave shared memory, which is
 // what the TPU kernel exists for. Its ~1.2 GFLOP at the chain's shape are
@@ -108,6 +116,24 @@ stft_spectrum_kernel(const float* __restrict__ x,
   }
 }
 
+// out: (channels, nf, nfft/2 + 1) |X[k]|^2, natural bin order
+__global__ void __launch_bounds__(STFT_THREADS)
+stft_power_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                  const float2* __restrict__ tw,
+                  const float2* __restrict__ wk, float* __restrict__ out,
+                  long long n, int nf, int nfft, int hop) {
+  extern __shared__ float2 z[];
+  const int f = blockIdx.x, c = blockIdx.y;
+  const int m = nfft / 2, log2m = __ffs(m) - 1;
+  packed_frame_fft(x + (long long)c * n, n, (long long)f * hop, win, tw, z, m,
+                   log2m);
+  float* o = out + ((long long)c * nf + f) * (m + 1);
+  for (int k = threadIdx.x; k <= m; k += STFT_THREADS) {
+    const float2 v = unpack_bin(z, wk, k, m);
+    o[k] = v.x * v.x + v.y * v.y;
+  }
+}
+
 // out: (channels, nf, n_mfcc) MFCCs when FUSE_DCT, else (channels, nf,
 // n_mels) mel energies. fb: (n_mels, m+1) dense filterbank whose row b is
 // zero outside bins [band_lo[b], band_hi[b]); dct: (n_mfcc, n_mels), the
@@ -176,6 +202,19 @@ extern "C" int vv_stft_spectrum(const float* x, const float* win,
   stft_spectrum_kernel<<<grid, STFT_THREADS, smem, (cudaStream_t)stream>>>(
       x, win, (const float2*)tw, (const float2*)wk, (float2*)out, n, nf, nfft,
       hop, bins);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vv_stft_power(const float* x, const float* win, const void* tw,
+                             const void* wk, float* out, int channels,
+                             long long n, int nf, int nfft, int hop,
+                             int device, void* stream) {
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const size_t smem = (size_t)(nfft / 2) * sizeof(float2);
+  const dim3 grid((unsigned)nf, (unsigned)channels);
+  stft_power_kernel<<<grid, STFT_THREADS, smem, (cudaStream_t)stream>>>(
+      x, win, (const float2*)tw, (const float2*)wk, out, n, nf, nfft, hop);
   return (int)cudaGetLastError();
 }
 

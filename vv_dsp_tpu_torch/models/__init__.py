@@ -1,5 +1,8 @@
 """Pipelines of the port (counterparts of vv_dsp_tpu.models)."""
 
-from vv_dsp_tpu_torch.models.pipeline import NorthStarChain, chain_params
+from vv_dsp_tpu_torch.models.pipeline import (MFCCFrontend, NorthStarChain,
+                                              SpectralGate, chain_params,
+                                              frontend_params)
 
-__all__ = ["NorthStarChain", "chain_params"]
+__all__ = ["MFCCFrontend", "NorthStarChain", "SpectralGate", "chain_params",
+           "frontend_params"]

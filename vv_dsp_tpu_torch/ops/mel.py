@@ -117,25 +117,37 @@ def mfcc_dct_np(n_mels: int, n_coeffs: int, lifter: float = 0.0) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
+def _mel_constants(nfft: int, n_mels: int, sample_rate: float, fmin: float,
+                   fmax: float, variant: str, window: str, window_param,
+                   device: torch.device):
+    """(window, filterbank, band edges) on `device`."""
+    fb = mel_filterbank_np(nfft, n_mels, sample_rate, fmin, fmax, variant)
+    return (torch.as_tensor(get_window_np(window, nfft, window_param),
+                            dtype=torch.float32, device=device),
+            torch.as_tensor(fb, dtype=torch.float32, device=device),
+            torch.as_tensor(_sk.band_edges_np(fb), device=device))
+
+
+@functools.lru_cache(maxsize=16)
 def _mfcc_constants(nfft: int, n_mels: int, n_coeffs: int, sample_rate: float,
                     fmin: float, fmax: float, lifter: float, variant: str,
                     window: str, window_param, device: torch.device):
-    def on(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
-    fb = mel_filterbank_np(nfft, n_mels, sample_rate, fmin, fmax, variant)
-    return (on(get_window_np(window, nfft, window_param)), on(fb),
-            torch.as_tensor(_sk.band_edges_np(fb), device=device),
-            on(mfcc_dct_np(n_mels, n_coeffs, lifter)))
+    """(window, filterbank, band edges, liftered DCT rows) on `device`."""
+    dct = torch.as_tensor(mfcc_dct_np(n_mels, n_coeffs, lifter),
+                          dtype=torch.float32, device=device)
+    return _mel_constants(nfft, n_mels, sample_rate, fmin, fmax, variant,
+                          window, window_param, device) + (dct,)
 
 
 def mfcc_stft_with(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
                    mel_fb: torch.Tensor, bands: torch.Tensor,
-                   dct: torch.Tensor, log_epsilon: float = 1e-10,
+                   dct: torch.Tensor | None, log_epsilon: float = 1e-10,
                    algorithm: str | None = None) -> torch.Tensor:
     """Signal -> MFCC from device constants: window (nfft,), mel_fb
     (n_mels, nfft//2+1) and dct (n_coeffs, n_mels) float32 tensors and the
     filterbank's band edges (``stft_kernels.band_edges_np``, int32) on x's
-    device. (..., n) -> (..., frames, n_coeffs)."""
+    device. (..., n) -> (..., frames, n_coeffs), or the mel energies
+    (..., frames, n_mels) when dct is None."""
     x = config.as_compute(x)
     if x.is_complex():
         raise TypeError("mfcc_stft requires real input")
@@ -169,3 +181,19 @@ def mfcc_stft(x: torch.Tensor, nfft: int, hop: int, n_mels: int,
         float(lifter), variant, window, window_param, torch.device(x.device))
     return mfcc_stft_with(x, nfft, hop, win, fb, bands, dct, log_epsilon,
                           algorithm)
+
+
+def mel_energies_stft(x: torch.Tensor, nfft: int, hop: int, n_mels: int,
+                      sample_rate: float, window: str = "hann",
+                      window_param=None, fmin: float = 0.0,
+                      fmax: float | None = None, variant: str = "htk",
+                      algorithm: str | None = None) -> torch.Tensor:
+    """Signal -> STFT power -> mel energies, (..., n) -> (..., frames,
+    n_mels): the MFCC kernel without its log and DCT."""
+    if fmax is None:
+        fmax = sample_rate / 2.0
+    win, fb, bands = _mel_constants(nfft, n_mels, float(sample_rate),
+                                    float(fmin), float(fmax), variant, window,
+                                    window_param, torch.device(x.device))
+    return mfcc_stft_with(x, nfft, hop, win, fb, bands, None,
+                          algorithm=algorithm)

@@ -1,14 +1,16 @@
-"""Kernels 2 and 3 of the port, with their plain versions: the windowed
-packed-real STFT spectrum and the fused STFT -> mel -> log -> DCT (MFCC)
-front end (the parts of ``vv_dsp_tpu/ops/pallas_fft.py`` on the north-star
-path: ``stft_spectrum_packed`` and ``stft_mfcc_pallas`` /
+"""The port's forward STFT kernels, with their plain versions: the windowed
+packed-real STFT spectrum, the one-sided power spectrogram and the fused
+STFT -> mel -> log -> DCT (MFCC) front end (the parts of
+``vv_dsp_tpu/ops/pallas_fft.py`` behind ``stft_spectrum_packed``,
+``stft_power_packed`` and ``stft_mfcc_pallas`` /
 ``stft_mel_energies_pallas``).
 
 Frame f covers x[f*hop, f*hop + nfft), zero-padded past the signal, and a
 signal of n samples has ``stft_num_frames(n, nfft, hop)`` frames. On a CUDA
 tensor ``stft_spectrum`` and ``stft_mfcc`` launch the kernels in
 ``csrc/stft.cu``, or raise; on a CPU tensor they run the plain versions
-(framing, window, ``torch.fft``, matmuls at the same tier).
+(framing, window, ``torch.fft``, matmuls at the same tier). The same holds
+for ``stft_power``.
 """
 
 from __future__ import annotations
@@ -95,6 +97,39 @@ def stft_spectrum(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
 
 
 stft_spectrum.launches = 0
+
+
+def stft_power_plain(x: torch.Tensor, nfft: int, hop: int,
+                     window: torch.Tensor) -> torch.Tensor:
+    """|rfft(w * frame)|^2: (..., n) -> (..., frames, nfft//2+1), natural
+    bin order (real input only)."""
+    spec = stft_spectrum_plain(x, nfft, hop, window, onesided=True)
+    return spec.real * spec.real + spec.imag * spec.imag
+
+
+def stft_power(x: torch.Tensor, nfft: int, hop: int,
+               window: torch.Tensor) -> torch.Tensor:
+    """(c, n) float32 -> (c, frames, nfft//2+1) float32 one-sided power in
+    one kernel pass on a CUDA tensor: the complex spectrum never leaves
+    shared memory."""
+    if x.device.type == "cpu":
+        return stft_power_plain(x, nfft, hop, window)
+    _check_signal(x, window, nfft, hop, "stft_power")
+    c, n = x.shape
+    nf = stft_num_frames(n, nfft, hop)
+    out = torch.empty((c, nf, nfft // 2 + 1), dtype=torch.float32,
+                      device=x.device)
+    tw, wk = _fft_tables(nfft, x.device)
+    err = _build.library().vv_stft_power(
+        _build.ptr(x), _build.ptr(window), _build.ptr(tw), _build.ptr(wk),
+        _build.ptr(out), c, n, nf, nfft, hop, x.device.index,
+        _build.stream_handle(x))
+    _build.check(err, "stft_power")
+    stft_power.launches += 1
+    return out
+
+
+stft_power.launches = 0
 
 
 def stft_mfcc_plain(x: torch.Tensor, nfft: int, hop: int,

@@ -2,9 +2,11 @@
 
     python -m vv_dsp_tpu_torch.tools.profile_path [--calls 20]
 
-Runs NorthStarChain on (16, 479232) at its default tiers and at f32, and
-STFT(1024, 256).process(x, rfft=False) on (16, 480000), each ``calls``
-times back to back under torch.profiler. For each it prints, per call:
+Runs NorthStarChain on (16, 479232) at its default tiers and at f32,
+STFT(1024, 256).process(x, rfft=False) on (16, 480000), SpectralGate() and
+the STFT 1024/256 roundtrip (process(x, rfft=True) -> reconstruct) on
+(16, 479232), each ``calls`` times back to back under torch.profiler. For
+each it prints, per call:
 
 - wall: host time of the loop, synchronized at its end;
 - busy: the union of the trace's kernel, memcpy and memset intervals, so
@@ -84,7 +86,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_path: no CUDA device")
-    from vv_dsp_tpu_torch.models import NorthStarChain
+    from vv_dsp_tpu_torch.models import NorthStarChain, SpectralGate
     from vv_dsp_tpu_torch.ops.stft import STFT
 
     dev = torch.device("cuda", 0)
@@ -98,13 +100,18 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.splitlines()[0]
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}")
-    chain = NorthStarChain().to(dev)
-    chain_f32 = NorthStarChain(head_algorithm="f32",
-                               stft_algorithm="f32").to(dev)
+    chain = NorthStarChain(device=dev)
+    chain_f32 = NorthStarChain(head_algorithm="f32", stft_algorithm="f32",
+                               device=dev)
     plan = STFT(1024, 256)
+    gate = SpectralGate(device=dev)
+    n = xc.shape[-1]
     report("chain [bf16x3]", lambda: chain(xc), args.calls)
     report("chain [f32]", lambda: chain_f32(xc), args.calls)
     report("stft 1024/256", lambda: plan.process(xs, rfft=False), args.calls)
+    report("SpectralGate 1024/256", lambda: gate(xc), args.calls)
+    report("roundtrip 1024/256", lambda: plan.reconstruct(
+        plan.process(xc, rfft=True), n, rfft=True), args.calls)
     return 0
 
 

@@ -10,16 +10,24 @@ Phases, each fatal on failure:
    chain's and at MFCCFrontend's geometry), within its tolerance,
    with CUDA-event times of both, of one PyTorch library call computing
    the same function where there is one, and the bound reckoned from the
-   shapes; then tier probes, inputs on which a kernel must match the plain
-   version at its own tier and land beyond the limit against another tier
-   (the controls);
+   shapes. The full-nfft kernels are held the same way at the shapes
+   their entry points give them (power, mel/MFCC and the fused gate at
+   128/32 on (16, 479232), the spectrum at 512/8 on (16, 480000), with the
+   packed spectrum kernel timed on that input), and at one geometry of
+   the other kind each on 2 channels (1024/8 for power, mel and gate;
+   128/32 for the spectrum). Then tier probes, inputs on which a kernel
+   must match the plain version at its own tier and land beyond the limit
+   against another tier (the controls);
 4. slice: through the public entry points, each with every launch counter
    zeroed just before it and read just after, NorthStarChain on
    (16, 479232), STFT(1024, 256).process on (16, 480000), SpectralGate() on
    (16, 479232), the natural-order and the packed STFT 1024/256 roundtrips
-   on (16, 479232), STFT(1024, 256).power on (16, 480000) and
-   MFCCFrontend() on (16, 479232); each path's launch counts equal to the
-   kernels it must run, output shapes, finite values, float64
+   on (16, 479232), STFT(1024, 256).power on (16, 480000),
+   MFCCFrontend() on (16, 479232), then the full-nfft paths:
+   STFT(128, 32).power, MFCCFrontend(128, 32, 26 mels, 13 MFCCs, 8 kHz)
+   and SpectralGate(128, 32) on (16, 479232), and STFT(512, 8).process
+   two- and one-sided on (16, 480000); each path's launch counts equal to
+   the kernels it must run, output shapes, finite values, float64
    numpy/scipy oracles on 2 channels (SpectralGate on a probe input whose
    every bin lies far from the threshold), the roundtrip against its
    input; then the throughput of each row.
@@ -67,6 +75,14 @@ UPFIRDN_PROBE_TOL = 2.5e-7
 MFCC_PROBE_TOL = 2.5e-6  # of sum_b |dct[q, b]| (|log mel_b| + 1)
 ORACLE_TOL = 5e-5       # the reference's parity contract, of max |value|
 ROUNDTRIP_TOL = 3e-5    # absolute, tests/test_pallas_fft.py's identity pin
+# the full-nfft kernels: 5e-5 (the FFT-class contract) for the spectrum,
+# power and mel energies, MFCC_TOL for MFCCs, and for the fused gate 5e-6 of
+# scale on the samples SpectralGate keeps, at threshold 0 on dense input and
+# at GATE_T on the tone probe (ISTFT_TOL's pin)
+STOCKHAM_TOL = 5e-5
+GATE_TOL = 5e-6
+SMALL = (128, 32)              # the 128-point frames of the full-nfft paths
+DENSE = (512, 8)               # the hop-8 spectrum row
 
 
 def device_phase() -> str:
@@ -139,6 +155,18 @@ def bound(nbytes: float, flops: float, flop_rate: float) -> dict:
 def fft_flops(frames: int, nfft: int) -> float:
     """Operations of one real nfft-point FFT per frame (2.5 N log2 N)."""
     return frames * 2.5 * nfft * np.log2(nfft)
+
+
+def mel_bound(x, out, front) -> dict:
+    """The fused STFT -> mel -> log -> DCT front end's bound: the signal
+    read and the features written once; per frame a real FFT, the powers,
+    the mel products over the filterbank's nonzero weights and the DCT."""
+    nfft, n_mels = front.nfft, front.mel_fb.shape[0]
+    frames = out.shape[0] * out.shape[1]
+    return bound(4 * (x.numel() + out.numel()),
+                 fft_flops(frames, nfft) + frames * (
+                     3 * (nfft // 2 + 1) + 2 * int((front.mel_fb != 0).sum())
+                     + 2 * n_mels * out.shape[2]), F32_FLOP_PER_S)
 
 
 def impulses(n: int, period: int, first: int, seed: int) -> torch.Tensor:
@@ -223,7 +251,7 @@ def record(name, label, got, want, tol, fast, plain, failed: list,
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def kernel_phase(xc, xs, chain, front) -> dict:
+def kernel_phase(xc, xs, chain, front, front128) -> dict:
     """Each kernel against its plain version at the main path's shapes
     (the MFCC kernel at the chain's and at MFCCFrontend's geometry)."""
     from vv_dsp_tpu_torch.ops import resample as rs
@@ -283,13 +311,7 @@ def kernel_phase(xc, xs, chain, front) -> dict:
             results["stft_mfcc"] = r
     tier_gap("stft_mfcc bf16", sk.stft_mfcc(y, *mfcc_args, "bf16"),
              sk.stft_mfcc_plain(y, *plain_args, "f32"), "f32")
-    nf_mfcc = c * got.shape[1]
-    n_mels, n_mfcc = chain.mel_fb.shape[0], chain.dct_lift.shape[0]
-    results["stft_mfcc"].update(bound(
-        4 * (y.numel() + got.numel()),
-        fft_flops(nf_mfcc, chain.nfft) + nf_mfcc * (
-            3 * (chain.nfft // 2 + 1) + 2 * int((chain.mel_fb != 0).sum())
-            + 2 * n_mels * n_mfcc), F32_FLOP_PER_S))
+    results["stft_mfcc"].update(mel_bound(y, got, chain))
     results["stft_mfcc"]["library_ms"] = None
     print("  stft_mfcc library call: none (no single PyTorch call computes "
           "STFT -> mel -> log -> DCT)")
@@ -299,8 +321,12 @@ def kernel_phase(xc, xs, chain, front) -> dict:
     front_plain = front_args[:4] + front_args[5:]
     fast = lambda: sk.stft_mfcc(xc, *front_args)
     plain = lambda: sk.stft_mfcc_plain(xc, *front_plain)
-    r = record("stft_mfcc", "MFCCFrontend f32", fast(), plain(), MFCC_TOL,
+    got = fast()
+    r = record("stft_mfcc", "MFCCFrontend f32", got, plain(), MFCC_TOL,
                fast, plain, failed)
+    r.update(mel_bound(xc, got, front))
+    print(f"  stft_mfcc [MFCCFrontend f32] bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']})")
     results["stft_mfcc"].update({f"frontend_{k}": v for k, v in r.items()})
 
     win = STFT(NFFT, HOP).win(xs.device)
@@ -339,6 +365,7 @@ def kernel_phase(xc, xs, chain, front) -> dict:
     results["stft_power"] = r
 
     results.update(istft_phase(xc, win, failed))
+    results.update(stockham_phase(xc, xs, front128, failed))
     tier_probes((up, down, offset, n_out, taps), mfcc_args, failed)
     torch.cuda.synchronize()
     if failed:
@@ -408,6 +435,181 @@ def istft_phase(xc, win, failed: list) -> dict:
     return out
 
 
+def stockham_phase(xc, xs, front128, failed: list) -> dict:
+    """The full-nfft kernels against their plain versions: power, mel/MFCC
+    and the fused gate at 128/32 on (16, 479232), the spectrum at 512/8 on
+    (16, 480000) (the shapes their entry points give them), and each at one
+    geometry of the other kind on 2 channels."""
+    from vv_dsp_tpu_torch.ops import stft_kernels as sk
+    from vv_dsp_tpu_torch.ops import stockham_kernels as stk
+    from vv_dsp_tpu_torch.ops.mel import _mel_constants
+    from vv_dsp_tpu_torch.ops.stft import STFT
+
+    def io(got, x) -> str:
+        return (f"2 ch: {4 * x.numel() / 1e6:.2f} MB in, "
+                f"{got.element_size() * got.numel() / 1e6:.2f} MB out")
+
+    out = {}
+    c, dev = xc.shape[0], xc.device
+    x2 = xs[:2]                  # 2 x 480000 samples, 3.84 MB
+    win128, win1024 = STFT(*SMALL).win(dev), STFT(1024, 8).win(dev)
+
+    fast = lambda: stk.stft_power_stockham(xc, *SMALL, win128)
+    plain = lambda: stk.stft_power_stockham_plain(xc, *SMALL, win128)
+    got = fast()
+    r = record("stft_power_stockham", "128/32", got, plain(), STOCKHAM_TOL,
+               fast, plain, failed)
+    r.update(bound(4 * (xc.numel() + got.numel()),
+                   fft_flops(c * got.shape[1], SMALL[0]), F32_FLOP_PER_S))
+    r["library_ms"] = None
+    print(f"  stft_power_stockham bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}); library call: none (torch.stft writes the "
+          f"complex spectrum; the power takes another pass)")
+    out["stft_power_stockham"] = r
+    fast = lambda: stk.stft_power_stockham(x2, 1024, 8, win1024)
+    plain = lambda: stk.stft_power_stockham_plain(x2, 1024, 8, win1024)
+    got = fast()
+    record("stft_power_stockham", f"1024/8, {io(got, x2)}", got, plain(),
+           STOCKHAM_TOL, fast, plain, failed)
+
+    mel_args = (front128.window, front128.mel_fb, front128.mel_bands,
+                front128.dct_lift)
+    fast = lambda: stk.stft_mel_stockham(xc, *SMALL, *mel_args)
+    plain = lambda: stk.stft_mel_stockham_plain(
+        xc, *SMALL, front128.window, front128.mel_fb, front128.dct_lift)
+    got = fast()
+    r = record("stft_mel_stockham", "MFCCFrontend 128/32", got, plain(),
+               MFCC_TOL, fast, plain, failed)
+    r.update(mel_bound(xc, got, front128))
+    r["library_ms"] = None
+    print(f"  stft_mel_stockham bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}); library call: none (no single PyTorch call "
+          f"computes STFT -> mel -> log -> DCT)")
+    out["stft_mel_stockham"] = r
+    w, fb, bands = _mel_constants(1024, 40, 16000.0, 0.0, 8000.0, "htk",
+                                  "hann", None, dev)
+    fast = lambda: stk.stft_mel_stockham(x2, 1024, 8, w, fb, bands)
+    plain = lambda: stk.stft_mel_stockham_plain(x2, 1024, 8, w, fb)
+    got = fast()
+    record("stft_mel_stockham", f"40 mel energies 1024/8, {io(got, x2)}",
+           got, plain(), STOCKHAM_TOL, fast, plain, failed)
+
+    out["stft_gate_stockham"] = gate_phase(xc, x2, failed)
+
+    dense_win = STFT(*DENSE).win(dev)
+    for onesided in (False, True):
+        label = f"512/8 {'one' if onesided else 'two'}-sided"
+        fast = lambda: stk.stft_spectrum_stockham(xs, *DENSE, dense_win,
+                                                  onesided)
+        plain = lambda: stk.stft_spectrum_stockham_plain(xs, *DENSE,
+                                                         dense_win, onesided)
+        got = fast()
+        r = record("stft_spectrum_stockham", label, got, plain(),
+                   STOCKHAM_TOL, fast, plain, failed)
+        packed = lambda: sk.stft_spectrum(xs, *DENSE, dense_win, onesided)
+        r["packed_ms"] = cuda_ms(packed)
+        xs_pad = torch.nn.functional.pad(xs, (0, DENSE[1]))
+        lib = lambda: torch.stft(xs_pad, *DENSE, window=dense_win,
+                                 center=False, onesided=onesided,
+                                 return_complex=True)
+        assert lib().shape == (c, got.shape[2], got.shape[1])
+        r["library_ms"] = cuda_ms(lib)
+        r.update(bound(4 * xs.numel() + 8 * got.numel(),
+                       fft_flops(c * got.shape[1], DENSE[0]), F32_FLOP_PER_S))
+        faster = ("full-nfft" if r["ms"] < r["packed_ms"] else "packed")
+        print(f"  [{label}] packed stft_spectrum kernel {r['packed_ms']:.4f} "
+              f"ms ({faster} is faster); torch.stft (layout c, bins, frames) "
+              f"{r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+        if not onesided:
+            out["stft_spectrum_stockham"] = r
+        else:
+            out["stft_spectrum_stockham"].update(
+                {f"onesided_{k}": v for k, v in r.items()})
+    for onesided in (False, True):
+        fast = lambda: stk.stft_spectrum_stockham(x2, *SMALL, win128,
+                                                  onesided)
+        plain = lambda: stk.stft_spectrum_stockham_plain(x2, *SMALL, win128,
+                                                         onesided)
+        got = fast()
+        record("stft_spectrum_stockham",
+               f"128/32 {'one' if onesided else 'two'}-sided, {io(got, x2)}",
+               got, plain(), STOCKHAM_TOL, fast, plain, failed)
+    return out
+
+
+def gate_phase(xc, x2, failed: list) -> dict:
+    """The fused gate kernel on SpectralGate(128, 32)'s padded (16, 479424)
+    input: at threshold 0 on the dense input (a pure roundtrip; the run's
+    kernel row), at GATE_T on the tone probe, and at GATE_T on the dense
+    input, where bins near the threshold may flip between two FFTs (the
+    count of differing samples is printed, not checked); then threshold 0
+    at 1024/8 (q = 128) on 2 channels."""
+    from vv_dsp_tpu_torch.ops import istft_kernels as ik
+    from vv_dsp_tpu_torch.ops import stockham_kernels as stk
+    from vv_dsp_tpu_torch.ops.framing import stft_num_frames
+    from vv_dsp_tpu_torch.ops.stft import STFT
+    from vv_dsp_tpu_torch.ops.window import get_window_np
+
+    def padded(x, nfft, hop):
+        pad = nfft - hop
+        xp = torch.nn.functional.pad(x, (pad, pad))
+        n_pad = xp.shape[-1]
+        norm = ik.ola_norm(get_window_np("hann", nfft), hop,
+                           stft_num_frames(n_pad, nfft, hop), n_pad, x.device)
+        return xp, norm, STFT(nfft, hop).win(x.device), pad
+
+    xp, norm, win, pad = padded(xc, *SMALL)
+    probe = torch.as_tensor(gate_probe(N_CHAIN, 3, SMALL[0], (10, 25, 45)),
+                            device=xc.device)
+    pp, _, _, _ = padded(probe, *SMALL)
+    r = None
+    for label, x, t, edge in (("128/32, threshold 0", xp, 0.0, pad),
+                              ("128/32 tone probe, threshold 0.1", pp, GATE_T,
+                               2 * pad)):
+        fast = lambda: stk.stft_gate_stockham(x, *SMALL, win, norm, t)
+        plain = lambda: stk.stft_gate_stockham_plain(x, *SMALL, win, norm, t)
+        got, want = fast(), plain()
+        if not torch.equal(got, fast()):
+            failed.append(f"stft_gate_stockham [{label}] differs between two "
+                          f"runs")
+        pre_rel = rel_err(got * norm, want * norm)[1]
+        print(f"  stft_gate_stockham [{label}] before the norm, full length: "
+              f"{pre_rel:.3e} of scale (tol {GATE_TOL:g}) "
+              f"{'ok' if pre_rel < GATE_TOL else 'FAIL'}")
+        if not pre_rel < GATE_TOL:
+            failed.append(f"stft_gate_stockham [{label}] before the norm")
+        rr = record("stft_gate_stockham", label, got, want, GATE_TOL, fast,
+                    plain, failed, edge=edge)
+        if r is None:
+            r = rr
+    got = stk.stft_gate_stockham(xp, *SMALL, win, norm, GATE_T)
+    want = stk.stft_gate_stockham_plain(xp, *SMALL, win, norm, GATE_T)
+    far = ((got - want).abs() > GATE_TOL * want.abs().max()).sum().item()
+    print(f"  stft_gate_stockham dense input at threshold {GATE_T:g}: {far} "
+          f"of {got.numel()} samples differ by more than {GATE_TOL:g} of "
+          f"scale (bins near the threshold; not checked)")
+    r["gated_ms"] = cuda_ms(lambda: stk.stft_gate_stockham(
+        xp, *SMALL, win, norm, GATE_T))
+    c, n_pad = xp.shape
+    nf = stft_num_frames(n_pad, *SMALL)
+    r.update(bound(4 * (2 * xp.numel() + n_pad),
+                   2 * fft_flops(c * nf, SMALL[0]) + c * nf * 4 * SMALL[0],
+                   F32_FLOP_PER_S))
+    r["library_ms"] = None
+    print(f"  stft_gate_stockham gated {r['gated_ms']:.4f} ms; bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}); library call: none (no "
+          f"single PyTorch call computes STFT -> per-frame gate -> ISTFT)")
+    xq, norm_q, win_q, pad_q = padded(x2, 1024, 8)
+    fast = lambda: stk.stft_gate_stockham(xq, 1024, 8, win_q, norm_q, 0.0)
+    plain = lambda: stk.stft_gate_stockham_plain(xq, 1024, 8, win_q, norm_q,
+                                                 0.0)
+    record("stft_gate_stockham", f"1024/8, threshold 0, 2 ch: "
+           f"{4 * xq.numel() / 1e6:.2f} MB each way", fast(), plain(),
+           GATE_TOL, fast, plain, failed, edge=pad_q)
+    return r
+
+
 def chain_oracle(x64: np.ndarray, chain) -> np.ndarray:
     """The whole chain in float64 numpy/scipy (tests/test_models.py's
     oracle): lfilter -> resample_poly -> framed rfft power -> mel -> log ->
@@ -452,42 +654,44 @@ def frames64(x64: np.ndarray, nfft: int, hop: int) -> np.ndarray:
     return xp[:, idx]
 
 
-def gate_probe(n: int, seed: int) -> np.ndarray:
-    """(2, n) tones at bin centres of the 1024-point frame (bins 40, 97 and
-    211 at amplitudes 1, 0.7 and 0.02) over N(0, 1e-4^2) noise. In every
-    frame that lies inside the signal, each bin's power is >= 10x above or
-    below 0.01 of the frame's peak: the main lobes at 1, 0.49 and 4e-4 of
-    the peak, their Hann neighbours at 0.25, 0.1225 and 1e-4, the noise
-    near 1e-8."""
+def gate_probe(n: int, seed: int, nfft: int = NFFT,
+               bins=(40, 97, 211)) -> np.ndarray:
+    """(2, n) tones at bin centres of the nfft-point frame (the three bins
+    at amplitudes 1, 0.7 and 0.02) over N(0, 1e-4^2) noise. In every frame
+    that lies inside the signal, each bin's power is >= 10x above or below
+    0.01 of the frame's peak: the main lobes at 1, 0.49 and 4e-4 of the
+    peak, their Hann neighbours at 0.25, 0.1225 and 1e-4, the noise far
+    below (gate_oracle measures the factor)."""
     rng = np.random.default_rng(seed)
     t = np.arange(n)
     x = 1e-4 * rng.standard_normal((2, n))
-    for k, a in ((40, 1.0), (97, 0.7), (211, 0.02)):
-        x += a * np.cos(2 * np.pi * k * t / NFFT
+    for k, a in zip(bins, (1.0, 0.7, 0.02)):
+        x += a * np.cos(2 * np.pi * k * t / nfft
                         + rng.uniform(0, 2 * np.pi, (2, 1)))
     return x.astype(np.float32)
 
 
-def gate_oracle(x64: np.ndarray, threshold: float) -> tuple:
-    """SpectralGate() in float64 numpy: (output, the smallest factor by
-    which a bin's power clears t^2 times its frame's peak, over the frames
-    that lie inside the signal)."""
+def gate_oracle(x64: np.ndarray, threshold: float, nfft: int = NFFT,
+                hop: int = HOP) -> tuple:
+    """SpectralGate(nfft, hop) in float64 numpy: (output, the smallest
+    factor by which a bin's power clears t^2 times its frame's peak, over
+    the frames that lie inside the signal)."""
     from vv_dsp_tpu_torch.ops.window import get_window_np
-    n, pad = x64.shape[-1], NFFT - HOP
-    w = get_window_np("hann", NFFT)
-    fr = frames64(np.pad(x64, ((0, 0), (pad, pad))), NFFT, HOP)
+    n, pad = x64.shape[-1], nfft - hop
+    w = get_window_np("hann", nfft)
+    fr = frames64(np.pad(x64, ((0, 0), (pad, pad))), nfft, hop)
     spec = np.fft.rfft(fr * w, axis=-1)
     p2 = np.abs(spec) ** 2
     level = threshold ** 2 * p2.max(axis=-1, keepdims=True)
-    inside = slice(pad // HOP, (pad + n - NFFT) // HOP + 1)
+    inside = slice(pad // hop, (pad + n - nfft) // hop + 1)
     factor = 10 ** np.abs(np.log10(p2[:, inside] / level[:, inside])).min()
-    y = np.fft.irfft(np.where(p2 >= level, spec, 0), NFFT, axis=-1) * w
+    y = np.fft.irfft(np.where(p2 >= level, spec, 0), nfft, axis=-1) * w
     nf, total = y.shape[1], n + 2 * pad
-    out = np.zeros((2, (nf - 1) * HOP + NFFT))
+    out = np.zeros((2, (nf - 1) * hop + nfft))
     norm = np.zeros(out.shape[1])
     for f in range(nf):
-        out[:, f * HOP:f * HOP + NFFT] += y[:, f]
-        norm[f * HOP:f * HOP + NFFT] += w * w
+        out[:, f * hop:f * hop + nfft] += y[:, f]
+        norm[f * hop:f * hop + nfft] += w * w
     out, norm = out[:, :total], norm[:total]
     out = out / np.where(norm > 1e-12, norm, 1.0)
     return out[:, pad:pad + n], factor
@@ -516,21 +720,65 @@ def oracle_check(name: str, got, want, tol: float, absolute: bool = False):
         raise AssertionError(f"{name}: {err:.3e} >= {tol:g}")
 
 
-def slice_phase(xc, xs, chain, front, card: str) -> dict:
+def full_nfft_oracles(xc, xs, outs, front128, gate128) -> None:
+    """The full-nfft paths' outputs against float64 numpy on 2 channels:
+    the 128/32 power and MFCCs on the dense input, SpectralGate(128, 32)
+    on its tone probe (the interior, which only frames inside the signal
+    reach), and the first 4096 frames of the 512/8 spectra."""
+    from vv_dsp_tpu_torch.ops.window import get_window_np
+    x2 = xc[:2].double().cpu().numpy()
+    w = get_window_np("hann", SMALL[0])
+    want = np.abs(np.fft.rfft(frames64(x2, *SMALL) * w, axis=-1)) ** 2
+    oracle_check("STFT 128/32 power vs float64 oracle (2 ch)",
+                 outs["power 128/32"][:2].cpu().numpy(), want, ORACLE_TOL)
+    oracle_check("MFCCFrontend 128/32 vs float64 oracle (2 ch)",
+                 outs["MFCCFrontend 128/32"][:2].cpu().numpy(),
+                 frontend_oracle(x2, front128), ORACLE_TOL)
+    probe = gate_probe(N_CHAIN, 3, SMALL[0], (10, 25, 45))
+    want, factor = gate_oracle(probe.astype(np.float64), GATE_T, *SMALL)
+    print(f"gate probe 128/32: every bin of the frames inside the signal "
+          f"clears the threshold by {factor:.2f}x or more (need 10x)")
+    if not factor >= 10:
+        raise AssertionError(f"gate probe too close to the threshold: "
+                             f"{factor:.2f}x")
+    edge = SMALL[0] - SMALL[1]
+    got = gate128(torch.as_tensor(probe, device=xc.device)).cpu().numpy()
+    oracle_check("SpectralGate 128/32 vs float64 oracle on the probe (2 ch), "
+                 "interior", got[:, edge:-edge], want[:, edge:-edge],
+                 ORACLE_TOL)
+    frames, (nfft, hop) = 4096, DENSE
+    head = xs[:2, :(frames - 1) * hop + nfft].double().cpu().numpy()
+    idx = np.arange(frames)[:, None] * hop + np.arange(nfft)[None, :]
+    want = np.fft.fft(head[:, idx] * get_window_np("hann", nfft), axis=-1)
+    for name, bins in (("spectrum 512/8", DENSE[0]),
+                       ("spectrum 512/8 one-sided", DENSE[0] // 2 + 1)):
+        oracle_check(f"STFT {name} vs float64 oracle (2 ch, {frames} frames)",
+                     outs[name][:2, :frames].cpu().numpy(),
+                     want[..., :bins], ORACLE_TOL)
+
+
+def slice_phase(xc, xs, chain, front, front128, card: str) -> dict:
     """Drive every entry point of the slice once, each with the launch
     counters zeroed just before it and read just after, then check and
     time them. Returns each kernel's launches summed over the paths."""
     from vv_dsp_tpu_torch.models import SpectralGate
     from vv_dsp_tpu_torch.ops import istft_kernels as ik
     from vv_dsp_tpu_torch.ops import stft_kernels as sk
+    from vv_dsp_tpu_torch.ops import stockham_kernels as stk
     from vv_dsp_tpu_torch.ops import upfirdn as uf
     from vv_dsp_tpu_torch.ops.stft import STFT
 
     counters = {"upfirdn_banded": uf.upfirdn_banded,
                 "stft_mfcc": sk.stft_mfcc, "stft_spectrum": sk.stft_spectrum,
-                "stft_power": sk.stft_power, "istft": ik.istft}
+                "stft_power": sk.stft_power, "istft": ik.istft,
+                "stft_power_stockham": stk.stft_power_stockham,
+                "stft_mel_stockham": stk.stft_mel_stockham,
+                "stft_gate_stockham": stk.stft_gate_stockham,
+                "stft_spectrum_stockham": stk.stft_spectrum_stockham}
     plan = STFT(NFFT, HOP)
     gate = SpectralGate()
+    small, dense = STFT(*SMALL), STFT(*DENSE)
+    gate128 = SpectralGate(*SMALL, GATE_T)
     ones = torch.ones(NFFT // 2 + 1, device=xc.device)
     roundtrip = lambda: plan.reconstruct(plan.process(xc, rfft=True),
                                          N_CHAIN, rfft=True)
@@ -546,7 +794,16 @@ def slice_phase(xc, xs, chain, front, card: str) -> dict:
         ("roundtrip", roundtrip, synthesis),
         ("packed roundtrip", packed, synthesis),
         ("power", lambda: plan.power(xs), {"stft_power": 1}),
-        ("MFCCFrontend", lambda: front(xc), {"stft_mfcc": 1}))
+        ("MFCCFrontend", lambda: front(xc), {"stft_mfcc": 1}),
+        ("power 128/32", lambda: small.power(xc), {"stft_power_stockham": 1}),
+        ("MFCCFrontend 128/32", lambda: front128(xc),
+         {"stft_mel_stockham": 1}),
+        ("SpectralGate 128/32", lambda: gate128(xc),
+         {"stft_gate_stockham": 1}),
+        ("spectrum 512/8", lambda: dense.process(xs, rfft=False),
+         {"stft_spectrum_stockham": 1}),
+        ("spectrum 512/8 one-sided", lambda: dense.process(xs, rfft=True),
+         {"stft_spectrum_stockham": 1}))
     outs, launches = {}, dict.fromkeys(counters, 0)
     for name, fn, want in paths:
         for counted in counters.values():
@@ -566,6 +823,8 @@ def slice_phase(xc, xs, chain, front, card: str) -> dict:
 
     nf_chain = 1 + (-(-N_CHAIN * 4 // 3) - 2048 + 512) // 512
     nf_front = 1 + (N_CHAIN - NFFT + HOP) // HOP
+    nf_small = 1 + (N_CHAIN - SMALL[0] + SMALL[1]) // SMALL[1]
+    nf_dense = 1 + (N_STFT - DENSE[0] + DENSE[1]) // DENSE[1]
     for name, t, shape, dtype in (
             ("chain", feats, (CHANNELS, nf_chain, 20), torch.float32),
             ("spectrum", spec, (CHANNELS, 1873, NFFT), torch.complex64),
@@ -573,7 +832,17 @@ def slice_phase(xc, xs, chain, front, card: str) -> dict:
             ("roundtrip", rt, (CHANNELS, N_CHAIN), torch.float32),
             ("packed roundtrip", rtp, (CHANNELS, N_CHAIN), torch.float32),
             ("power", power, (CHANNELS, 1873, NFFT // 2 + 1), torch.float32),
-            ("MFCCFrontend", mfcc, (CHANNELS, nf_front, 13), torch.float32)):
+            ("MFCCFrontend", mfcc, (CHANNELS, nf_front, 13), torch.float32),
+            ("power 128/32", outs["power 128/32"],
+             (CHANNELS, nf_small, SMALL[0] // 2 + 1), torch.float32),
+            ("MFCCFrontend 128/32", outs["MFCCFrontend 128/32"],
+             (CHANNELS, nf_small, 13), torch.float32),
+            ("SpectralGate 128/32", outs["SpectralGate 128/32"],
+             (CHANNELS, N_CHAIN), torch.float32),
+            ("spectrum 512/8", outs["spectrum 512/8"],
+             (CHANNELS, nf_dense, DENSE[0]), torch.complex64),
+            ("spectrum 512/8 one-sided", outs["spectrum 512/8 one-sided"],
+             (CHANNELS, nf_dense, DENSE[0] // 2 + 1), torch.complex64)):
         assert tuple(t.shape) == shape, (name, tuple(t.shape))
         assert t.dtype == dtype, (name, t.dtype)
         vals = torch.view_as_real(t) if t.is_complex() else t
@@ -608,13 +877,23 @@ def slice_phase(xc, xs, chain, front, card: str) -> dict:
     oracle_check("MFCCFrontend vs float64 oracle (2 ch)",
                  mfcc[:2].cpu().numpy(), frontend_oracle(x2, front),
                  ORACLE_TOL)
+    full_nfft_oracles(xc, xs, outs, front128, gate128)
 
     rows = (("northstar_chain_throughput", lambda: chain(xc), N_CHAIN),
             ("stft_1024_256_throughput",
              lambda: plan.process(xs, rfft=False), N_STFT),
             ("pipeline_spectral_gate", lambda: gate(xc), N_CHAIN),
             ("stft_1024_roundtrip", roundtrip, N_CHAIN),
-            ("stft_1024_roundtrip_packed", packed, N_CHAIN))
+            ("stft_1024_roundtrip_packed", packed, N_CHAIN),
+            ("stft_128_32_power_throughput", lambda: small.power(xc),
+             N_CHAIN),
+            ("mfcc_frontend_128_32_throughput", lambda: front128(xc),
+             N_CHAIN),
+            ("pipeline_spectral_gate_128_32", lambda: gate128(xc), N_CHAIN),
+            ("stft_512_8_throughput", lambda: dense.process(xs, rfft=False),
+             N_STFT),
+            ("stft_512_8_rfft_throughput",
+             lambda: dense.process(xs, rfft=True), N_STFT))
     for name, fn, n in rows:
         ms = cuda_ms(fn)
         print(f"{name} {CHANNELS * n / ms / 1e3:.2f} Msamples/s "
@@ -639,9 +918,11 @@ def main() -> None:
     xs = torch.as_tensor(rng.standard_normal((CHANNELS, N_STFT)),
                          dtype=torch.float32, device=dev)
     chain, front = NorthStarChain(device=dev), MFCCFrontend(device=dev)
-    kernels = kernel_phase(xc, xs, chain, front)
+    front128 = MFCCFrontend(*SMALL, n_mels=26, n_mfcc=13, sample_rate=8000.0,
+                            device=dev)
+    kernels = kernel_phase(xc, xs, chain, front, front128)
     torch.cuda.synchronize()
-    launches = slice_phase(xc, xs, chain, front, card)
+    launches = slice_phase(xc, xs, chain, front, front128, card)
     torch.cuda.synchronize()
 
     sources = {
@@ -655,6 +936,14 @@ def main() -> None:
                        "vv_dsp_tpu/ops/pallas_fft.py:686"),
         "istft": ("vv_dsp_tpu_torch/csrc/istft.cu",
                   "vv_dsp_tpu/ops/pallas_fft.py:1090"),
+        "stft_mel_stockham": ("vv_dsp_tpu_torch/csrc/stockham.cu",
+                              "vv_dsp_tpu/ops/pallas_fft.py:1598"),
+        "stft_power_stockham": ("vv_dsp_tpu_torch/csrc/stockham.cu",
+                                "vv_dsp_tpu/ops/pallas_fft.py:1649"),
+        "stft_spectrum_stockham": ("vv_dsp_tpu_torch/csrc/stockham.cu",
+                                   "vv_dsp_tpu/ops/pallas_fft.py:1745"),
+        "stft_gate_stockham": ("vv_dsp_tpu_torch/csrc/stockham.cu",
+                               "vv_dsp_tpu/ops/pallas_fft.py:2210"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -2,10 +2,12 @@
 at small shapes and at the edges of each kernel's geometry (ratios whose
 phases differ within a thread, short and ragged signals, every tier, both
 spectrum forms, mel energies, the power spectrogram, and the inverse STFT
-at q = nfft/hop = 1, 2, 4 and 8 with and without its gate). Needs an
-NVIDIA GPU and nvcc; skips
-without them. Run on the card (this file imports neither jax nor the JAX
-package, so the suite's jax conftest is not needed):
+at q = nfft/hop = 1, 2, 4 and 8 with and without its gate, and the
+full-nfft kernels at nfft = 128 and hop = 8: short signals, one frame,
+hop == nfft, q = 128, one channel, bit-identical reruns of the fused gate).
+Needs an NVIDIA GPU and nvcc; skips without them. Run on the card (this
+file imports neither jax nor the JAX package, so the suite's jax conftest
+is not needed):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -46,7 +48,9 @@ from vv_dsp_tpu_torch.ops import istft_kernels as tik
 from vv_dsp_tpu_torch.ops import mel as tmel
 from vv_dsp_tpu_torch.ops import resample as trs
 from vv_dsp_tpu_torch.ops import stft_kernels as tsk
+from vv_dsp_tpu_torch.ops import stockham_kernels as tstk
 from vv_dsp_tpu_torch.ops import upfirdn as tuf
+from vv_dsp_tpu_torch.ops.framing import stft_num_frames
 from vv_dsp_tpu_torch.ops.stft import STFT
 from vv_dsp_tpu_torch.ops.window import get_window_np
 
@@ -254,7 +258,7 @@ def test_unsupported_geometry_raises_on_card(dev, gen):
         with pytest.raises(ValueError):
             STFT(nfft, hop).process(x)
     with pytest.raises(ValueError):
-        tmel.mfcc_stft(x, 128, 32, 20, 13, 16000.0)
+        tmel.mfcc_stft(x, 128, 24, 20, 13, 16000.0)
     with pytest.raises(ValueError):
         tmel.mfcc_stft(x, 8192, 2048, 80, 20, 64000.0)
     with pytest.raises(TypeError):
@@ -370,10 +374,175 @@ def test_synthesis_refuses_what_the_kernels_do_not_take(dev, gen):
     with pytest.raises(ValueError):
         plan.reconstruct(spec, 9000, rfft=True)
     with pytest.raises(ValueError):
-        STFT(128, 32).power(x)
+        STFT(128, 24).power(x)
     with pytest.raises(TypeError):
         tik.istft(torch.zeros(2, 5, 513, dtype=torch.complex128, device=dev),
                   1024, 256, 2048, STFT(1024, 256).win(dev),
                   torch.ones(2048, device=dev))
     with pytest.raises(ValueError):
         SpectralGate(device=dev)(x.cpu())
+
+
+# the full-nfft family: nfft = 128 at several hops (hop == nfft included),
+# hop 8 up to q = 128 (1024/8)
+STOCKHAM_GEOMETRIES = [(128, 32), (128, 8), (128, 128), (256, 8), (512, 8),
+                       (1024, 8)]
+
+
+@pytest.mark.parametrize("nfft,hop", STOCKHAM_GEOMETRIES)
+@pytest.mark.parametrize("channels,n", [(2, 100), (1, 3001), (3, 9000)])
+def test_stockham_spectrum_and_power_kernels_match_plain(dev, gen, nfft, hop,
+                                                         channels, n):
+    """n < nfft at 128 and beyond (one frame), ragged tails."""
+    x = torch.as_tensor(gen.standard_normal((channels, n)),
+                        dtype=torch.float32, device=dev)
+    win = STFT(nfft, hop).win(dev)
+    for onesided in (False, True):
+        before = tstk.stft_spectrum_stockham.launches
+        got = tstk.stft_spectrum_stockham(x, nfft, hop, win, onesided)
+        torch.cuda.synchronize()
+        assert tstk.stft_spectrum_stockham.launches == before + 1
+        want = tstk.stft_spectrum_stockham_plain(x, nfft, hop, win, onesided)
+        assert got.shape == want.shape and got.dtype == torch.complex64
+        assert _cplx_rel(got, want) < 5e-5
+    got = tstk.stft_power_stockham(x, nfft, hop, win)
+    want = tstk.stft_power_stockham_plain(x, nfft, hop, win)
+    assert got.shape == want.shape == (channels, want.shape[1],
+                                       nfft // 2 + 1)
+    assert _rel(got, want) < 5e-5
+
+
+@pytest.mark.parametrize("nfft,hop,n_mels,n_mfcc,sr,lifter", [
+    (128, 32, 26, 13, 8000.0, 0.0), (128, 128, 20, 12, 8000.0, 22.0),
+    (256, 8, 40, 13, 16000.0, 0.0), (1024, 8, 64, 20, 16000.0, 22.0)])
+@pytest.mark.parametrize("channels,n", [(1, 90), (2, 9001)])
+def test_stockham_mel_kernel_matches_plain(dev, gen, nfft, hop, n_mels,
+                                           n_mfcc, sr, lifter, channels, n):
+    x = torch.as_tensor(gen.standard_normal((channels, n)),
+                        dtype=torch.float32, device=dev)
+    win, fb, bands, dct = tmel._mfcc_constants(nfft, n_mels, n_mfcc, sr, 0.0,
+                                               sr / 2, lifter, "htk", "hann",
+                                               None, dev)
+    mel = tstk.stft_mel_stockham(x, nfft, hop, win, fb, bands)
+    want = tstk.stft_mel_stockham_plain(x, nfft, hop, win, fb)
+    assert mel.shape == want.shape == (channels, want.shape[1], n_mels)
+    assert _rel(mel, want) < 5e-5
+    before = tstk.stft_mel_stockham.launches
+    got = tstk.stft_mel_stockham(x, nfft, hop, win, fb, bands, dct)
+    torch.cuda.synchronize()
+    assert tstk.stft_mel_stockham.launches == before + 1
+    want = tstk.stft_mel_stockham_plain(x, nfft, hop, win, fb, dct)
+    assert got.shape == want.shape == (channels, want.shape[1], n_mfcc)
+    err = (got - want).abs().max().item()
+    assert err < max(5e-4, 5e-6 * want.abs().max().item())
+
+
+def _tones(channels, n, nfft, seed, dev):
+    """Tones at bins 10, 25 and 45 of nfft = 128 (amplitudes 1, 0.7, 0.02,
+    scaled with nfft) over N(0, 1e-4^2) noise: every bin of a frame inside
+    the signal is >= 10x above or below 0.01 of the frame's peak power."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    x = 1e-4 * rng.standard_normal((channels, n))
+    for k, a in ((10, 1.0), (25, 0.7), (45, 0.02)):
+        x += a * np.cos(2 * np.pi * k * (nfft // 128) * t / nfft
+                        + rng.uniform(0, 2 * np.pi, (channels, 1)))
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+def _gate_pair(x, nfft, hop, threshold, dev):
+    """(kernel, its rerun, plain, norm) of the fused gate on x padded by
+    nfft - hop at both ends, as SpectralGate pads it."""
+    pad = nfft - hop
+    xp = torch.nn.functional.pad(x, (pad, pad))
+    n_pad = xp.shape[-1]
+    win = STFT(nfft, hop).win(dev)
+    norm = tik.ola_norm(get_window_np("hann", nfft), hop,
+                        stft_num_frames(n_pad, nfft, hop), n_pad, dev)
+    before = tstk.stft_gate_stockham.launches
+    got = tstk.stft_gate_stockham(xp, nfft, hop, win, norm, threshold)
+    again = tstk.stft_gate_stockham(xp, nfft, hop, win, norm, threshold)
+    torch.cuda.synchronize()
+    assert tstk.stft_gate_stockham.launches == before + 2
+    want = tstk.stft_gate_stockham_plain(xp, nfft, hop, win, norm, threshold)
+    assert got.shape == want.shape == xp.shape
+    return got, again, want, norm
+
+
+@pytest.mark.parametrize("nfft,hop", [(128, 32), (128, 8), (128, 64),
+                                      (256, 8), (1024, 8)])
+@pytest.mark.parametrize("channels,n", [(1, 700), (2, 9001)])
+def test_stockham_gate_kernel_matches_plain(dev, gen, nfft, hop, channels, n):
+    """Threshold 0 on dense input, a pure roundtrip: before the norm over
+    the full length (after it, the 1/w^2 norm amplifies float32 rounding
+    where the cover thins out) and after it on the samples SpectralGate
+    keeps, which equal the input; the same bits on a second run."""
+    pad = nfft - hop
+    x = torch.as_tensor(gen.standard_normal((channels, n)),
+                        dtype=torch.float32, device=dev)
+    got, again, want, norm = _gate_pair(x, nfft, hop, 0.0, dev)
+    assert torch.equal(got, again)
+    assert _rel(got * norm, want * norm) < 5e-6
+    assert _rel(got[:, pad:pad + n], want[:, pad:pad + n]) < 5e-6
+    assert _rel(got[:, pad:pad + n], x) < 5e-6
+
+
+@pytest.mark.parametrize("nfft,hop", [(128, 32), (128, 8), (256, 8),
+                                      (1024, 8)])
+@pytest.mark.parametrize("channels", [1, 2])
+def test_stockham_gate_kernel_on_the_tone_probe(dev, nfft, hop, channels):
+    """Threshold 0.1 on tones whose bins all clear it by >= 10x in every
+    frame inside the signal; held on the samples only such frames reach,
+    more than 2 (nfft - hop) from either end of the padded signal."""
+    edge = 2 * (nfft - hop)
+    got, again, want, norm = _gate_pair(_tones(channels, 9001, nfft, 3, dev),
+                                        nfft, hop, 0.1, dev)
+    assert torch.equal(got, again)
+    assert _rel(got[:, edge:-edge], want[:, edge:-edge]) < 5e-6
+
+
+def test_stockham_entry_points_on_card_match_cpu(dev, gen):
+    """STFT.power, MFCCFrontend and SpectralGate at 128/32 and process at
+    512/8 through the full-nfft kernels, against the CPU, each launching
+    its one kernel (the gate on the tone probe, away from its edges)."""
+    x = torch.as_tensor(gen.standard_normal((2, 8192)), dtype=torch.float32)
+    xd = x.to(dev)
+    names = ("stft_spectrum_stockham", "stft_power_stockham",
+             "stft_mel_stockham", "stft_gate_stockham")
+    counts = [getattr(tstk, f).launches for f in names]
+    plan = STFT(128, 32)
+    assert _rel(plan.power(xd), plan.power(x)) < 5e-5
+    front = dict(nfft=128, hop=32, n_mels=26, n_mfcc=13, sample_rate=8000.0)
+    err = (MFCCFrontend(**front, device=dev)(xd).cpu()
+           - MFCCFrontend(**front, device="cpu")(x)).abs().max()
+    assert err.item() < 5e-4
+    probe = _tones(2, 8192, 128, 4, "cpu")
+    assert _rel(SpectralGate(128, 32, device=dev)(probe.to(dev))[:, 96:-96],
+                SpectralGate(128, 32, device="cpu")(probe)[:, 96:-96]) < 5e-6
+    for rfft in (False, True):
+        assert _cplx_rel(STFT(512, 8).process(xd, rfft=rfft),
+                         STFT(512, 8).process(x, rfft=rfft)) < 5e-5
+    torch.cuda.synchronize()
+    after = [getattr(tstk, f).launches for f in names]
+    assert [a - b for a, b in zip(after, counts)] == [2, 1, 1, 1]
+
+
+def test_stockham_wrappers_refuse_what_they_do_not_take(dev, gen):
+    x = torch.as_tensor(gen.standard_normal((2, 9000)), dtype=torch.float32,
+                        device=dev)
+    for nfft, hop in ((2048, 8), (128, 24), (4096, 1024), (64, 16)):
+        win = torch.ones(nfft, device=dev)
+        with pytest.raises(ValueError):
+            tstk.stft_spectrum_stockham(x, nfft, hop, win)
+        with pytest.raises(ValueError):
+            tstk.stft_power_stockham(x, nfft, hop, win)
+    win = STFT(128, 128).win(dev)
+    with pytest.raises(ValueError):   # the gate needs hop < nfft
+        tstk.stft_gate_stockham(x, 128, 128, win, torch.ones(9000,
+                                                              device=dev), 0.1)
+    with pytest.raises(ValueError):   # SpectralGate at 128/128: no kernel
+        SpectralGate(128, 128, device=dev)(x)
+    with pytest.raises(ValueError):   # process takes nfft 128 nowhere
+        STFT(128, 32).process(x)
+    with pytest.raises(TypeError):
+        tstk.stft_power_stockham(x.double(), 128, 32, STFT(128, 32).win(dev))

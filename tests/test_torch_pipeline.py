@@ -229,7 +229,8 @@ def test_port_never_imports_jax():
     files = sorted((REPO / "vv_dsp_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) >= 24
-    assert {"istft_kernels.py", "packed.py"} <= {p.name for p in files}
+    assert {"istft_kernels.py", "packed.py", "stockham_kernels.py"} <= {
+        p.name for p in files}
     for path in files:
         for mod in _imported_modules(path):
             root = mod.split(".")[0]

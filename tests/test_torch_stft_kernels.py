@@ -118,9 +118,10 @@ def test_stft_supported_gate():
 
 
 def test_unsupported_geometry_runs_plain_path(sig, monkeypatch):
-    """nfft 1000 and 128 are no kernel geometry. The entry points still
-    call the kernel wrappers, with the caller's tier: on a CPU tensor the
-    wrapper runs the plain version (on a CUDA tensor it would raise)."""
+    """nfft 1000, and nfft 128 at a hop that does not divide it, are no
+    kernel geometry. The entry points still call the kernel wrappers, with
+    the caller's tier: on a CPU tensor the wrapper runs the plain version
+    (on a CUDA tensor it would raise)."""
     calls = []
     spectrum, mfcc = tsk.stft_spectrum, tsk.stft_mfcc
 
@@ -140,12 +141,12 @@ def test_unsupported_geometry_runs_plain_path(sig, monkeypatch):
     want = JaxSTFT(1000, 250).process(jnp.asarray(sig))
     assert _rel(got.numpy(), want) < 5e-5
     x = torch.as_tensor(sig)
-    got = tmel.mfcc_stft(x, 128, 32, 20, 13, 16000.0, algorithm="bf16")
+    got = tmel.mfcc_stft(x, 128, 24, 20, 13, 16000.0, algorithm="bf16")
     win, fb, _, dct = tmel._mfcc_constants(128, 20, 13, 16000.0, 0.0,
                                            8000.0, 0.0, "htk", "hann", None,
                                            torch.device("cpu"))
     torch.testing.assert_close(
-        got, tsk.stft_mfcc_plain(x, 128, 32, win, fb, dct, 1e-10, "bf16"),
+        got, tsk.stft_mfcc_plain(x, 128, 24, win, fb, dct, 1e-10, "bf16"),
         rtol=0, atol=0)
     assert calls == [("spectrum", 1000), ("mfcc", 128, "bf16")]
 

@@ -96,8 +96,15 @@ def library() -> ctypes.CDLL:
                                  I, F, I, I, I, P]
     lib.vv_stft_power.argtypes = [P, P, P, P, P, I, L, I, I, I, I, P]
     lib.vv_istft.argtypes = [P, P, P, P, P, P, I, I, I, I, L, I, F, I, P]
+    lib.vv_stockham_spectrum.argtypes = [P, P, P, P, I, L, I, I, I, I, I, P]
+    lib.vv_stockham_power.argtypes = [P, P, P, P, I, L, I, I, I, I, P]
+    lib.vv_stockham_mel.argtypes = [P, P, P, P, P, P, P, P, I, L, I, I, I, I,
+                                    I, F, I, I, P]
+    lib.vv_stockham_gate.argtypes = [P, P, P, P, P, I, L, I, I, I, F, I, P]
     for fn in (lib.vv_upfirdn, lib.vv_stft_spectrum, lib.vv_stft_mfcc,
-               lib.vv_stft_power, lib.vv_istft):
+               lib.vv_stft_power, lib.vv_istft, lib.vv_stockham_spectrum,
+               lib.vv_stockham_power, lib.vv_stockham_mel,
+               lib.vv_stockham_gate):
         fn.restype = I
     lib.vv_error_string.argtypes = [I]
     lib.vv_error_string.restype = ctypes.c_char_p

@@ -33,6 +33,12 @@ __device__ __forceinline__ float tier_fma(float w, float x, float acc) {
   return fmaf(wl, xh, acc);
 }
 
+__device__ __forceinline__ float power2(float2 v) {
+  // no contraction into an FMA: the gates compare these bit for bit with
+  // the plain versions' re * re + im * im
+  return __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
   return v;

@@ -44,12 +44,6 @@
 constexpr int ISTFT_THREADS = 256;
 constexpr int ISTFT_WARPS = ISTFT_THREADS / 32;
 
-__device__ __forceinline__ float power2(float2 v) {
-  // no contraction into an FMA: the gate compares these bit for bit with
-  // the plain version's re * re + im * im
-  return __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y));
-}
-
 // spec: (channels, nf, m + 1) one-sided complex; win: (nfft,) synthesis
 // window; tw[k] = exp(-2 pi i k / m), k < m/2; wk[k] = exp(-2 pi i k / nfft),
 // k <= m; norm: (output_len,) guarded w^2 norm; out: (channels, output_len).

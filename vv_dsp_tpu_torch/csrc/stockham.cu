@@ -1,0 +1,422 @@
+// Full-nfft STFT kernels: the windowed complex spectrum, the one-sided power
+// spectrogram, the fused STFT -> power -> mel (-> log -> DCT) front end and
+// the fused SpectralGate (forward -> per-frame peak gate -> inverse ->
+// overlap-add, one kernel).
+//
+// They replace the unpacked ("Stockham") kernels of
+// vv_dsp_tpu/ops/pallas_fft.py, which the JAX package dispatches where its
+// packed-real kernels refuse the geometry: nfft = 128 at any hop, and
+// hop = 8 (stft_mel_supported and not stft_mel_packed_supported):
+//   stockham_spectrum_kernel replaces _spectrum_kernel (launcher
+//     stft_spectrum_stockham) with its _stockham_natural epilogue;
+//   stockham_power_kernel replaces _power_kernel (stft_power_stockham) with
+//     the same epilogue;
+//   stockham_mel_kernel replaces _stft_mel_kernel (launcher _stft_mel_call,
+//     entries stft_mel_energies_pallas and stft_mfcc_pallas);
+//   stockham_gate_kernel replaces _gate_kernel (stft_gate_pallas) with its
+//     strip-merge epilogue and the w^2 norm division.
+//
+// Per frame f (x[f*hop, f*hop + nfft), zero past the signal): the
+// nfft-point complex FFT of the windowed real frame, radix-2 DIT in shared
+// memory on bit-reversed input, float32, with host-built float64 -> f32
+// twiddles tw[k] = exp(-2 pi i k / nfft), k < nfft/2. Bins come out in
+// natural order, so the TPU kernels' bin permutation and the epilogue that
+// undoes it have no counterpart, nor has their DFT-64 matrix tail: the
+// butterflies run to the end. A block takes FB = max(1, 2048/nfft)
+// consecutive frames of one channel, so every barrier-separated stage has
+// 1024 butterflies for its 256 threads whatever nfft is (16 frames a block
+// at nfft = 128, where one frame a block would leave 3/4 of the threads
+// idle). Points sit in shared memory with one pad slot per 32 (slot()), so
+// the bit-reversed scatter is free of bank conflicts.
+//
+// Bounds, at the shapes the port's entry points give them on 16 channels
+// of ~480k samples: the spectrum at 512/8 writes 3.93 GB (1.97 GB
+// one-sided), ~1.2 ms at 3.35 TB/s, so its bound is device-memory writes;
+// each block writes its FB frames' rows as one contiguous run. The power
+// (128/32: 30.7 MB read, 62.3 MB written), mel (12.5 MB written) and gate
+// (31 MB each way) kernels move little. What holds all four back is the
+// radix-2 transform itself: log2(nfft) passes of every point through
+// shared memory, each behind a barrier (nine round trips of every point at
+// 512/8), which a radix-4 or register-resident transform would cut.
+//
+// Mel/MFCC: the power row stays in shared memory; each mel band is summed
+// over its nonzero bin range only (the host's band edges, as
+// stft_mfcc_kernel in stft.cu does), one thread per (frame, band), then log
+// and the liftered DCT-II rows, one thread per (frame, coefficient): at
+// nfft = 128 a band holds 1-9 bins, too few to share among a warp.
+// The TPU kernel runs its mel and DCT dots at _kernel_precision(), float32
+// under the default knob, and takes no dot-algorithm tier, so these are
+// plain float32 products whatever tier the caller names.
+//
+// Gate: the peak and the mask are taken over all nfft bins of the
+// two-sided spectrum, as the TPU kernel takes them, comparing
+// re^2 + im^2 >= thresh2 * peak2 in float32 with no fused multiply-add
+// (power2), as the plain version does. The inverse is an unscaled radix-2
+// DIF with conjugate twiddles (natural order in, bit-reversed out), scaled
+// by 1/nfft (exact: nfft is 2^k); the real part is windowed and
+// overlap-added. Overlap-add across blocks is deterministic, with no
+// atomics: as istft.cu does, block (s, c) owns `seg` consecutive hop-long
+// output segments of channel c, recomputes the q - 1 frames (q = nfft/hop)
+// that reach into the first of them from the left, sums every frame that
+// touches its segments into a shared-memory strip in ascending frame
+// order and writes each output sample once, divided by the guarded w^2
+// norm (the host's float64 table, cast once; the TPU kernel's caller
+// divides by the interior-periodic norm, which equals it on every sample
+// SpectralGate keeps). seg >= 4 (q - 1), so at 1024/8 (q = 128) a block
+// recomputes at most 127 frames for 512 it owns.
+#include <algorithm>
+
+#include "common.cuh"
+
+constexpr int SH_THREADS = 256;
+constexpr int SH_WARPS = SH_THREADS / 32;
+constexpr int SH_POINTS = 2048;  // complex points a block transforms at once
+
+__host__ __device__ inline int frames_per_block(int nfft) {
+  return nfft >= SH_POINTS ? 1 : SH_POINTS / nfft;
+}
+
+__device__ __forceinline__ int brev(int j, int log2n) {
+  return (int)(__brev((unsigned)j) >> (32 - log2n));
+}
+
+// Shared-memory slot of point p of a batch: one float2 of padding after
+// every 32 points. Bit-reversal sends a warp's 32 consecutive points 2^k
+// apart, all to one bank without it; with it they spread over all 32
+// banks, and the butterflies' runs of consecutive points stay contiguous.
+__device__ __forceinline__ int slot(int p) { return p + (p >> 5); }
+
+__host__ __device__ inline size_t batch_floats2(int nfft) {
+  const size_t points = (size_t)frames_per_block(nfft) * nfft;
+  return points + points / 32;
+}
+
+// Frames f0 .. f0 + nb - 1 of row xc (n samples), windowed, into z (nb
+// frames of nfft points, each in bit-reversed order, at slot()).
+__device__ void load_frames(const float* __restrict__ xc, long long n,
+                            long long f0, int nb, int hop,
+                            const float* __restrict__ win, float2* z,
+                            int nfft, int log2n) {
+  for (int idx = threadIdx.x; idx < nb * nfft; idx += SH_THREADS) {
+    const int b = idx >> log2n, j = idx & (nfft - 1);
+    const long long i = (f0 + b) * hop + j;
+    const float v = i < n ? xc[i] : 0.f;
+    z[slot((b << log2n) + brev(j, log2n))] = make_float2(v * win[j], 0.f);
+  }
+  __syncthreads();
+}
+
+// Forward transform of nb frames in place: radix-2 DIT, bit-reversed
+// input, natural-order output.
+__device__ void fft_dit(float2* z, int nb, int nfft, int log2n,
+                        const float2* __restrict__ tw) {
+  const int half_n = nfft >> 1;
+  for (int s = 0; s < log2n; ++s) {
+    const int half = 1 << s, stride = half_n >> s;
+    for (int bi = threadIdx.x; bi < nb * half_n; bi += SH_THREADS) {
+      const int b = bi & (half_n - 1);
+      const int pos = b & (half - 1);
+      const int i0 = ((bi >> (log2n - 1)) << log2n) + ((b >> s) << (s + 1)) +
+                     pos;
+      const int s0 = slot(i0), s1 = slot(i0 + half);
+      const float2 w = tw[pos * stride];
+      const float2 u = z[s0], v = z[s1];
+      const float tr = w.x * v.x - w.y * v.y;
+      const float ti = w.x * v.y + w.y * v.x;
+      z[s0] = make_float2(u.x + tr, u.y + ti);
+      z[s1] = make_float2(u.x - tr, u.y - ti);
+    }
+    __syncthreads();
+  }
+}
+
+// Unscaled inverse transform of nb frames in place: radix-2 DIF with
+// conjugate twiddles, natural-order input, bit-reversed output.
+__device__ void ifft_dif(float2* z, int nb, int nfft, int log2n,
+                         const float2* __restrict__ tw) {
+  const int half_n = nfft >> 1;
+  for (int s = log2n - 1; s >= 0; --s) {
+    const int half = 1 << s, stride = half_n >> s;
+    for (int bi = threadIdx.x; bi < nb * half_n; bi += SH_THREADS) {
+      const int b = bi & (half_n - 1);
+      const int pos = b & (half - 1);
+      const int i0 = ((bi >> (log2n - 1)) << log2n) + ((b >> s) << (s + 1)) +
+                     pos;
+      const int s0 = slot(i0), s1 = slot(i0 + half);
+      const float2 w = tw[pos * stride];
+      const float2 u = z[s0], v = z[s1];
+      const float dr = u.x - v.x, di = u.y - v.y;
+      z[s0] = make_float2(u.x + v.x, u.y + v.y);
+      z[s1] = make_float2(dr * w.x + di * w.y, di * w.x - dr * w.y);
+    }
+    __syncthreads();
+  }
+}
+
+// out: (channels, nf, bins) interleaved complex, bins = nfft (two-sided) or
+// nfft/2 + 1 (one-sided)
+__global__ void __launch_bounds__(SH_THREADS)
+stockham_spectrum_kernel(const float* __restrict__ x,
+                         const float* __restrict__ win,
+                         const float2* __restrict__ tw,
+                         float2* __restrict__ out, long long n, int nf,
+                         int nfft, int hop, int bins) {
+  extern __shared__ float2 z[];
+  const int log2n = __ffs(nfft) - 1, fb = frames_per_block(nfft);
+  const int c = blockIdx.y;
+  const long long f0 = (long long)blockIdx.x * fb;
+  const int nb = (int)min((long long)fb, nf - f0);
+  load_frames(x + (long long)c * n, n, f0, nb, hop, win, z, nfft, log2n);
+  fft_dit(z, nb, nfft, log2n, tw);
+  float2* o = out + ((long long)c * nf + f0) * bins;
+  for (int idx = threadIdx.x; idx < nb * bins; idx += SH_THREADS) {
+    const int b = idx / bins;
+    o[idx] = z[slot((b << log2n) + idx - b * bins)];
+  }
+}
+
+// out: (channels, nf, nfft/2 + 1) |X[k]|^2, natural bin order
+__global__ void __launch_bounds__(SH_THREADS)
+stockham_power_kernel(const float* __restrict__ x,
+                      const float* __restrict__ win,
+                      const float2* __restrict__ tw, float* __restrict__ out,
+                      long long n, int nf, int nfft, int hop) {
+  extern __shared__ float2 z[];
+  const int log2n = __ffs(nfft) - 1, fb = frames_per_block(nfft);
+  const int bins = nfft / 2 + 1, c = blockIdx.y;
+  const long long f0 = (long long)blockIdx.x * fb;
+  const int nb = (int)min((long long)fb, nf - f0);
+  load_frames(x + (long long)c * n, n, f0, nb, hop, win, z, nfft, log2n);
+  fft_dit(z, nb, nfft, log2n, tw);
+  float* o = out + ((long long)c * nf + f0) * bins;
+  for (int idx = threadIdx.x; idx < nb * bins; idx += SH_THREADS) {
+    const int b = idx / bins;
+    const float2 v = z[slot((b << log2n) + idx - b * bins)];
+    o[idx] = v.x * v.x + v.y * v.y;
+  }
+}
+
+// out: (channels, nf, n_mfcc) MFCCs when FUSE_DCT, else (channels, nf,
+// n_mels) mel energies. fb: (n_mels, nfft/2 + 1) dense filterbank whose row
+// b is zero outside bins [band_lo[b], band_hi[b]); dct: (n_mfcc, n_mels),
+// the liftered DCT-II rows.
+template <bool FUSE_DCT>
+__global__ void __launch_bounds__(SH_THREADS)
+stockham_mel_kernel(const float* __restrict__ x,
+                    const float* __restrict__ win,
+                    const float2* __restrict__ tw,
+                    const float* __restrict__ fb,
+                    const int* __restrict__ band_lo,
+                    const int* __restrict__ band_hi,
+                    const float* __restrict__ dct, float* __restrict__ out,
+                    long long n, int nf, int nfft, int hop, int n_mels,
+                    int n_mfcc, float log_eps) {
+  extern __shared__ float2 z[];
+  const int log2n = __ffs(nfft) - 1, fpb = frames_per_block(nfft);
+  const int bins = nfft / 2 + 1, c = blockIdx.y;
+  float* pw = reinterpret_cast<float*>(z + batch_floats2(nfft));  // nb rows
+  float* mel = pw + (size_t)fpb * bins;  // nb rows of n_mels log-mel values
+  const long long f0 = (long long)blockIdx.x * fpb;
+  const int nb = (int)min((long long)fpb, nf - f0);
+
+  load_frames(x + (long long)c * n, n, f0, nb, hop, win, z, nfft, log2n);
+  fft_dit(z, nb, nfft, log2n, tw);
+  for (int idx = threadIdx.x; idx < nb * bins; idx += SH_THREADS) {
+    const int b = idx / bins;
+    const float2 v = z[slot((b << log2n) + idx - b * bins)];
+    pw[idx] = v.x * v.x + v.y * v.y;
+  }
+  __syncthreads();
+
+  const long long row0 = (long long)c * nf + f0;
+  for (int p = threadIdx.x; p < nb * n_mels; p += SH_THREADS) {
+    const int b = p / n_mels, band = p - b * n_mels;
+    const float* fr = fb + (long long)band * bins;
+    const float* pb = pw + b * bins;
+    float acc = 0.f;
+    for (int k = band_lo[band]; k < band_hi[band]; ++k)
+      acc = fmaf(fr[k], pb[k], acc);
+    if (FUSE_DCT)
+      mel[p] = logf(acc + log_eps);
+    else
+      out[row0 * n_mels + p] = acc;
+  }
+  if (!FUSE_DCT) return;
+  __syncthreads();
+  for (int p = threadIdx.x; p < nb * n_mfcc; p += SH_THREADS) {
+    const int b = p / n_mfcc, q = p - b * n_mfcc;
+    const float* dr = dct + (long long)q * n_mels;
+    const float* mb = mel + b * n_mels;
+    float acc = 0.f;
+    for (int k = 0; k < n_mels; ++k) acc = fmaf(dr[k], mb[k], acc);
+    out[row0 * n_mfcc + p] = acc;
+  }
+}
+
+// x, out: (channels, n); norm: (n,) guarded w^2 norm of the nf frames
+__global__ void __launch_bounds__(SH_THREADS)
+stockham_gate_kernel(const float* __restrict__ x,
+                     const float* __restrict__ win,
+                     const float2* __restrict__ tw,
+                     const float* __restrict__ norm, float* __restrict__ out,
+                     long long n, int nf, int nfft, int hop, int q, int seg,
+                     float thresh2) {
+  extern __shared__ float2 smem[];
+  const int log2n = __ffs(nfft) - 1, fpb = frames_per_block(nfft);
+  float2* z = smem;                                    // fpb frames, slot()
+  float* strip = reinterpret_cast<float*>(z + batch_floats2(nfft));  // seg*hop
+  float* peak2 = strip + (size_t)seg * hop;                          // fpb
+  const int c = blockIdx.y, strip_len = seg * hop;
+  const int lane = threadIdx.x & 31;
+  const long long s0 = (long long)blockIdx.x * seg;  // first owned segment
+  const float* xc = x + (long long)c * n;
+  const float scale = 1.f / (float)nfft;
+
+  for (int t = threadIdx.x; t < strip_len; t += SH_THREADS) strip[t] = 0.f;
+  const long long f_lo = max(s0 - (q - 1), 0LL);
+  const long long f_hi = min(s0 + seg - 1, (long long)nf - 1);
+  for (long long f0 = f_lo; f0 <= f_hi; f0 += fpb) {
+    const int nb = (int)min((long long)fpb, f_hi - f0 + 1);
+    load_frames(xc, n, f0, nb, hop, win, z, nfft, log2n);
+    fft_dit(z, nb, nfft, log2n, tw);
+    // one warp per frame: the peak power over all nfft bins
+    for (int b = threadIdx.x >> 5; b < nb; b += SH_WARPS) {
+      float pk = 0.f;
+      for (int k = lane; k < nfft; k += 32)
+        pk = fmaxf(pk, power2(z[slot((b << log2n) + k)]));
+      for (int s = 16; s > 0; s >>= 1)
+        pk = fmaxf(pk, __shfl_xor_sync(0xffffffffu, pk, s));
+      if (lane == 0) peak2[b] = __fmul_rn(thresh2, pk);
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nb * nfft; idx += SH_THREADS)
+      if (!(power2(z[slot(idx)]) >= peak2[idx >> log2n]))
+        z[slot(idx)] = make_float2(0.f, 0.f);
+    __syncthreads();
+    ifft_dif(z, nb, nfft, log2n, tw);
+    // window and overlap-add the real parts, frames in ascending order
+    const long long off = (f0 - s0) * hop;  // frame f0's start in the strip
+    const int lo = (int)max(off, 0LL);
+    const int hi = (int)min(off + (long long)(nb - 1) * hop + nfft,
+                            (long long)strip_len);
+    for (int t = lo + threadIdx.x; t < hi; t += SH_THREADS) {
+      float acc = strip[t];
+      for (int b = 0; b < nb; ++b) {
+        const long long i = t - off - (long long)b * hop;
+        if (i >= 0 && i < nfft)
+          acc += z[slot((b << log2n) + brev((int)i, log2n))].x * scale *
+                 win[i];
+      }
+      strip[t] = acc;
+    }
+    __syncthreads();
+  }
+  float* oc = out + (long long)c * n;
+  const long long g0 = s0 * hop;
+  for (int t = threadIdx.x; t < strip_len; t += SH_THREADS) {
+    const long long g = g0 + t;
+    if (g < n) oc[g] = strip[t] / norm[g];
+  }
+}
+
+// The geometries the launchers take: power-of-two nfft in [4, 2048] (a
+// frame batch and its strip stay within a block's shared memory), hop in
+// [1, nfft]; the Python wrappers narrow this to the JAX package's lattice.
+static bool bad_geometry(int nfft, int hop, int nf, int channels) {
+  return nfft < 4 || nfft > SH_POINTS || (nfft & (nfft - 1)) || hop < 1 ||
+         hop > nfft || nf < 1 || channels < 1 || channels > 65535;
+}
+
+static dim3 frame_grid(int nf, int nfft, int channels) {
+  const int fb = frames_per_block(nfft);
+  return dim3((unsigned)((nf + fb - 1) / fb), (unsigned)channels);
+}
+
+extern "C" int vv_stockham_spectrum(const float* x, const float* win,
+                                    const void* tw, void* out, int channels,
+                                    long long n, int nf, int nfft, int hop,
+                                    int bins, int device, void* stream) {
+  if (bad_geometry(nfft, hop, nf, channels) ||
+      (bins != nfft && bins != nfft / 2 + 1))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const size_t smem = batch_floats2(nfft) * sizeof(float2);
+  stockham_spectrum_kernel<<<frame_grid(nf, nfft, channels), SH_THREADS, smem,
+                             (cudaStream_t)stream>>>(
+      x, win, (const float2*)tw, (float2*)out, n, nf, nfft, hop, bins);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vv_stockham_power(const float* x, const float* win,
+                                 const void* tw, float* out, int channels,
+                                 long long n, int nf, int nfft, int hop,
+                                 int device, void* stream) {
+  if (bad_geometry(nfft, hop, nf, channels)) return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const size_t smem = batch_floats2(nfft) * sizeof(float2);
+  stockham_power_kernel<<<frame_grid(nf, nfft, channels), SH_THREADS, smem,
+                          (cudaStream_t)stream>>>(
+      x, win, (const float2*)tw, out, n, nf, nfft, hop);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vv_stockham_mel(const float* x, const float* win,
+                               const void* tw, const float* fb,
+                               const int* band_lo, const int* band_hi,
+                               const float* dct, float* out, int channels,
+                               long long n, int nf, int nfft, int hop,
+                               int n_mels, int n_mfcc, float log_eps,
+                               int fuse_dct, int device, void* stream) {
+  if (bad_geometry(nfft, hop, nf, channels) || n_mels < 1 ||
+      n_mels > nfft / 2 + 1 || (fuse_dct && n_mfcc < 1))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const int fpb = frames_per_block(nfft);
+  const size_t smem = batch_floats2(nfft) * sizeof(float2) +
+                      (size_t)fpb * (nfft / 2 + 1 + n_mels) * sizeof(float);
+  const dim3 grid = frame_grid(nf, nfft, channels);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (fuse_dct)
+    stockham_mel_kernel<true><<<grid, SH_THREADS, smem, s>>>(
+        x, win, (const float2*)tw, fb, band_lo, band_hi, dct, out, n, nf, nfft,
+        hop, n_mels, n_mfcc, log_eps);
+  else
+    stockham_mel_kernel<false><<<grid, SH_THREADS, smem, s>>>(
+        x, win, (const float2*)tw, fb, band_lo, band_hi, dct, out, n, nf, nfft,
+        hop, n_mels, n_mfcc, log_eps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vv_stockham_gate(const float* x, const float* win,
+                                const void* tw, const float* norm, float* out,
+                                int channels, long long n, int nf, int nfft,
+                                int hop, float thresh2, int device,
+                                void* stream) {
+  if (bad_geometry(nfft, hop, nf, channels) || n < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const int fpb = frames_per_block(nfft);
+  const int q = (nfft + hop - 1) / hop;
+  // at least 4 (q - 1) owned segments against the q - 1 recomputed ones,
+  // and a strip of >= 4096 samples
+  const int seg = std::max({4 * (q - 1), (4096 + hop - 1) / hop, 1});
+  const size_t smem = batch_floats2(nfft) * sizeof(float2) +
+                      ((size_t)seg * hop + fpb) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      stockham_gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so the next launch does not report it
+    return (int)err;
+  }
+  const long long segs = (n + hop - 1) / hop;
+  const dim3 grid((unsigned)((segs + seg - 1) / seg), (unsigned)channels);
+  stockham_gate_kernel<<<grid, SH_THREADS, smem, (cudaStream_t)stream>>>(
+      x, win, (const float2*)tw, norm, out, n, nf, nfft, hop, q, seg,
+      thresh2);
+  return (int)cudaGetLastError();
+}

@@ -38,6 +38,7 @@ from vv_dsp_tpu_torch.ops import istft_kernels as _ik
 from vv_dsp_tpu_torch.ops import mel as _mel
 from vv_dsp_tpu_torch.ops import resample as _rs
 from vv_dsp_tpu_torch.ops import stft_kernels as _sk
+from vv_dsp_tpu_torch.ops import stockham_kernels as _stk
 from vv_dsp_tpu_torch.ops.framing import stft_num_frames
 from vv_dsp_tpu_torch.ops.upfirdn import polyphase_table_np
 from vv_dsp_tpu_torch.ops.window import get_window_np
@@ -157,7 +158,11 @@ class SpectralGate(nn.Module):
     norm goes to 0, and dividing a gated frame by it would amplify the
     error without bound), and the output is cut back to the input's
     length. On a CUDA tensor it runs the spectrum kernel (one-sided) and
-    then the inverse kernel with the gate. params: ``{"window": float64
+    then the inverse kernel with the gate; where the JAX package takes its
+    fused full-nfft gate kernel (``stockham_kernels.takes_stockham_gate``:
+    nfft = 128, or hop = 8) it runs the one fused gate kernel, whose peak
+    and mask cover all nfft bins of the two-sided spectrum, as there.
+    params: ``{"window": float64
     (nfft,)}``, e.g. ``convert.gate_params_from_reference``; the named
     window when None.
     """
@@ -200,13 +205,20 @@ class SpectralGate(nn.Module):
                             stft_num_frames(n_pad, nfft, hop), n_pad,
                             x.device)
 
-        def fast(xv):
-            spec = _sk.stft_spectrum(xv, nfft, hop, win, onesided=True)
-            return _ik.istft(spec, nfft, hop, n_pad, win, norm, t)
+        if _stk.takes_stockham_gate(nfft, hop):
+            fast = lambda xv: _stk.stft_gate_stockham(xv, nfft, hop, win,
+                                                      norm, t)
+            plain = lambda xv: _stk.stft_gate_stockham_plain(xv, nfft, hop,
+                                                             win, norm, t)
+        else:
+            def fast(xv):
+                spec = _sk.stft_spectrum(xv, nfft, hop, win, onesided=True)
+                return _ik.istft(spec, nfft, hop, n_pad, win, norm, t)
 
-        def plain(xv):
-            spec = _sk.stft_spectrum_plain(xv, nfft, hop, win, onesided=True)
-            return _ik.istft_plain(spec, nfft, hop, n_pad, win, norm, t)
+            def plain(xv):
+                spec = _sk.stft_spectrum_plain(xv, nfft, hop, win,
+                                               onesided=True)
+                return _ik.istft_plain(spec, nfft, hop, n_pad, win, norm, t)
 
         out = kernel_with_torch_vjp(fast, plain)(xp)
         return out[..., pad:pad + n]

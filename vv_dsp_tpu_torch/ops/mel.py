@@ -3,9 +3,11 @@ the north-star path uses).
 
 The filterbank, DCT and lifter constants are copies of the JAX package's
 numpy float64 builders. ``mfcc_stft`` goes through the fused STFT -> mel
--> log -> DCT kernel wrapper (ops/stft_kernels.py), wrapped so that its
-gradient is the plain version's: a CPU tensor runs the plain version, a
-CUDA tensor the kernel, which raises at a geometry it does not take.
+-> log -> DCT kernel wrapper (ops/stft_kernels.py, or
+ops/stockham_kernels.py on the JAX package's full-nfft route), wrapped
+so that its gradient is the plain version's: a CPU tensor runs the plain
+version, a CUDA tensor the kernel, which raises at a geometry it does not
+take.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from vv_dsp_tpu_torch import config
 from vv_dsp_tpu_torch.ops import stft_kernels as _sk
+from vv_dsp_tpu_torch.ops import stockham_kernels as _stk
 from vv_dsp_tpu_torch.ops.dct import _dct2_matrix
 from vv_dsp_tpu_torch.ops.window import get_window_np
 from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
@@ -147,7 +150,10 @@ def mfcc_stft_with(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
     (n_mels, nfft//2+1) and dct (n_coeffs, n_mels) float32 tensors and the
     filterbank's band edges (``stft_kernels.band_edges_np``, int32) on x's
     device. (..., n) -> (..., frames, n_coeffs), or the mel energies
-    (..., frames, n_mels) when dct is None."""
+    (..., frames, n_mels) when dct is None. Where the JAX package takes its
+    full-nfft kernel (``stockham_kernels.takes_stockham``: nfft = 128, or
+    hop = 8) the port does too, and the contractions are float32 whatever
+    `algorithm` names, as there; elsewhere the packed kernel honours it."""
     x = config.as_compute(x)
     if x.is_complex():
         raise TypeError("mfcc_stft requires real input")
@@ -158,9 +164,16 @@ def mfcc_stft_with(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
         return y.reshape(lead + y.shape[-2:])
     if x.dtype != torch.float32:
         x = x.float()
+    if _stk.takes_stockham(nfft, hop):
+        # the JAX package's full-nfft route takes no tier: float32
+        fast = lambda xv: _stk.stft_mel_stockham(xv, nfft, hop, window,
+                                                 mel_fb, bands, dct,
+                                                 log_epsilon)
+    else:
+        fast = lambda xv: _sk.stft_mfcc(xv, nfft, hop, window, mel_fb, bands,
+                                        dct, log_epsilon, algorithm)
     return kernel_with_torch_vjp(
-        lambda xv: _sk.stft_mfcc(xv, nfft, hop, window, mel_fb, bands, dct,
-                                 log_epsilon, algorithm),
+        fast,
         lambda xv: _sk.stft_mfcc_plain(xv, nfft, hop, window, mel_fb, dct,
                                        log_epsilon, "f32"),
     )(x)

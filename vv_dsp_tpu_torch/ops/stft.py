@@ -12,7 +12,10 @@ Each entry point goes through its kernel wrapper (``process`` and
 ``reconstruct`` and ``reconstruct_packed``: the inverse kernel), wrapped
 so that its gradient is the plain version's: a CPU tensor runs the plain
 version, a CUDA tensor the kernel, which raises at a geometry or dtype it
-does not take (complex input to the forward kernels included).
+does not take (complex input to the forward kernels included). ``process``
+and ``power`` pick the kernel as the JAX package does on the TPU: the
+full-nfft kernels (``stockham_kernels``) where ``takes_stockham`` holds
+(nfft = 128 for ``power``, hop = 8), the packed ones everywhere else.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from vv_dsp_tpu_torch import config
 from vv_dsp_tpu_torch.ops import framing
 from vv_dsp_tpu_torch.ops import istft_kernels as _ik
 from vv_dsp_tpu_torch.ops import stft_kernels as _sk
+from vv_dsp_tpu_torch.ops import stockham_kernels as _stk
 from vv_dsp_tpu_torch.ops.packed import PackedSpectrum
 from vv_dsp_tpu_torch.ops.window import get_window, get_window_np
 from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
@@ -73,9 +77,14 @@ class STFT:
             y = self.process(x.reshape(-1, x.shape[-1]), rfft)
             return y.reshape(lead + y.shape[-2:])
         win = self.win(x.device)
+        # the JAX package's route: packed kernels, else the full-nfft one
+        # from nfft 512 up, else the packed kernels (which raise on a CUDA
+        # tensor where they do not take the geometry)
+        spectrum = (_stk.stft_spectrum_stockham
+                    if _stk.takes_stockham(self.nfft, self.hop, min_nfft=512)
+                    else _sk.stft_spectrum)
         return kernel_with_torch_vjp(
-            lambda xv: _sk.stft_spectrum(xv, self.nfft, self.hop, win,
-                                         onesided=rfft),
+            lambda xv: spectrum(xv, self.nfft, self.hop, win, onesided=rfft),
             lambda xv: _sk.stft_spectrum_plain(xv, self.nfft, self.hop, win,
                                                onesided=rfft),
         )(x)
@@ -90,8 +99,11 @@ class STFT:
             y = self.power(x.reshape(-1, x.shape[-1]))
             return y.reshape(lead + y.shape[-2:])
         win = self.win(x.device)
+        power = (_stk.stft_power_stockham
+                 if _stk.takes_stockham(self.nfft, self.hop)
+                 else _sk.stft_power)
         return kernel_with_torch_vjp(
-            lambda xv: _sk.stft_power(xv, self.nfft, self.hop, win),
+            lambda xv: power(xv, self.nfft, self.hop, win),
             lambda xv: _sk.stft_power_plain(xv, self.nfft, self.hop, win),
         )(x)
 

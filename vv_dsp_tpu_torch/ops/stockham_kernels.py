@@ -1,0 +1,233 @@
+"""The port's full-nfft STFT kernels, with their plain versions: the
+windowed complex spectrum, the one-sided power spectrogram, the fused
+STFT -> power -> mel (-> log -> DCT) front end and the fused SpectralGate
+(the parts of ``vv_dsp_tpu/ops/pallas_fft.py`` behind
+``stft_spectrum_stockham``, ``stft_power_stockham``, ``_stft_mel_call``
+and ``stft_gate_pallas``).
+
+The JAX package runs these where its packed-real kernels refuse the
+geometry: ``stockham_supported`` and not ``packed_supported`` (copies of
+``stft_mel_supported`` and ``stft_mel_packed_supported``), which for a
+power-of-two nfft is nfft = 128 at any hop, or hop = 8. ``takes_stockham``
+and ``takes_stockham_gate`` are that route; the entry points
+(``STFT.process``/``power``, ``mel.mfcc_stft_with``, ``SpectralGate``)
+follow it on every device. On a CUDA tensor each wrapper launches its
+kernel in ``csrc/stockham.cu`` or raises; on a CPU tensor it runs the plain
+version. The spectrum, power and mel kernels compute the functions of the
+packed kernels of ``stft_kernels`` (only the transform inside differs), so
+they share those plain versions; the mel kernel's contractions are float32
+whatever tier the caller names, as on the TPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vv_dsp_tpu_torch import _build
+from vv_dsp_tpu_torch.ops import fft as _fft
+from vv_dsp_tpu_torch.ops import istft_kernels as _ik
+from vv_dsp_tpu_torch.ops import stft_kernels as _sk
+from vv_dsp_tpu_torch.ops.framing import stft_num_frames
+
+
+def packed_supported(nfft: int, hop: int) -> bool:
+    """The JAX package's packed-real kernels' geometry (a copy of
+    ``stft_mel_packed_supported``): pow2 nfft in [256, 4096], hop | nfft,
+    hop % 16 == 0, q = nfft/hop <= 128."""
+    return (256 <= nfft <= 4096 and nfft & (nfft - 1) == 0
+            and hop > 0 and nfft % hop == 0 and hop % 16 == 0
+            and nfft // hop <= 128)
+
+
+def packed_gate_supported(nfft: int, hop: int) -> bool:
+    """A copy of ``stft_gate_packed_supported``: the packed geometry with
+    hop < nfft, so the overlap-add has coverage."""
+    return packed_supported(nfft, hop) and hop < nfft
+
+
+def stockham_supported(nfft: int, hop: int) -> bool:
+    """The full-nfft kernels' geometry (a copy of ``stft_mel_supported``):
+    pow2 nfft in [128, 2048], hop | nfft, hop % 8 == 0, q = nfft/hop <=
+    128."""
+    return (128 <= nfft <= 2048 and nfft & (nfft - 1) == 0
+            and hop > 0 and nfft % hop == 0 and hop % 8 == 0
+            and nfft // hop <= 128)
+
+
+def stockham_gate_supported(nfft: int, hop: int) -> bool:
+    """A copy of ``stft_gate_supported``: the full-nfft geometry with
+    hop < nfft."""
+    return stockham_supported(nfft, hop) and hop < nfft
+
+
+def takes_stockham(nfft: int, hop: int, min_nfft: int = 128) -> bool:
+    """Whether the JAX package routes this geometry to the full-nfft
+    kernels: the packed kernels refuse it and the full-nfft ones take it
+    (from min_nfft up: ``STFT.process`` starts at 512)."""
+    return (not packed_supported(nfft, hop) and nfft >= min_nfft
+            and stockham_supported(nfft, hop))
+
+
+def takes_stockham_gate(nfft: int, hop: int) -> bool:
+    """Whether the JAX package's SpectralGate takes the fused full-nfft
+    gate kernel rather than the packed split pair."""
+    return (not packed_gate_supported(nfft, hop)
+            and stockham_gate_supported(nfft, hop))
+
+
+def _check_signal(x: torch.Tensor, window: torch.Tensor, nfft: int,
+                  hop: int, name: str, supported=stockham_supported) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.ndim != 2:
+        raise ValueError(f"{name} expects (channels, n)")
+    _build.require(x, "x", x.device)
+    _build.require(window, "window", x.device, (nfft,))
+    if not supported(nfft, hop):
+        raise ValueError(f"{name}: unsupported geometry nfft={nfft} "
+                         f"hop={hop}; check {supported.__name__}()")
+    if not 0 < x.shape[0] <= 65535:
+        raise ValueError(f"channels must be in [1, 65535], got {x.shape[0]}")
+
+
+def _twiddles(nfft: int, device: torch.device) -> torch.Tensor:
+    """exp(-2 pi i k / nfft), k <= nfft/2, float64-built: the Hermitian
+    unpack table of the packed kernels is the full transform's twiddles."""
+    return _sk._fft_tables(nfft, device)[1]
+
+
+stft_spectrum_stockham_plain = _sk.stft_spectrum_plain
+stft_power_stockham_plain = _sk.stft_power_plain
+
+
+def stft_spectrum_stockham(x: torch.Tensor, nfft: int, hop: int,
+                           window: torch.Tensor,
+                           onesided: bool = False) -> torch.Tensor:
+    """(c, n) float32 -> (c, frames, nfft) complex64, or (c, frames,
+    nfft//2+1) when onesided, in natural bin order."""
+    if x.device.type == "cpu":
+        return stft_spectrum_stockham_plain(x, nfft, hop, window, onesided)
+    _check_signal(x, window, nfft, hop, "stft_spectrum_stockham")
+    c, n = x.shape
+    nf = stft_num_frames(n, nfft, hop)
+    bins = nfft // 2 + 1 if onesided else nfft
+    out = torch.empty((c, nf, bins), dtype=torch.complex64, device=x.device)
+    err = _build.library().vv_stockham_spectrum(
+        _build.ptr(x), _build.ptr(window),
+        _build.ptr(_twiddles(nfft, x.device)), _build.ptr(out), c, n, nf,
+        nfft, hop, bins, x.device.index, _build.stream_handle(x))
+    _build.check(err, "stft_spectrum_stockham")
+    stft_spectrum_stockham.launches += 1
+    return out
+
+
+stft_spectrum_stockham.launches = 0
+
+
+def stft_power_stockham(x: torch.Tensor, nfft: int, hop: int,
+                        window: torch.Tensor) -> torch.Tensor:
+    """(c, n) float32 -> (c, frames, nfft//2+1) float32 one-sided power in
+    one kernel pass on a CUDA tensor."""
+    if x.device.type == "cpu":
+        return stft_power_stockham_plain(x, nfft, hop, window)
+    _check_signal(x, window, nfft, hop, "stft_power_stockham")
+    c, n = x.shape
+    nf = stft_num_frames(n, nfft, hop)
+    out = torch.empty((c, nf, nfft // 2 + 1), dtype=torch.float32,
+                      device=x.device)
+    err = _build.library().vv_stockham_power(
+        _build.ptr(x), _build.ptr(window),
+        _build.ptr(_twiddles(nfft, x.device)), _build.ptr(out), c, n, nf,
+        nfft, hop, x.device.index, _build.stream_handle(x))
+    _build.check(err, "stft_power_stockham")
+    stft_power_stockham.launches += 1
+    return out
+
+
+stft_power_stockham.launches = 0
+
+
+def stft_mel_stockham_plain(x: torch.Tensor, nfft: int, hop: int,
+                            window: torch.Tensor, mel_fb: torch.Tensor,
+                            dct: torch.Tensor | None = None,
+                            log_eps: float = 1e-10) -> torch.Tensor:
+    """The packed MFCC kernel's plain version at the float32 tier."""
+    return _sk.stft_mfcc_plain(x, nfft, hop, window, mel_fb, dct, log_eps,
+                               "f32")
+
+
+def stft_mel_stockham(x: torch.Tensor, nfft: int, hop: int,
+                      window: torch.Tensor, mel_fb: torch.Tensor,
+                      bands: torch.Tensor, dct: torch.Tensor | None = None,
+                      log_eps: float = 1e-10) -> torch.Tensor:
+    """(c, n) float32 -> (c, frames, n_mfcc) MFCCs, or (c, frames, n_mels)
+    mel energies when dct is None, in one kernel pass on a CUDA tensor.
+    mel_fb: (n_mels, nfft//2+1); bands: its ``band_edges_np`` on x's
+    device; dct: (n_mfcc, n_mels), lifter folded in."""
+    if x.device.type == "cpu":
+        return stft_mel_stockham_plain(x, nfft, hop, window, mel_fb, dct,
+                                       log_eps)
+    _check_signal(x, window, nfft, hop, "stft_mel_stockham")
+    n_mels = mel_fb.shape[0]
+    _build.require(mel_fb, "mel_fb", x.device, (n_mels, nfft // 2 + 1))
+    _build.require(bands, "bands", x.device, (2, n_mels), torch.int32)
+    n_out = n_mels
+    if dct is not None:
+        n_out = dct.shape[0]
+        _build.require(dct, "dct", x.device, (n_out, n_mels))
+    c, n = x.shape
+    nf = stft_num_frames(n, nfft, hop)
+    out = torch.empty((c, nf, n_out), dtype=torch.float32, device=x.device)
+    err = _build.library().vv_stockham_mel(
+        _build.ptr(x), _build.ptr(window),
+        _build.ptr(_twiddles(nfft, x.device)), _build.ptr(mel_fb),
+        _build.ptr(bands[0]), _build.ptr(bands[1]),
+        _build.ptr(dct if dct is not None else mel_fb), _build.ptr(out), c,
+        n, nf, nfft, hop, n_mels, n_out, float(log_eps), int(dct is not None),
+        x.device.index, _build.stream_handle(x))
+    _build.check(err, "stft_mel_stockham")
+    stft_mel_stockham.launches += 1
+    return out
+
+
+stft_mel_stockham.launches = 0
+
+
+def stft_gate_stockham_plain(x: torch.Tensor, nfft: int, hop: int,
+                             window: torch.Tensor, norm: torch.Tensor,
+                             threshold: float) -> torch.Tensor:
+    """(..., n) -> (..., n): the two-sided spectrum of every frame, each
+    bin zeroed unless re^2 + im^2 >= t^2 times the frame's peak over all
+    nfft bins (float32), the real part of the inverse, windowed,
+    overlap-added and divided by the norm."""
+    spec = _sk.stft_spectrum_plain(x, nfft, hop, window)
+    time = _fft.ifft(_ik.gate_plain(spec, threshold)).real
+    return _ik.overlap_add_normalized(time, window, hop, x.shape[-1], norm)
+
+
+def stft_gate_stockham(x: torch.Tensor, nfft: int, hop: int,
+                       window: torch.Tensor, norm: torch.Tensor,
+                       threshold: float) -> torch.Tensor:
+    """(c, n) float32 -> (c, n) gated, in one kernel pass on a CUDA tensor:
+    no spectrum in device memory, each output sample written once. norm:
+    ``istft_kernels.ola_norm`` of the float64 window for the n samples'
+    frames, on x's device."""
+    if x.device.type == "cpu":
+        return stft_gate_stockham_plain(x, nfft, hop, window, norm,
+                                        threshold)
+    _check_signal(x, window, nfft, hop, "stft_gate_stockham",
+                  stockham_gate_supported)
+    c, n = x.shape
+    _build.require(norm, "norm", x.device, (n,))
+    out = torch.empty_like(x)
+    err = _build.library().vv_stockham_gate(
+        _build.ptr(x), _build.ptr(window),
+        _build.ptr(_twiddles(nfft, x.device)), _build.ptr(norm),
+        _build.ptr(out), c, n, stft_num_frames(n, nfft, hop), nfft, hop,
+        float(threshold) ** 2, x.device.index, _build.stream_handle(x))
+    _build.check(err, "stft_gate_stockham")
+    stft_gate_stockham.launches += 1
+    return out
+
+
+stft_gate_stockham.launches = 0

@@ -5,8 +5,11 @@
 Runs NorthStarChain on (16, 479232) at its default tiers and at f32,
 STFT(1024, 256).process(x, rfft=False) on (16, 480000), SpectralGate() and
 the STFT 1024/256 roundtrip (process(x, rfft=True) -> reconstruct) on
-(16, 479232), each ``calls`` times back to back under torch.profiler. For
-each it prints, per call:
+(16, 479232), and the full-nfft paths: STFT(128, 32).power,
+MFCCFrontend(128, 32, 26 mels, 13 MFCCs, 8 kHz) and SpectralGate(128, 32)
+on (16, 479232) and STFT(512, 8).process(x, rfft=False) on (16, 480000),
+each ``calls`` times back to back under torch.profiler. For each it
+prints, per call:
 
 - wall: host time of the loop, synchronized at its end;
 - busy: the union of the trace's kernel, memcpy and memset intervals, so
@@ -86,7 +89,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_path: no CUDA device")
-    from vv_dsp_tpu_torch.models import NorthStarChain, SpectralGate
+    from vv_dsp_tpu_torch.models import (MFCCFrontend, NorthStarChain,
+                                         SpectralGate)
     from vv_dsp_tpu_torch.ops.stft import STFT
 
     dev = torch.device("cuda", 0)
@@ -112,6 +116,13 @@ def main(argv=None) -> int:
     report("SpectralGate 1024/256", lambda: gate(xc), args.calls)
     report("roundtrip 1024/256", lambda: plan.reconstruct(
         plan.process(xc, rfft=True), n, rfft=True), args.calls)
+    small, dense = STFT(128, 32), STFT(512, 8)
+    front = MFCCFrontend(128, 32, 26, 13, 8000.0, device=dev)
+    gate128 = SpectralGate(128, 32, device=dev)
+    report("power 128/32", lambda: small.power(xc), args.calls)
+    report("MFCCFrontend 128/32", lambda: front(xc), args.calls)
+    report("SpectralGate 128/32", lambda: gate128(xc), args.calls)
+    report("stft 512/8", lambda: dense.process(xs, rfft=False), args.calls)
     return 0
 
 

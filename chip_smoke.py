@@ -15,9 +15,12 @@ Phases, each fatal on failure:
    128/32 on (16, 479232), the spectrum at 512/8 on (16, 480000), with the
    packed spectrum kernel timed on that input), and at one geometry of
    the other kind each on 2 channels (1024/8 for power, mel and gate;
-   128/32 for the spectrum). Then tier probes, inputs on which a kernel
-   must match the plain version at its own tier and land beyond the limit
-   against another tier (the controls);
+   128/32 for the spectrum). The direct FIR at 16 taps and the per-phase
+   resampler at 4/3 on (16, 479232), with the banded upfirdn kernel timed
+   beside the resampler, then on 2 channels at taps 1, 7, 129, n < taps
+   and ratios 2/1, 1/2, 3/4, 7/5. Then tier probes, inputs on which a
+   kernel must match the plain version at its own tier and land beyond the
+   limit against another tier (the controls);
 4. slice: through the public entry points, each with every launch counter
    zeroed just before it and read just after, NorthStarChain on
    (16, 479232), STFT(1024, 256).process on (16, 480000), SpectralGate() on
@@ -26,11 +29,15 @@ Phases, each fatal on failure:
    MFCCFrontend() on (16, 479232), then the full-nfft paths:
    STFT(128, 32).power, MFCCFrontend(128, 32, 26 mels, 13 MFCCs, 8 kHz)
    and SpectralGate(128, 32) on (16, 479232), and STFT(512, 8).process
-   two- and one-sided on (16, 480000); each path's launch counts equal to
-   the kernels it must run, output shapes, finite values, float64
-   numpy/scipy oracles on 2 channels (SpectralGate on a probe input whose
-   every bin lies far from the threshold), the roundtrip against its
-   input; then the throughput of each row.
+   two- and one-sided on (16, 480000); then the filter and resample entry
+   points on (16, 479232): NorthStarChain(fused_head=False),
+   fir_apply_best at 16, 64, 256 and 1024 taps, resample_poly_best at 2/1,
+   1/2, 4/3 and 160/147, resample_multistage at 160/147 and
+   resample_poly_kernel at 4/3; each path's launch counts equal to the
+   kernels it must run, output shapes, finite values, float64 numpy/scipy
+   oracles on 2 channels (SpectralGate on a probe input whose every bin
+   lies far from the threshold), the staged chain against the fused one,
+   the roundtrip against its input; then the throughput of each row.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, without a
 CUDA device or outside a checkout of the repository.
@@ -39,6 +46,7 @@ CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -55,6 +63,7 @@ N_STFT = 480000
 NFFT, HOP = 1024, 256          # the STFT row, the roundtrips and the gate
 GATE_T = 0.1                   # SpectralGate's default threshold
 REPS = 10
+BATCH_BELOW_MS = 0.2
 # H100 SXM peaks (NVIDIA's data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -83,6 +92,17 @@ STOCKHAM_TOL = 5e-5
 GATE_TOL = 5e-6
 SMALL = (128, 32)              # the 128-point frames of the full-nfft paths
 DENSE = (512, 8)               # the hop-8 spectrum row
+# the filter and resample entry points (benchmarks/run_suite.py's rows):
+# design_lowpass(taps, 0.3) filters, resample_poly's ratios on the input cut
+# to a multiple of down
+FIR_TAPS = (16, 64, 256, 1024)
+RATIOS = ((2, 1), (1, 2), (4, 3), (160, 147))
+# the direct FIR against fir_apply (cuDNN conv1d): the JAX package's FIR
+# tolerance (tests/test_pallas.py:22); the per-phase resampler against
+# resample_poly and float64 scipy: 1e-5, over 10x its readings (PERF.md)
+FIR_TOL = 2e-5
+POLY_TOL = 1e-5
+STAGED_TOL = 1e-4       # staged against fused chain (tests/test_models.py)
 
 
 def device_phase() -> str:
@@ -121,20 +141,26 @@ def build_phase() -> None:
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
-    """Median milliseconds of fn() on the current stream (CUDA events),
-    after two warm-up calls."""
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
+    """Median milliseconds of one fn() call on the current stream (CUDA
+    events), after two warm-up calls. A call shorter than BATCH_BELOW_MS
+    is timed as a run of back-to-back calls of about 2 ms over their
+    count, so that the host's time to launch it is not read as device
+    time."""
+    def run(calls: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        return start.elapsed_time(end) / calls
+
+    for _ in range(2):
+        fn()
+    once = run(1)
+    calls = 1 if once >= BATCH_BELOW_MS else min(200, math.ceil(2.0 / once))
+    return statistics.median(run(calls) for _ in range(reps))
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -366,6 +392,7 @@ def kernel_phase(xc, xs, chain, front, front128) -> dict:
 
     results.update(istft_phase(xc, win, failed))
     results.update(stockham_phase(xc, xs, front128, failed))
+    results.update(filter_phase(xc, failed))
     tier_probes((up, down, offset, n_out, taps), mfcc_args, failed)
     torch.cuda.synchronize()
     if failed:
@@ -610,6 +637,98 @@ def gate_phase(xc, x2, failed: list) -> dict:
     return r
 
 
+def filter_phase(xc, failed: list) -> dict:
+    """The direct FIR and the per-phase resampler against their plain
+    versions at the shapes fir_apply_best and resample_poly_kernel give
+    them: fir_direct at 16 taps and poly_kernel at 4/3 on (16, 479232), each
+    with its library call (F.conv1d; the strided conv1d of the conv-form
+    upfirdn plus its transpose), cuDNN's TF32 off, and the banded upfirdn
+    kernel timed beside poly_kernel on the same input; then 2-channel checks
+    at other taps, n < taps and other ratios."""
+    import torch.nn.functional as F
+    from vv_dsp_tpu_torch.ops import filter_kernels as fk
+    from vv_dsp_tpu_torch.ops import resample as rs
+    from vv_dsp_tpu_torch.ops import upfirdn as uf
+    from vv_dsp_tpu_torch.ops.fir import design_lowpass_np
+
+    assert not torch.backends.cudnn.allow_tf32, "cuDNN TF32 must be off"
+    c, n = xc.shape
+    dev = xc.device
+    out = {}
+    taps = FIR_TAPS[0]
+    h = design_lowpass_np(taps, 0.3)
+    fast = lambda: fk.fir_direct(h, xc)
+    plain = lambda: fk.fir_direct_plain(h, xc)
+    got = fast()
+    if not torch.equal(got, fast()):
+        failed.append("fir_direct differs between two runs")
+    r = record("fir_direct", f"{taps} taps", got, plain(), FIR_TOL, fast,
+               plain, failed)
+    w = torch.as_tensor(h[::-1].copy(), dtype=torch.float32,
+                        device=dev).reshape(1, 1, taps)
+    xpad = F.pad(xc[:, None], (taps - 1, 0))
+    lib = lambda: F.conv1d(xpad, w)
+    lib_err = rel_err(lib()[:, 0], got)[1]
+    r["library_ms"] = cuda_ms(lib)
+    r.update(bound(4 * (2 * xc.numel() + taps), 2 * xc.numel() * taps,
+                   F32_FLOP_PER_S))
+    print(f"  F.conv1d (cuDNN, TF32 off) on the left-padded input: "
+          f"{r['library_ms']:.4f} ms, {lib_err:.3e} of scale from the "
+          f"kernel; bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    out["fir_direct"] = r
+
+    up, down = 4, 3
+    hr = rs._resample_poly_filter(up, down)
+    off, n_out = (len(hr) - 1) // 2, -(-n * up // down)
+    table = uf.polyphase_table(hr, up, dev)
+    fast = lambda: fk.resample_poly_kernel(xc, up, down)
+    plain = lambda: fk.resample_poly_plain(xc, up, down)
+    got = fast()
+    if not torch.equal(got, fast()):
+        failed.append("poly_kernel differs between two runs")
+    r = record("poly_kernel", f"{up}/{down}", got, plain(), POLY_TOL, fast,
+               plain, failed)
+    banded = lambda: uf.upfirdn_banded(xc, table, up, down, off, n_out,
+                                       "f32")
+    banded_err = rel_err(banded(), got)[1]
+    r["banded_ms"] = cuda_ms(banded)
+    wc, c_lo = rs._upfirdn_conv_plan(tuple(hr), up, down, off)
+    frames = -(-n_out // up)
+    pad_l = max(0, -c_lo)
+    pad_r = max(0, (frames - 1) * down + c_lo + wc.shape[1] - n)
+    xb = F.pad(xc[:, None], (pad_l, pad_r))[..., c_lo + pad_l:].contiguous()
+    wt = torch.as_tensor(wc, dtype=torch.float32, device=dev)[:, None]
+    lib = lambda: F.conv1d(xb, wt, stride=down)[..., :frames].transpose(
+        1, 2).reshape(c, frames * up)
+    lib_err = rel_err(lib()[:, :n_out], got)[1]
+    r["library_ms"] = cuda_ms(lib)
+    r.update(bound(4 * (xc.numel() + c * n_out + table.numel()),
+                   2 * c * n_out * table.shape[1], F32_FLOP_PER_S))
+    faster = "poly_kernel" if r["ms"] < r["banded_ms"] else "upfirdn_banded"
+    print(f"  upfirdn_banded (f32) on the same input: {r['banded_ms']:.4f} ms "
+          f"({faster} is faster), {banded_err:.3e} of scale from the kernel; "
+          f"strided F.conv1d (cuDNN, TF32 off) + transpose: "
+          f"{r['library_ms']:.4f} ms, {lib_err:.3e} of scale; bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    out["poly_kernel"] = r
+
+    x2 = xc[:2].contiguous()
+    for taps, xv in ((1, x2), (7, x2), (129, x2),
+                     (129, x2[:, :100].contiguous())):
+        h = design_lowpass_np(taps, 0.3) if taps > 1 else np.array([0.5])
+        fast = lambda: fk.fir_direct(h, xv)
+        plain = lambda: fk.fir_direct_plain(h, xv)
+        record("fir_direct", f"{taps} taps, 2 x {xv.shape[1]}", fast(),
+               plain(), FIR_TOL, fast, plain, failed)
+    for up, down in ((2, 1), (1, 2), (3, 4), (7, 5)):
+        xv = x2[:, :n // down * down].contiguous()
+        fast = lambda: fk.resample_poly_kernel(xv, up, down)
+        plain = lambda: fk.resample_poly_plain(xv, up, down)
+        record("poly_kernel", f"{up}/{down}, 2 x {xv.shape[1]}", fast(),
+               plain(), POLY_TOL, fast, plain, failed)
+    return out
+
+
 def chain_oracle(x64: np.ndarray, chain) -> np.ndarray:
     """The whole chain in float64 numpy/scipy (tests/test_models.py's
     oracle): lfilter -> resample_poly -> framed rfft power -> mel -> log ->
@@ -634,6 +753,38 @@ def chain_oracle(x64: np.ndarray, chain) -> np.ndarray:
     fb = mel_filterbank_np(nfft, chain.n_mels, sr, 0.0, sr / 2, "htk")
     lm = np.log(pw @ fb.T + 1e-10)
     return lm @ _dct2_matrix(chain.n_mels)[:chain.n_mfcc].T
+
+
+def filter_oracles(x64: np.ndarray, outs: dict) -> None:
+    """The filter and resample rows' outputs on 2 channels against float64
+    scipy: the FIRs as a full convolution cut to n (lfilter's output), the
+    resamplers as scipy.signal.resample_poly, the multistage row as the
+    same cascade of resample_poly stages."""
+    from scipy import signal as ss
+    from vv_dsp_tpu_torch.ops import resample as rs
+    from vv_dsp_tpu_torch.ops.fir import design_lowpass_np
+    n = x64.shape[-1]
+    for taps in FIR_TAPS:
+        want = ss.oaconvolve(x64, design_lowpass_np(taps, 0.3)[None],
+                             axes=-1)[:, :n]
+        oracle_check(f"fir_{taps}_best vs float64 scipy (2 ch)",
+                     outs[f"fir_{taps}_best"][:2].cpu().numpy(), want,
+                     FIR_TOL)
+    for u, d in RATIOS:
+        want = ss.resample_poly(x64[:, :n // d * d], u, d, axis=-1)
+        oracle_check(f"resample_poly_{u}_{d} vs float64 scipy (2 ch)",
+                     outs[f"resample_poly_{u}_{d}"][:2].cpu().numpy(), want,
+                     POLY_TOL)
+        if (u, d) == (4, 3):
+            oracle_check("resample_poly_kernel_4_3 vs float64 scipy (2 ch)",
+                         outs["resample_poly_kernel_4_3"][:2].cpu().numpy(),
+                         want, POLY_TOL)
+    want = x64
+    for u, d in rs._factor_stages(160, 147):
+        want = ss.resample_poly(want, u, d, axis=-1)
+    oracle_check("resample_multistage_160_147 vs float64 scipy stages (2 ch)",
+                 outs["resample_multistage_160_147"][:2].cpu().numpy(),
+                 want[:, :-(-n * 160 // 147)], POLY_TOL)
 
 
 def spectrum_oracle(x64: np.ndarray, nfft: int, hop: int) -> np.ndarray:
@@ -757,15 +908,18 @@ def full_nfft_oracles(xc, xs, outs, front128, gate128) -> None:
                      want[..., :bins], ORACLE_TOL)
 
 
-def slice_phase(xc, xs, chain, front, front128, card: str) -> dict:
+def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
     """Drive every entry point of the slice once, each with the launch
     counters zeroed just before it and read just after, then check and
     time them. Returns each kernel's launches summed over the paths."""
     from vv_dsp_tpu_torch.models import SpectralGate
+    from vv_dsp_tpu_torch.ops import filter_kernels as fk
     from vv_dsp_tpu_torch.ops import istft_kernels as ik
+    from vv_dsp_tpu_torch.ops import resample as rs
     from vv_dsp_tpu_torch.ops import stft_kernels as sk
     from vv_dsp_tpu_torch.ops import stockham_kernels as stk
     from vv_dsp_tpu_torch.ops import upfirdn as uf
+    from vv_dsp_tpu_torch.ops.fir import design_lowpass_np
     from vv_dsp_tpu_torch.ops.stft import STFT
 
     counters = {"upfirdn_banded": uf.upfirdn_banded,
@@ -774,9 +928,13 @@ def slice_phase(xc, xs, chain, front, front128, card: str) -> dict:
                 "stft_power_stockham": stk.stft_power_stockham,
                 "stft_mel_stockham": stk.stft_mel_stockham,
                 "stft_gate_stockham": stk.stft_gate_stockham,
-                "stft_spectrum_stockham": stk.stft_spectrum_stockham}
+                "stft_spectrum_stockham": stk.stft_spectrum_stockham,
+                "fir_direct": fk.fir_direct,
+                "poly_kernel": fk.resample_poly_kernel}
     plan = STFT(NFFT, HOP)
     gate = SpectralGate()
+    firs = {taps: design_lowpass_np(taps, 0.3) for taps in FIR_TAPS}
+    cut = {d: xc[:, :N_CHAIN // d * d] for _, d in RATIOS}
     small, dense = STFT(*SMALL), STFT(*DENSE)
     gate128 = SpectralGate(*SMALL, GATE_T)
     ones = torch.ones(NFFT // 2 + 1, device=xc.device)
@@ -803,7 +961,31 @@ def slice_phase(xc, xs, chain, front, front128, card: str) -> dict:
         ("spectrum 512/8", lambda: dense.process(xs, rfft=False),
          {"stft_spectrum_stockham": 1}),
         ("spectrum 512/8 one-sided", lambda: dense.process(xs, rfft=True),
-         {"stft_spectrum_stockham": 1}))
+         {"stft_spectrum_stockham": 1}),
+        ("staged chain", lambda: staged(xc),
+         {"upfirdn_banded": 2, "stft_mfcc": 1}))
+    # the filter and resample entry points on the TPU's routes, with the
+    # input samples a channel each row counts
+    filter_paths = [
+        (f"fir_{taps}_best", lambda h=h: fk.fir_apply_best(h, xc), want,
+         N_CHAIN)
+        for (taps, h), want in zip(firs.items(), (
+            {"fir_direct": 1}, {}, {}, {"upfirdn_banded": 1}))]
+    filter_paths += [
+        (f"resample_poly_{u}_{d}",
+         lambda u=u, d=d: fk.resample_poly_best(cut[d], u, d), want,
+         cut[d].shape[1])
+        for (u, d), want in zip(RATIOS, (
+            {"upfirdn_banded": 1}, {"upfirdn_banded": 1},
+            {"upfirdn_banded": 1}, {}))]
+    filter_paths += [
+        ("resample_multistage_160_147",
+         lambda: rs.resample_multistage(xc, 160, 147), {"upfirdn_banded": 3},
+         N_CHAIN),
+        ("resample_poly_kernel_4_3",
+         lambda: fk.resample_poly_kernel(xc, 4, 3), {"poly_kernel": 1},
+         N_CHAIN)]
+    paths += tuple(p[:3] for p in filter_paths)
     outs, launches = {}, dict.fromkeys(counters, 0)
     for name, fn, want in paths:
         for counted in counters.values():
@@ -842,15 +1024,34 @@ def slice_phase(xc, xs, chain, front, front128, card: str) -> dict:
             ("spectrum 512/8", outs["spectrum 512/8"],
              (CHANNELS, nf_dense, DENSE[0]), torch.complex64),
             ("spectrum 512/8 one-sided", outs["spectrum 512/8 one-sided"],
-             (CHANNELS, nf_dense, DENSE[0] // 2 + 1), torch.complex64)):
+             (CHANNELS, nf_dense, DENSE[0] // 2 + 1), torch.complex64),
+            ("staged chain", outs["staged chain"], (CHANNELS, nf_chain, 20),
+             torch.float32),
+            *((f"fir_{taps}_best", outs[f"fir_{taps}_best"],
+               (CHANNELS, N_CHAIN), torch.float32) for taps in FIR_TAPS),
+            *((f"resample_poly_{u}_{d}", outs[f"resample_poly_{u}_{d}"],
+               (CHANNELS, -(-(N_CHAIN // d * d) * u // d)), torch.float32)
+              for u, d in RATIOS),
+            ("resample_multistage_160_147",
+             outs["resample_multistage_160_147"],
+             (CHANNELS, -(-N_CHAIN * 160 // 147)), torch.float32),
+            ("resample_poly_kernel_4_3", outs["resample_poly_kernel_4_3"],
+             (CHANNELS, N_CHAIN * 4 // 3), torch.float32)):
         assert tuple(t.shape) == shape, (name, tuple(t.shape))
         assert t.dtype == dtype, (name, t.dtype)
         vals = torch.view_as_real(t) if t.is_complex() else t
         assert torch.isfinite(vals).all().item(), f"non-finite {name}"
 
     x2 = xc[:2].double().cpu().numpy()
+    chain_want = chain_oracle(x2, chain)
     oracle_check("chain vs float64 oracle (2 ch)",
-                 feats[:2].cpu().numpy(), chain_oracle(x2, chain), 5e-5)
+                 feats[:2].cpu().numpy(), chain_want, 5e-5)
+    oracle_check("staged chain vs float64 oracle (2 ch)",
+                 outs["staged chain"][:2].cpu().numpy(), chain_want, 5e-5)
+    oracle_check("staged chain vs the fused chain (16 ch)",
+                 outs["staged chain"].cpu().numpy(),
+                 feats.double().cpu().numpy(), STAGED_TOL)
+    filter_oracles(x2, outs)
     want = spectrum_oracle(xs[:2].double().cpu().numpy(), NFFT, HOP)
     oracle_check("STFT 1024/256 vs float64 oracle (2 ch)",
                  spec[:2].cpu().numpy(), want, 5e-5)
@@ -893,7 +1094,10 @@ def slice_phase(xc, xs, chain, front, front128, card: str) -> dict:
             ("stft_512_8_throughput", lambda: dense.process(xs, rfft=False),
              N_STFT),
             ("stft_512_8_rfft_throughput",
-             lambda: dense.process(xs, rfft=True), N_STFT))
+             lambda: dense.process(xs, rfft=True), N_STFT),
+            ("northstar_chain_staged_throughput", lambda: staged(xc),
+             N_CHAIN),
+            *((name, fn, n) for name, fn, _, n in filter_paths))
     for name, fn, n in rows:
         ms = cuda_ms(fn)
         print(f"{name} {CHANNELS * n / ms / 1e3:.2f} Msamples/s "
@@ -918,11 +1122,12 @@ def main() -> None:
     xs = torch.as_tensor(rng.standard_normal((CHANNELS, N_STFT)),
                          dtype=torch.float32, device=dev)
     chain, front = NorthStarChain(device=dev), MFCCFrontend(device=dev)
+    staged = NorthStarChain(fused_head=False, device=dev)
     front128 = MFCCFrontend(*SMALL, n_mels=26, n_mfcc=13, sample_rate=8000.0,
                             device=dev)
     kernels = kernel_phase(xc, xs, chain, front, front128)
     torch.cuda.synchronize()
-    launches = slice_phase(xc, xs, chain, front, front128, card)
+    launches = slice_phase(xc, xs, chain, staged, front, front128, card)
     torch.cuda.synchronize()
 
     sources = {
@@ -944,6 +1149,10 @@ def main() -> None:
                                    "vv_dsp_tpu/ops/pallas_fft.py:1745"),
         "stft_gate_stockham": ("vv_dsp_tpu_torch/csrc/stockham.cu",
                                "vv_dsp_tpu/ops/pallas_fft.py:2210"),
+        "fir_direct": ("vv_dsp_tpu_torch/csrc/filter.cu",
+                       "vv_dsp_tpu/ops/pallas_kernels.py:101"),
+        "poly_kernel": ("vv_dsp_tpu_torch/csrc/filter.cu",
+                        "vv_dsp_tpu/ops/pallas_kernels.py:183"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

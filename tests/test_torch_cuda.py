@@ -4,8 +4,10 @@ phases differ within a thread, short and ragged signals, every tier, both
 spectrum forms, mel energies, the power spectrogram, and the inverse STFT
 at q = nfft/hop = 1, 2, 4 and 8 with and without its gate, and the
 full-nfft kernels at nfft = 128 and hop = 8: short signals, one frame,
-hop == nfft, q = 128, one channel, bit-identical reruns of the fused gate).
-Needs an NVIDIA GPU and nvcc; skips without them. Run on the card (this
+hop == nfft, q = 128, one channel, bit-identical reruns of the fused gate;
+the direct FIR and the per-phase resampler at taps 1 to 2048, n < taps and
+every ratio class, with bit-identical reruns, and the banded kernel at the
+filter and resample entry points' geometries). Needs an NVIDIA GPU and nvcc; skips without them. Run on the card (this
 file imports neither jax nor the JAX package, so the suite's jax conftest
 is not needed):
 
@@ -44,12 +46,14 @@ import torch
 
 from vv_dsp_tpu_torch import config
 from vv_dsp_tpu_torch.models import MFCCFrontend, NorthStarChain, SpectralGate
+from vv_dsp_tpu_torch.ops import filter_kernels as tfk
 from vv_dsp_tpu_torch.ops import istft_kernels as tik
 from vv_dsp_tpu_torch.ops import mel as tmel
 from vv_dsp_tpu_torch.ops import resample as trs
 from vv_dsp_tpu_torch.ops import stft_kernels as tsk
 from vv_dsp_tpu_torch.ops import stockham_kernels as tstk
 from vv_dsp_tpu_torch.ops import upfirdn as tuf
+from vv_dsp_tpu_torch.ops.fir import design_lowpass_np
 from vv_dsp_tpu_torch.ops.framing import stft_num_frames
 from vv_dsp_tpu_torch.ops.stft import STFT
 from vv_dsp_tpu_torch.ops.window import get_window_np
@@ -546,3 +550,168 @@ def test_stockham_wrappers_refuse_what_they_do_not_take(dev, gen):
         STFT(128, 32).process(x)
     with pytest.raises(TypeError):
         tstk.stft_power_stockham(x.double(), 128, 32, STFT(128, 32).win(dev))
+
+
+# the direct FIR (fir_direct) and the per-phase resampler (poly_kernel):
+# 2e-5 of max |y| for the FIR (the JAX package's FIR tolerance; the kernel
+# sums k = 0..taps-1, cuDNN in its own order), 1e-5 for the resampler (at
+# most 41 products a phase at these ratios)
+FIR_TOL = 2e-5
+POLY_TOL = 1e-5
+
+
+def _lowpass(taps):
+    return design_lowpass_np(taps, 0.3) if taps > 1 else np.array([0.5])
+
+
+@pytest.mark.parametrize("taps", [1, 2, 7, 16, 129, 2048])
+@pytest.mark.parametrize("channels,n", [(1, 1), (3, 100), (2, 5001),
+                                        (5, 4097)])
+def test_fir_direct_kernel_matches_plain(dev, gen, taps, channels, n):
+    """Ragged n and channels off any tile, n < taps (the window's zero
+    history), the same bits on a second run."""
+    x = torch.as_tensor(gen.standard_normal((channels, n)),
+                        dtype=torch.float32, device=dev)
+    h = _lowpass(taps)
+    before = tfk.fir_direct.launches
+    got = tfk.fir_direct(h, x)
+    again = tfk.fir_direct(h, x)
+    torch.cuda.synchronize()
+    assert tfk.fir_direct.launches == before + 2
+    want = tfk.fir_direct_plain(h, x)
+    assert got.shape == (channels, n) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert _rel(got, want) < FIR_TOL
+
+
+def test_fir_direct_refuses_what_the_pallas_kernel_refuses(dev, gen):
+    x = torch.as_tensor(gen.standard_normal((2, 3000)), dtype=torch.float32,
+                        device=dev)
+    before = tfk.fir_direct.launches
+    for taps in (2049, 5000):
+        with pytest.raises(ValueError):
+            tfk.fir_direct(np.ones(taps) / taps, x)
+    with pytest.raises(TypeError):
+        tfk.fir_direct(_lowpass(16), x.double())
+    with pytest.raises(ValueError):
+        tfk.fir_direct(_lowpass(16), x[:, ::2])
+    assert tfk.fir_direct.launches == before
+    # a refused call leaves no error behind for the next one
+    assert _rel(tfk.fir_direct(_lowpass(16), x),
+                tfk.fir_direct_plain(_lowpass(16), x)) < FIR_TOL
+
+
+@pytest.mark.parametrize("up,down", [(2, 1), (1, 2), (4, 3), (3, 4), (7, 5),
+                                     (5, 7), (8, 7), (1, 25), (24, 1)])
+@pytest.mark.parametrize("channels,n", [(1, 7), (3, 5001), (2, 100)])
+def test_poly_kernel_matches_plain(dev, gen, up, down, channels, n):
+    """Every phase layout (up and down each 1 or not, up > down and
+    up < down, the largest down and up under up * taps_pp <= 512), signals
+    shorter than a phase's taps, the same bits on a second run."""
+    x = torch.as_tensor(gen.standard_normal((channels, n)),
+                        dtype=torch.float32, device=dev)
+    before = tfk.resample_poly_kernel.launches
+    got = tfk.resample_poly_kernel(x, up, down)
+    again = tfk.resample_poly_kernel(x, up, down)
+    torch.cuda.synchronize()
+    assert tfk.resample_poly_kernel.launches == before + 2
+    want = tfk.resample_poly_plain(x, up, down)
+    assert got.shape == want.shape == (channels, -(-n * up // down))
+    assert torch.equal(got, again)
+    assert _rel(got, want) < POLY_TOL
+
+
+def test_poly_kernel_rules(dev, gen):
+    """up == down returns x; more than 512 weights (up * taps_pp) take
+    resample_poly, the JAX launcher's static route; neither launches."""
+    x = torch.as_tensor(gen.standard_normal((2, 3000)), dtype=torch.float32,
+                        device=dev)
+    before = tfk.resample_poly_kernel.launches
+    assert tfk.resample_poly_kernel(x, 3, 3) is x
+    got = tfk.resample_poly_kernel(x, 30, 7)
+    assert tfk.resample_poly_kernel.launches == before
+    assert _rel(got, trs.resample_poly(x, 30, 7)) < POLY_TOL
+    with pytest.raises(TypeError):
+        tfk.resample_poly_kernel(x.double(), 4, 3)
+
+
+# the banded kernel at the geometries the filter and resample entry points
+# give it: the FIR at up = down = 1 with 1024 taps (offset 0), and
+# resample_poly's filters at offset half_len
+@pytest.mark.parametrize("up,down,taps", [(1, 1, 1024), (2, 1, 0), (1, 2, 0),
+                                          (8, 7, 0), (5, 7, 0), (4, 3, 0)])
+@pytest.mark.parametrize("channels,n", [(1, 7), (3, 5001), (2, 30000)])
+def test_upfirdn_kernel_at_the_filter_geometries(dev, gen, up, down, taps,
+                                                 channels, n):
+    if taps:
+        g, off, n_out = design_lowpass_np(taps, 0.3), 0, n
+    else:
+        g = trs._resample_poly_filter(up, down)
+        off, n_out = (len(g) - 1) // 2, -(-n * up // down)
+    x = torch.as_tensor(gen.standard_normal((channels, n)),
+                        dtype=torch.float32, device=dev)
+    table = tuf.polyphase_table(g, up, dev)
+    got = tuf.upfirdn_banded(x, table, up, down, off, n_out)
+    again = tuf.upfirdn_banded(x, table, up, down, off, n_out)
+    want = tuf.upfirdn_tall(x, table, up, down, off, n_out)
+    assert got.shape == (channels, n_out)
+    assert torch.equal(got, again)
+    assert _rel(got, want) < 1e-5
+
+
+def test_filter_entry_points_on_card_match_cpu(dev, gen):
+    """fir_apply_best, resample_poly_best, resample_multistage,
+    resample_poly_kernel and the staged chain on the card, each launching
+    the kernels the JAX package's TPU routes run, against the CPU."""
+    x = torch.as_tensor(gen.standard_normal((2, 24000)), dtype=torch.float32)
+    xd = x.to(dev)
+    counters = {"fir_direct": tfk.fir_direct,
+                "poly_kernel": tfk.resample_poly_kernel,
+                "upfirdn_banded": tuf.upfirdn_banded,
+                "stft_mfcc": tsk.stft_mfcc}
+    staged = (NorthStarChain(fused_head=False, device="cpu"),
+              NorthStarChain(fused_head=False, device=dev))
+    paths = [(f"fir_{t}", lambda v, t=t: tfk.fir_apply_best(_lowpass(t), v),
+              tol, want)
+             for t, tol, want in ((16, FIR_TOL, {"fir_direct": 1}),
+                                  (64, FIR_TOL, {}), (256, FIR_TOL, {}),
+                                  (1024, FIR_TOL, {"upfirdn_banded": 1}))]
+    paths += [(f"resample_{u}_{d}",
+               lambda v, u=u, d=d: tfk.resample_poly_best(v, u, d), POLY_TOL,
+               want)
+              for u, d, want in ((2, 1, {"upfirdn_banded": 1}),
+                                 (1, 2, {"upfirdn_banded": 1}),
+                                 (4, 3, {"upfirdn_banded": 1}),
+                                 (160, 147, {}))]
+    paths += [("multistage", lambda v: trs.resample_multistage(v, 160, 147),
+               POLY_TOL, {"upfirdn_banded": 3}),
+              ("poly_kernel", lambda v: tfk.resample_poly_kernel(v, 4, 3),
+               POLY_TOL, {"poly_kernel": 1}),
+              ("staged chain", lambda v: staged[v.is_cuda](v), 5e-5,
+               {"upfirdn_banded": 2, "stft_mfcc": 1})]
+    for name, fn, tol, want in paths:
+        ref = fn(x)
+        for f in counters.values():
+            f.launches = 0
+        got = fn(xd)
+        torch.cuda.synchronize()
+        assert {k: f.launches for k, f in counters.items()
+                if f.launches} == want, name
+        assert got.shape == ref.shape, name
+        assert _rel(got, ref) < tol, name
+
+
+def test_fir_apply_best_gradient_on_card(dev, gen):
+    """The direct route's backward differentiates fir_apply on the card:
+    d/dh and d/dx match the CPU's."""
+    x = torch.as_tensor(gen.standard_normal((2, 5000)), dtype=torch.float32)
+    cot = torch.as_tensor(gen.standard_normal((2, 5000)), dtype=torch.float32)
+    h = torch.as_tensor(_lowpass(16), dtype=torch.float32)
+    grads = []
+    for d in ("cpu", dev):
+        xt = x.to(d).requires_grad_(True)
+        ht = h.to(d).requires_grad_(True)
+        grads.append(torch.autograd.grad(tfk.fir_apply_best(ht, xt),
+                                         (xt, ht), cot.to(d)))
+    for got, want in zip(grads[1], grads[0]):
+        assert _rel(got, want) < 1e-5

@@ -39,6 +39,7 @@ from vv_dsp_tpu_torch.ops import istft_kernels as tik
 from vv_dsp_tpu_torch.ops import mel as tmel
 from vv_dsp_tpu_torch.ops import stft_kernels as tsk
 from vv_dsp_tpu_torch.ops.stft import STFT, power_spectrogram_onesided
+from torch_one_thread import one_thread
 
 
 def _interior_err(got, want, e):
@@ -70,14 +71,14 @@ def test_power_matches_packed_power(rng, nfft, hop):
     n = nfft * 4 + hop * 3
     x = rng.standard_normal((2, n)).astype(np.float32)
     want = jpf.stft_power_packed(jnp.asarray(x), nfft, hop, interpret=True)
-    got = STFT(nfft, hop).power(torch.as_tensor(x))
+    win = STFT(nfft, hop).win()
+    with one_thread():   # the CPU result depends on the thread count
+        got = STFT(nfft, hop).power(torch.as_tensor(x))
+        plain = tsk.stft_power_plain(torch.as_tensor(x), nfft, hop, win)
     assert got.shape == want.shape == (2, 1 + (n - nfft + hop) // hop,
                                        nfft // 2 + 1)
     assert _rel(got, want) < 5e-5
-    win = STFT(nfft, hop).win()
-    torch.testing.assert_close(
-        got, tsk.stft_power_plain(torch.as_tensor(x), nfft, hop, win),
-        rtol=0, atol=0)
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
 
 
 def _padded_noise(rng, nfft, hop, n, channels=2):
@@ -111,17 +112,18 @@ def test_gated_inverse_matches_split_gate(rng, nfft, hop):
                                           interpret=True))
     x = torch.as_tensor(xp)
     win = STFT(nfft, hop).win()
-    spec = tsk.stft_spectrum_plain(x, nfft, hop, win, onesided=True)
-    norm = tik.ola_norm(get_window_np("hann", nfft), hop, spec.shape[1],
-                        xp.shape[-1], "cpu")
-    got = tik.istft_plain(spec, nfft, hop, xp.shape[-1], win, norm, 0.1)
-    scale = max(1.0, np.abs(want).max())
     n = xp.shape[-1] - 2 * pad
+    gate = SpectralGate(nfft, hop, 0.1, device="cpu")
+    with one_thread():   # the CPU result depends on the thread count
+        spec = tsk.stft_spectrum_plain(x, nfft, hop, win, onesided=True)
+        norm = tik.ola_norm(get_window_np("hann", nfft), hop, spec.shape[1],
+                            xp.shape[-1], "cpu")
+        got = tik.istft_plain(spec, nfft, hop, xp.shape[-1], win, norm, 0.1)
+        gated = gate(x[:, pad:pad + n])
+    scale = max(1.0, np.abs(want).max())
     err = np.abs(got.numpy()[:, pad:pad + n] - want[:, pad:pad + n]).max()
     assert err / scale < 5e-6
-    gate = SpectralGate(nfft, hop, 0.1, device="cpu")
-    torch.testing.assert_close(gate(x[:, pad:pad + n]), got[:, pad:pad + n],
-                               rtol=0, atol=0)
+    torch.testing.assert_close(gated, got[:, pad:pad + n], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("nfft,hop,threshold,n,seed", [
@@ -166,15 +168,16 @@ def test_mfcc_frontend_matches_jax(rng, lifter):
     x = rng.standard_normal((2, 16000)).astype(np.float32)
     want = np.asarray(JaxFrontend(lifter=lifter)(jnp.asarray(x)))
     front = MFCCFrontend(lifter=lifter, device="cpu")
-    got = front(torch.as_tensor(x))
-    assert got.shape == want.shape == (2, 60, 13)
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-4)
     params = convert.frontend_params_from_reference(
         get_window_np("hann", 1024, None),
         jmel.mel_filterbank_np(1024, 26, 16000.0, 0.0, 8000.0, "htk"),
         _dct2_matrix(26)[:13] * jmel._lifter_np(13, lifter)[:, None])
-    got_ref = MFCCFrontend(lifter=lifter, params=params, device="cpu")(
-        torch.as_tensor(x))
+    with one_thread():   # the CPU result depends on the thread count
+        got = front(torch.as_tensor(x))
+        got_ref = MFCCFrontend(lifter=lifter, params=params, device="cpu")(
+            torch.as_tensor(x))
+    assert got.shape == want.shape == (2, 60, 13)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-4)
     torch.testing.assert_close(got_ref, got, rtol=0, atol=0)
 
 
@@ -199,14 +202,15 @@ def test_stft_roundtrip_matches_jax(rng, rfft):
     jplan, plan = JaxSTFT(nfft, hop), STFT(nfft, hop)
     want = jplan.reconstruct(jplan.process(jnp.asarray(x), rfft=rfft), n,
                              rfft=rfft)
-    got = plan.reconstruct(plan.process(torch.as_tensor(x), rfft=rfft), n,
-                           rfft=rfft)
+    with one_thread():   # the CPU result depends on the thread count
+        got = plan.reconstruct(plan.process(torch.as_tensor(x), rfft=rfft),
+                               n, rfft=rfft)
+        # leading axes fold like process's
+        spec = plan.process(torch.as_tensor(x.reshape(2, 1, n)), rfft=rfft)
+        folded = plan.reconstruct(spec, n, rfft=rfft)
     assert _interior_err(got, want, nfft) < 5e-6
     np.testing.assert_allclose(got.numpy()[:, nfft - hop:hop - nfft],
                                x[:, nfft - hop:hop - nfft], rtol=0, atol=3e-5)
-    # leading axes fold like process's
-    spec = plan.process(torch.as_tensor(x.reshape(2, 1, n)), rfft=rfft)
-    folded = plan.reconstruct(spec, n, rfft=rfft)
     assert folded.shape == (2, 1, n)
     torch.testing.assert_close(folded[:, 0], got, rtol=0, atol=0)
 
@@ -338,9 +342,10 @@ def test_dc_and_nyquist_imaginary_parts_are_ignored(rng):
     bent = spec.clone()
     bent[..., 0] += 1j
     bent[..., -1] -= 2j
-    torch.testing.assert_close(plan.reconstruct(bent, 4000, rfft=True),
-                               plan.reconstruct(spec, 4000, rfft=True),
-                               rtol=0, atol=0)
+    with one_thread():   # the CPU result depends on the thread count
+        got = plan.reconstruct(bent, 4000, rfft=True)
+        want = plan.reconstruct(spec, 4000, rfft=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_reconstruct_gradient_matches_jax(rng):

@@ -19,6 +19,7 @@ from vv_dsp_tpu.ops import pallas_upfirdn as jpu
 from vv_dsp_tpu.ops import resample as jrs
 from vv_dsp_tpu_torch.ops import resample as trs
 from vv_dsp_tpu_torch.ops import upfirdn as tuf
+from torch_one_thread import one_thread
 
 TOL = 1e-5
 
@@ -143,23 +144,33 @@ def test_fused_head_against_float64_scipy(flagship, rng):
 def test_fused_head_rank_and_dtype(flagship, rng):
     h, _, _ = flagship
     x = rng.standard_normal((3, 2, 6000)).astype(np.float32)
-    got = trs.fir_resample_fused(h.astype(np.float32), torch.as_tensor(x), 4,
-                                 3, algorithm="f32")
+    with one_thread():   # the CPU result depends on the thread count
+        got = trs.fir_resample_fused(h.astype(np.float32),
+                                     torch.as_tensor(x), 4, 3,
+                                     algorithm="f32")
+        flat = trs.fir_resample_fused(h.astype(np.float32),
+                                      torch.as_tensor(x.reshape(6, 6000)), 4,
+                                      3, algorithm="f32")
     assert got.shape == (3, 2, 8000)
-    flat = trs.fir_resample_fused(h.astype(np.float32),
-                                  torch.as_tensor(x.reshape(6, 6000)), 4, 3,
-                                  algorithm="f32")
     torch.testing.assert_close(got.reshape(6, 8000), flat, rtol=0, atol=0)
     pcm = torch.as_tensor((x[0] * 1000).astype(np.int16))
     assert trs.fir_resample_fused(h, pcm, 4, 3).dtype == torch.float32
 
 
-def test_unported_branches_raise(flagship):
+@pytest.mark.parametrize("n,up,down", [(8, 4, 3), (300, 4, 3), (3000, 2, 2),
+                                        (500, 1, 1)])
+def test_short_signal_and_equal_rate_branches(flagship, rng, n, up, down):
+    """Signals shorter than the resample filter take the staged pair over
+    the whole output; up == down is the FIR alone (fir_apply_mxu), as in
+    the JAX function."""
     h, _, _ = flagship
-    with pytest.raises(NotImplementedError):
-        trs.fir_resample_fused(h, torch.zeros(1, 8), 4, 3)   # short signal
-    with pytest.raises(NotImplementedError):
-        trs.fir_resample_fused(h, torch.zeros(1, 3000), 2, 2)  # up == down
+    x = rng.standard_normal((2, n)).astype(np.float32)
+    want = np.asarray(jrs.fir_resample_fused(h.astype(np.float32),
+                                             jnp.asarray(x), up, down))
+    got = trs.fir_resample_fused(h.astype(np.float32), torch.as_tensor(x),
+                                 up, down, algorithm="f32")
+    assert got.shape == want.shape == (2, -(-n * up // down))
+    assert _rel(got, want) < TOL
 
 
 def test_head_always_goes_through_the_kernel_wrapper(flagship, monkeypatch):

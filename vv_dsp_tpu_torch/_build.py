@@ -101,10 +101,12 @@ def library() -> ctypes.CDLL:
     lib.vv_stockham_mel.argtypes = [P, P, P, P, P, P, P, P, I, L, I, I, I, I,
                                     I, F, I, I, P]
     lib.vv_stockham_gate.argtypes = [P, P, P, P, P, I, L, I, I, I, F, I, P]
+    lib.vv_fir_direct.argtypes = [P, P, P, I, L, I, I, P]
+    lib.vv_poly.argtypes = [P, P, P, I, L, L, I, I, I, I, I, P]
     for fn in (lib.vv_upfirdn, lib.vv_stft_spectrum, lib.vv_stft_mfcc,
                lib.vv_stft_power, lib.vv_istft, lib.vv_stockham_spectrum,
                lib.vv_stockham_power, lib.vv_stockham_mel,
-               lib.vv_stockham_gate):
+               lib.vv_stockham_gate, lib.vv_fir_direct, lib.vv_poly):
         fn.restype = I
     lib.vv_error_string.argtypes = [I]
     lib.vv_error_string.restype = ctypes.c_char_p

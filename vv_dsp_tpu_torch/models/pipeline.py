@@ -8,7 +8,9 @@ device than the buffers.
 
 NorthStarChain:
 
-1024-tap FIR -> 4/3 polyphase resample (one fused banded upfirdn, kernel 1)
+1024-tap FIR -> 4/3 polyphase resample (one fused banded upfirdn, kernel 1;
+with ``fused_head=False`` the staged pair ``fir_apply_best`` ->
+``resample_poly_best``, two banded upfirdns at the flagship geometry)
 -> 2048/512 STFT -> 80 HTK mel bands -> log -> 20 MFCCs (one fused kernel,
 kernel 2). The module's buffers are the device constants: the composite
 head filter's polyphase table, the window, the mel filterbank with its
@@ -33,6 +35,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from vv_dsp_tpu_torch import config
+from vv_dsp_tpu_torch.ops import filter_kernels as _fk
 from vv_dsp_tpu_torch.ops import fir as _fir
 from vv_dsp_tpu_torch.ops import istft_kernels as _ik
 from vv_dsp_tpu_torch.ops import mel as _mel
@@ -93,8 +96,11 @@ class NorthStarChain(nn.Module):
     Same fields and defaults as the JAX chain. head_algorithm and
     stft_algorithm name the dot-algorithm tier of the banded head and of
     the mel/DCT contractions ("bf16x3" by default, as in the JAX chain;
-    "f32" for full float32). params: host constants from ``chain_params``
-    or ``convert.params_from_reference``; built from the fields when None.
+    "f32" for full float32). fused_head=False runs the staged head,
+    ``resample_poly_best(fir_apply_best(fir_coeffs, x), up, down)``, at
+    the best paths' own tier ("f32"): as in the JAX chain, head_algorithm
+    does not reach it. params: host constants from ``chain_params`` or
+    ``convert.params_from_reference``; built from the fields when None.
     """
 
     def __init__(self, fir_taps: int = 1024, fir_cutoff: float = 0.45,
@@ -107,10 +113,6 @@ class NorthStarChain(nn.Module):
                  params: dict | None = None, device="cuda"):
         super().__init__()
         device = _build_device(device)
-        if not fused_head:
-            raise NotImplementedError(
-                "fused_head=False (the separate FIR and resample kernels) is "
-                "not ported yet")
         self.fir_taps, self.fir_cutoff = fir_taps, fir_cutoff
         self.up, self.down = up, down
         self.nfft, self.hop = nfft, hop
@@ -122,7 +124,8 @@ class NorthStarChain(nn.Module):
         if params is None:
             params = chain_params(fir_taps, fir_cutoff, up, down, nfft, n_mels,
                                   n_mfcc, sample_rate, window)
-        # host copy: the staged tail correction is built from it per length
+        # host copy: the staged tail correction and the staged head's route
+        # are built from it
         self.fir_coeffs = np.asarray(params["fir_coeffs"])
 
         up_r = up // math.gcd(up, down)
@@ -138,9 +141,15 @@ class NorthStarChain(nn.Module):
         """x: (channels, n) -> (channels, frames, n_mfcc)."""
         x = config.as_compute(x)
         _check_input(x, self.head_taps, "NorthStarChain")
-        y = _rs.fir_resample_fused(self.fir_coeffs, x, self.up, self.down,
-                                   algorithm=self.head_algorithm,
-                                   taps=self.head_taps)
+        if self.fused_head:
+            y = _rs.fir_resample_fused(self.fir_coeffs, x, self.up,
+                                       self.down,
+                                       algorithm=self.head_algorithm,
+                                       taps=self.head_taps)
+        else:
+            y = _fk.resample_poly_best(
+                _fk.fir_apply_best(self.fir_coeffs, x.float()), self.up,
+                self.down)
         return _mel.mfcc_stft_with(y, self.nfft, self.hop, self.window,
                                    self.mel_fb, self.mel_bands,
                                    self.dct_lift, 1e-10,

@@ -1,0 +1,192 @@
+"""The direct FIR and per-phase polyphase kernels, with their plain
+versions, and the best-path dispatch of FIR and resampling (counterpart of
+``vv_dsp_tpu/ops/pallas_kernels.py``: ``fir_apply_pallas``,
+``resample_poly_pallas``, ``fir_apply_best``, ``resample_poly_best``).
+
+- ``fir_direct`` runs ``csrc/filter.cu::fir_direct_kernel`` on a CUDA
+  tensor and its plain version ``fir_direct_plain`` (``fir.fir_apply``) on
+  a CPU tensor.
+- ``resample_poly_kernel`` runs ``csrc/filter.cu::poly_kernel`` on a CUDA
+  tensor and ``resample_poly_plain`` (``resample.resample_poly``) on a CPU
+  tensor.
+
+On a CUDA tensor each wrapper launches its kernel or raises. The best
+paths route as the JAX package routes on the TPU, on every device:
+
+- ``fir_apply_best``: up to 16 taps the direct kernel; from 512 host taps
+  where ``banded_supported(1, 1, taps, 0)`` the banded upfirdn at
+  up = down = 1; anything else (taps that require grad included)
+  ``fir.fir_apply_mxu``.
+- ``resample_poly_best``: up < 32 (after the gcd) where
+  ``banded_supported`` the banded upfirdn at offset half_len; anything else
+  ``resample.resample_poly_mxu``.
+
+Each kernel route differentiates its plain form (``kernel_with_torch_vjp``).
+With no tier named, the banded routes run ``config.dot_algorithm(None)``,
+"f32", as the JAX package's do.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vv_dsp_tpu_torch import _build, config
+from vv_dsp_tpu_torch.ops.fir import fir_apply, fir_apply_mxu, taps_like
+from vv_dsp_tpu_torch.ops.resample import (_reduce, _resample_poly_filter,
+                                           resample_poly, resample_poly_mxu)
+from vv_dsp_tpu_torch.ops.upfirdn import (banded_supported, polyphase_table,
+                                          upfirdn_banded)
+from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
+from vv_dsp_tpu_torch.utils.shapes import collapse_leading
+
+DIRECT_MAX_TAPS = 16      # fir_apply_best's direct-kernel route
+BANDED_MIN_TAPS = 512     # ... and its banded route
+# fir_apply_pallas's limit: its tile, 8 MiB over taps x 8 channels x 4
+# bytes, falls below 128 samples past 2048 taps
+KERNEL_MAX_TAPS = 2048
+POLY_MAX_WEIGHTS = 512    # resample_poly_pallas's up * taps_pp limit
+
+
+def _check_cuda(x: torch.Tensor, name: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.ndim != 2:
+        raise ValueError(f"{name} expects (channels, n)")
+    if not 0 < x.shape[0] <= 65535:
+        raise ValueError(f"channels must be in [1, 65535], got {x.shape[0]}")
+
+
+def fir_direct_plain(h, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the direct FIR kernel: ``fir.fir_apply``."""
+    return fir_apply(h, x)
+
+
+def fir_direct(h, x: torch.Tensor) -> torch.Tensor:
+    """Causal FIR, lfilter(h, [1], x), (c, n) -> (c, n). Refuses taps where
+    the JAX kernel does (its VMEM cap: taps > 2048). A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (float32), or
+    raises."""
+    taps = np.shape(h)[-1]
+    if not 1 <= taps <= KERNEL_MAX_TAPS:
+        raise ValueError(f"taps={taps} outside the direct FIR kernel's range "
+                         f"[1, {KERNEL_MAX_TAPS}]; use fir_apply_mxu")
+    if x.device.type == "cpu":
+        return fir_direct_plain(h, x)
+    _check_cuda(x, "fir_direct")
+    # host taps come from the per-filter device cache, with no copy a call
+    h = (taps_like(h, x).contiguous() if isinstance(h, torch.Tensor)
+         else polyphase_table(h, 1, x.device)[0])
+    _build.require(x, "x", x.device)
+    _build.require(h, "h", x.device, (taps,))
+    c, n = x.shape
+    y = torch.empty_like(x)
+    if n == 0:
+        return y
+    err = _build.library().vv_fir_direct(
+        _build.ptr(x), _build.ptr(h), _build.ptr(y), c, n, taps,
+        x.device.index, _build.stream_handle(x))
+    _build.check(err, "fir_direct")
+    fir_direct.launches += 1
+    return y
+
+
+fir_direct.launches = 0
+
+
+def resample_poly_plain(x: torch.Tensor, up: int, down: int) -> torch.Tensor:
+    """Plain version of the per-phase kernel: ``resample.resample_poly``."""
+    return resample_poly(x, up, down)
+
+
+def resample_poly_kernel(x: torch.Tensor, up: int,
+                         down: int) -> torch.Tensor:
+    """scipy.signal.resample_poly parity, (..., n) -> (..., ceil(n*up/down)),
+    in the per-phase kernel. As resample_poly_pallas: up == down returns x,
+    and a geometry with more than 512 weights (up * taps_pp) goes to
+    ``resample.resample_poly`` (a static route, not a fallback). Otherwise
+    a CPU tensor takes the plain version and a CUDA tensor launches the
+    kernel (float32), or raises."""
+    up, down = _reduce(up, down)
+    if up == 1 and down == 1:
+        return x
+    h = _resample_poly_filter(up, down)
+    if up * -(-len(h) // up) > POLY_MAX_WEIGHTS:
+        return resample_poly(x, up, down)
+    if x.device.type == "cpu":
+        return resample_poly_plain(x, up, down)
+    if x.ndim != 2:
+        x2, restore = collapse_leading(x)
+        return restore(resample_poly_kernel(x2, up, down), 1)
+    _check_cuda(x, "resample_poly_kernel")
+    _build.require(x, "x", x.device)
+    c, n_in = x.shape
+    n_out = -(-n_in * up // down)
+    y = torch.empty((c, n_out), dtype=torch.float32, device=x.device)
+    if n_out == 0:
+        return y
+    table = polyphase_table(h, up, x.device)   # hpp[p, i] = h[p + i*up]
+    err = _build.library().vv_poly(
+        _build.ptr(x), _build.ptr(table), _build.ptr(y), c, n_in, n_out, up,
+        down, (len(h) - 1) // 2, table.shape[1], x.device.index,
+        _build.stream_handle(x))
+    _build.check(err, "resample_poly_kernel")
+    resample_poly_kernel.launches += 1
+    return y
+
+
+resample_poly_kernel.launches = 0
+
+
+def fir_apply_best(h, x: torch.Tensor) -> torch.Tensor:
+    """Causal FIR, lfilter(h, [1], x), over the last axis, routed as the
+    JAX package routes on the TPU (module docstring)."""
+    x = config.as_compute(x)
+    if x.ndim != 2:
+        x2, restore = collapse_leading(x)
+        return restore(fir_apply_best(h, x2), 1)
+    x = x.contiguous()
+    taps = np.shape(h)[-1]
+    if taps <= DIRECT_MAX_TAPS and isinstance(h, torch.Tensor):
+        return kernel_with_torch_vjp(fir_direct, fir_direct_plain)(
+            taps_like(h, x), x)
+    if taps <= DIRECT_MAX_TAPS:
+        return kernel_with_torch_vjp(lambda xv: fir_direct(h, xv),
+                                     lambda xv: fir_direct_plain(h, xv))(x)
+    learned = isinstance(h, torch.Tensor) and h.requires_grad
+    if (taps >= BANDED_MIN_TAPS and not learned
+            and banded_supported(1, 1, taps, 0)):
+        h_np = (h.detach().cpu().double().numpy()
+                if isinstance(h, torch.Tensor)
+                else np.asarray(h, np.float64))
+        table = polyphase_table(h_np, 1, x.device)
+        return kernel_with_torch_vjp(
+            lambda xv: upfirdn_banded(xv, table, 1, 1, 0, xv.shape[-1]),
+            lambda xv: fir_apply_mxu(h_np, xv),
+        )(x)
+    return fir_apply_mxu(h, x)
+
+
+def resample_poly_best(x: torch.Tensor, up: int, down: int) -> torch.Tensor:
+    """scipy.signal.resample_poly parity, routed as the JAX package routes
+    on the TPU (module docstring)."""
+    up_r, down_r = _reduce(up, down)
+    if up_r == 1 and down_r == 1:
+        return x
+    x = config.as_compute(x)
+    if x.ndim != 2:
+        x2, restore = collapse_leading(x)
+        return restore(resample_poly_best(x2, up_r, down_r), 1)
+    x = x.contiguous()
+    if up_r < 32:
+        h = _resample_poly_filter(up_r, down_r)
+        off = (len(h) - 1) // 2
+        if banded_supported(up_r, down_r, len(h), off):
+            n_out = -(-x.shape[-1] * up_r // down_r)
+            table = polyphase_table(h, up_r, x.device)
+            return kernel_with_torch_vjp(
+                lambda xv: upfirdn_banded(xv, table, up_r, down_r, off,
+                                          n_out),
+                lambda xv: resample_poly_mxu(xv, up_r, down_r),
+            )(x)
+    return resample_poly_mxu(x, up_r, down_r)

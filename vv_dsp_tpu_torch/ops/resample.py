@@ -1,8 +1,19 @@
-"""Fused FIR + polyphase resample, the chain's head (the part of
-``vv_dsp_tpu/ops/resample.py`` the north-star path runs).
+"""Polyphase resampling and the fused FIR + resample head (counterpart of
+``vv_dsp_tpu/ops/resample.py``).
 
 Host constants (``_resample_poly_filter``, ``_fused_fir_resample_filter``,
-``_staged_tail_matrix``) are copies of the JAX package's numpy builders.
+``_staged_tail_matrix``, ``_upfirdn_conv_plan``, ``_factor_stages``) are
+copies of the JAX package's numpy builders. The plain upfirdn forms compute
+y[k] = sum_j x[j] h[offset + k*down - j*up] with the same numbers:
+
+- ``_upfirdn_gather``: a gather of the (n_out, taps_pp) input windows and a
+  per-phase dot (``upfirdn``, ``resample_poly``, scipy parity);
+- ``_upfirdn_conv``: one strided ``conv1d`` with ``up`` output channels
+  (``upfirdn_mxu``, ``resample_poly_mxu``), TF32 pinned off by ``config``;
+- ``_upfirdn_frames_matmul``: the tall-frames matmul at ``group=1``
+  (``ops/upfirdn.py::upfirdn_tall``), ``resample_poly_mxu``'s route at large
+  ``up``.
+
 ``fir_resample_fused`` runs one banded upfirdn (ops/upfirdn.py) with the
 composite filter, then recomputes the last outputs exactly as the staged
 pair resample_poly(fir_apply(h, x)) defines them.
@@ -15,12 +26,15 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vv_dsp_tpu_torch import config
+from vv_dsp_tpu_torch.ops.fir import fir_apply, fir_apply_mxu
 from vv_dsp_tpu_torch.ops.upfirdn import (polyphase_table, upfirdn_banded,
                                           upfirdn_tall)
 from vv_dsp_tpu_torch.ops.window import get_window_np
 from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
+from vv_dsp_tpu_torch.utils.shapes import collapse_leading
 
 
 @functools.lru_cache(maxsize=64)
@@ -37,6 +51,136 @@ def _resample_poly_filter(up: int, down: int) -> np.ndarray:
     h *= get_window_np("kaiser", numtaps, 5.0)
     h /= h.sum()  # firwin scales so DC gain is 1
     return h * up
+
+
+def _reduce(up: int, down: int) -> tuple[int, int]:
+    g = math.gcd(up, down)
+    return up // g, down // g
+
+
+def _upfirdn_gather(h, x: torch.Tensor, up: int, down: int, offset: int,
+                    n_out: int) -> torch.Tensor:
+    """Polyphase upfirdn core: y[k] = full[offset + k*down] where
+    full[t] = sum_j x[j] h[t - j*up]. For t = offset + k*down the inputs
+    are j = t//up - i with tap h[(t mod up) + i*up]: a gather of the
+    (n_out, taps_pp) windows, then a per-phase dot."""
+    h = np.asarray(h, dtype=np.float64)
+    n_in = x.shape[-1]
+    taps_pp = -(-len(h) // up)
+    h_pad = np.zeros(taps_pp * up, dtype=np.float64)
+    h_pad[:len(h)] = h
+    hpp = h_pad.reshape(taps_pp, up).T  # hpp[p, i] = h[p + i*up]
+    t = offset + np.arange(n_out) * down
+    idx = (t // up)[:, None] - np.arange(taps_pp)[None, :]
+    valid = (idx >= 0) & (idx < n_in)
+    dev = x.device
+    gathered = x[..., torch.as_tensor(np.clip(idx, 0, max(n_in - 1, 0)),
+                                      device=dev)]  # (..., n_out, taps_pp)
+    gathered = torch.where(torch.as_tensor(valid, device=dev), gathered,
+                           torch.zeros((), dtype=x.dtype, device=dev))
+    w = torch.as_tensor(hpp[t % up], dtype=x.dtype, device=dev)
+    return torch.einsum("...ot,ot->...o", gathered, w)
+
+
+def upfirdn(h, x: torch.Tensor, up: int = 1, down: int = 1) -> torch.Tensor:
+    """scipy.signal.upfirdn parity: zero-stuff by up, filter with h,
+    downsample by down; output length ceil(((n_in-1)*up + len(h)) / down)."""
+    x = config.as_compute(x)
+    n_out = -(-((x.shape[-1] - 1) * up + len(np.asarray(h))) // down)
+    return _upfirdn_gather(h, x, up, down, 0, n_out)
+
+
+def resample_poly(x: torch.Tensor, up: int, down: int) -> torch.Tensor:
+    """scipy.signal.resample_poly(x, up, down) parity: output length
+    ceil(n*up/down), the centred (zero-delay) default Kaiser filter."""
+    x = config.as_compute(x)
+    up, down = _reduce(up, down)
+    if up == 1 and down == 1:
+        return x
+    n_out = -(-x.shape[-1] * up // down)
+    h = _resample_poly_filter(up, down)
+    return _upfirdn_gather(h, x, up, down, (len(h) - 1) // 2, n_out)
+
+
+@functools.lru_cache(maxsize=64)
+def _upfirdn_conv_plan(h_key, up: int, down: int, offset: int):
+    """Geometry of the strided-conv upfirdn. Outputs come in frames of `up`:
+    y[k*up + p] reads x[k*down + a_p - i] with a_p = (offset + p*down)//up
+    and weight h[r_p + i*up], r_p = (offset + p*down) % up, so the whole
+    resample is ONE cross-correlation with stride `down` and `up` output
+    channels, W[p, c] = h[r_p + (a_p - c_lo - c)*up]. Returns (W (up, Wd)
+    float64, c_lo)."""
+    h = np.asarray(h_key, dtype=np.float64)
+    h_pad = np.zeros((-(-len(h) // up)) * up, dtype=np.float64)
+    h_pad[: len(h)] = h
+    taps_pp = len(h_pad) // up
+    t = offset + np.arange(up) * down
+    anchor = t // up
+    phase = t % up
+    c_lo = int(anchor[0]) - (taps_pp - 1)
+    wd = int(anchor[-1]) - c_lo + 1
+    w = np.zeros((up, wd), dtype=np.float64)
+    i = np.arange(taps_pp)
+    for pp in range(up):
+        w[pp, anchor[pp] - c_lo - i] = h_pad[phase[pp] + i * up]
+    return w, c_lo
+
+
+def _upfirdn_conv(h, x: torch.Tensor, up: int, down: int, offset: int,
+                  n_out: int) -> torch.Tensor:
+    """upfirdn as one strided conv1d (see _upfirdn_conv_plan); the
+    (batch, up, frames) result reads out in natural order after one
+    transpose."""
+    w, c_lo = _upfirdn_conv_plan(tuple(np.asarray(h, np.float64)), up, down,
+                                 offset)
+    wd = w.shape[1]
+    n_in = x.shape[-1]
+    k_frames = -(-n_out // up)
+    pad_l = max(0, -c_lo)
+    last_needed = (k_frames - 1) * down + c_lo + wd - 1
+    pad_r = max(0, last_needed - (n_in - 1))
+    xb = x.reshape(-1, 1, n_in)
+    start = c_lo + pad_l   # a positive c_lo skips the first samples
+    xb = F.pad(xb, (pad_l, pad_r))[..., start:]
+    wt = torch.as_tensor(w, dtype=x.dtype, device=x.device)[:, None, :]
+    y = F.conv1d(xb, wt, stride=down)[..., :k_frames]   # (batch, up, K)
+    y = y.transpose(-1, -2).reshape(x.shape[:-1] + (k_frames * up,))
+    return y[..., :n_out]
+
+
+def _upfirdn_frames_matmul(h, x: torch.Tensor, up: int, down: int,
+                           offset: int, n_out: int) -> torch.Tensor:
+    """upfirdn as strided frames times one (Win, up) matrix: the group=1
+    instance of the tall-frames plan (ops/upfirdn.py::upfirdn_tall)."""
+    taps = polyphase_table(h, up, x.device)
+    return upfirdn_tall(x, taps, up, down, offset, n_out, "f32", group=1)
+
+
+def resample_poly_mxu(x: torch.Tensor, up: int, down: int) -> torch.Tensor:
+    """scipy.signal.resample_poly parity on the matmul forms (the JAX
+    package's route): large `up` with a short frame overlap
+    (q = ceil((down + taps_pp)/down) <= 4) takes the frames matmul, the
+    rest the strided conv."""
+    x = config.as_compute(x)
+    up, down = _reduce(up, down)
+    if up == 1 and down == 1:
+        return x
+    n_out = -(-x.shape[-1] * up // down)
+    h = _resample_poly_filter(up, down)
+    half_len = (len(h) - 1) // 2
+    taps_pp = -(-len(h) // up)
+    q = -(-(down + taps_pp) // down)
+    if up >= 32 and q <= 4:
+        return _upfirdn_frames_matmul(h, x, up, down, half_len, n_out)
+    return _upfirdn_conv(h, x, up, down, half_len, n_out)
+
+
+def upfirdn_mxu(h, x: torch.Tensor, up: int = 1,
+                down: int = 1) -> torch.Tensor:
+    """scipy.signal.upfirdn parity on the strided-conv path."""
+    x = config.as_compute(x)
+    n_out = -(-((x.shape[-1] - 1) * up + len(np.asarray(h))) // down)
+    return _upfirdn_conv(h, x, up, down, 0, n_out)
 
 
 @functools.lru_cache(maxsize=16)
@@ -107,29 +251,21 @@ def fir_resample_fused(h_fir, x: torch.Tensor, up: int, down: int,
     passes its buffer); built from h_fir when None."""
     x = config.as_compute(x)
     if x.ndim != 2:
-        lead = x.shape[:-1]
-        y = fir_resample_fused(h_fir, x.reshape(-1, x.shape[-1]), up, down,
-                               algorithm, taps)
-        return y.reshape(lead + y.shape[-1:])
+        x2, restore = collapse_leading(x)
+        return restore(fir_resample_fused(h_fir, x2, up, down, algorithm,
+                                          taps), 1)
     if x.dtype != torch.float32:
         x = x.float()
-    g = math.gcd(up, down)
-    up //= g
-    down //= g
-    if up == 1 and down == 1:
-        raise NotImplementedError("up == down: the plain FIR paths are not "
-                                  "ported yet")
+    up, down = _reduce(up, down)
     h_np = np.ascontiguousarray(h_fir, dtype=np.float64)
+    if up == 1 and down == 1:
+        return fir_apply_mxu(h_np, x)
     n_in = x.shape[-1]
     n_out = -(-n_in * up // down)
     gf, offset = _fused_fir_resample_filter(tuple(h_np), up, down)
     m0 = max(0, -(-(up * n_in - offset) // down))
     n_tail = n_out - m0
     staged_tail = 0 < n_tail <= 1024 and m0 > 0
-    if not staged_tail and m0 < n_out:
-        raise NotImplementedError(
-            "signals shorter than the resample filter (the staged "
-            "fir_apply tail branch) are not ported yet")
     if taps is None:
         taps = polyphase_table(gf, up, x.device)
     y = kernel_with_torch_vjp(
@@ -144,4 +280,74 @@ def fir_resample_fused(h_fir, x: torch.Tensor, up: int, down: int,
                                 n_tail, x.device)
         tail = x[..., jw0:] @ wt[:x.shape[-1] - jw0]
         y = torch.cat([y[..., :m0], tail], dim=-1)
+    elif m0 < n_out:
+        # a signal shorter than the resample filter's half-length, or a
+        # tail past 1024 outputs: the staged pair over the input's end
+        h_r = _resample_poly_filter(up, down)
+        taps_r = -(-len(h_r) // up)
+        jlo = (offset + m0 * down) // up - taps_r + 1
+        s0 = max(0, jlo - len(h_np) + 1)
+        y_t = fir_apply(h_np, x[..., s0:])
+        tail = _upfirdn_gather(h_r, y_t, up, down,
+                               offset + m0 * down - up * s0, n_out - m0)
+        y = torch.cat([y[..., :m0], tail], dim=-1)
     return y
+
+
+def _factor_stages(up: int, down: int, max_side: int = 9):
+    """Split L/M into a cascade of small rational stages (each side's factor
+    <= max_side). Greedy: pair the largest remaining up-factor with the
+    largest remaining down-factor per stage."""
+    def prime_factors(v):
+        out = []
+        d = 2
+        while d * d <= v:
+            while v % d == 0:
+                out.append(d)
+                v //= d
+            d += 1
+        if v > 1:
+            out.append(v)
+        return out
+
+    def group(factors):
+        # multiply small primes together while staying <= max_side; a prime
+        # above max_side becomes its own stage
+        groups = []
+        for f in sorted(factors, reverse=True):
+            if f > max_side:
+                groups.append(f)
+                continue
+            for i, g in enumerate(groups):
+                if g * f <= max_side:
+                    groups[i] = g * f
+                    break
+            else:
+                groups.append(f)
+        return sorted(groups, reverse=True)
+
+    ups = group(prime_factors(up)) if up > 1 else []
+    downs = group(prime_factors(down)) if down > 1 else []
+    stages = []
+    while ups or downs:
+        stages.append((ups.pop(0) if ups else 1, downs.pop(0) if downs else 1))
+    return stages
+
+
+def resample_multistage(x: torch.Tensor, up: int, down: int) -> torch.Tensor:
+    """Rational resampling as a cascade of small polyphase stages, each
+    through ``filter_kernels.resample_poly_best`` (the JAX package's TPU
+    route, on every device). A cascade of Kaiser anti-aliasers, not
+    sample-exact against scipy's single filter; output length
+    ceil(n*L/M)."""
+    # imported here: filter_kernels imports this module
+    from vv_dsp_tpu_torch.ops.filter_kernels import resample_poly_best
+    x = config.as_compute(x)
+    up, down = _reduce(up, down)
+    if up == 1 and down == 1:
+        return x
+    n_out_target = -(-x.shape[-1] * up // down)
+    for u, d in _factor_stages(up, down):
+        x = resample_poly_best(x, u, d)
+    # a cascade of ceils can overshoot by a sample or two
+    return x[..., :n_out_target]

@@ -12,6 +12,12 @@ tensor and the plain version ``upfirdn_tall`` on a CPU tensor. The plain
 version is the tall-frames matmul of ``vv_dsp_tpu/ops/resample.py::
 _upfirdn_tall``: frames of ``group*down`` input samples times one block-banded
 (width, group*up) matrix, at the same dot-algorithm tier.
+
+``_geometry``, ``pick_b_out`` and ``banded_supported`` are numpy copies of
+the JAX kernel's segment rule (``vv_dsp_tpu/ops/pallas_upfirdn.py:40-75``).
+They only route (``ops/filter_kernels.py`` sends a geometry to the banded
+kernel where the JAX package does on the TPU); they are not this kernel's
+shared-memory rule, which the C entry enforces itself.
 """
 
 from __future__ import annotations
@@ -22,6 +28,42 @@ import numpy as np
 import torch
 
 from vv_dsp_tpu_torch import _build, config
+
+_W_VMEM_CAP = 6 * 1024 * 1024   # the TPU kernel's resident weight budget
+_EXT_ROWS_CAP = 4096            # its ext scratch rows (k_w) cap
+_B_IN_CAP = 2048                # its DMA window rows cap
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _geometry(up: int, down: int, len_g: int, offset: int, b_out: int):
+    """(b_in, j_lo0, k_wp) for a segment of b_out outputs."""
+    b_in = b_out * down // up
+    j_lo0 = -(-(offset - len_g + 1) // up)
+    j_hi = (offset + (b_out - 1) * down) // up
+    k_wp = _round_up(j_hi - j_lo0 + 1, 8)
+    return b_in, j_lo0, k_wp
+
+
+def pick_b_out(up: int, down: int, len_g: int, offset: int) -> int | None:
+    """Largest segment length whose weight matrix and scratch fit the TPU
+    kernel's VMEM; None when no candidate fits."""
+    for base in (2048, 1024, 512, 256, 128):
+        b_out = _round_up(base, up)
+        b_in, _, k_wp = _geometry(up, down, len_g, offset, b_out)
+        if (b_out * k_wp * 4 <= _W_VMEM_CAP and k_wp <= _EXT_ROWS_CAP
+                and b_in <= _B_IN_CAP and b_out <= 4096
+                and -(-k_wp // b_in) - 1 <= 128):
+            return b_out
+    return None
+
+
+def banded_supported(up: int, down: int, len_g: int, offset: int) -> bool:
+    """Where the JAX package takes its banded kernel on the TPU."""
+    return (up >= 1 and down >= 1 and up <= 512
+            and pick_b_out(up, down, len_g, offset) is not None)
 
 
 def polyphase_table_np(g, up: int) -> np.ndarray:

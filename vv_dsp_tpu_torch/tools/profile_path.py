@@ -8,7 +8,9 @@ the STFT 1024/256 roundtrip (process(x, rfft=True) -> reconstruct) on
 (16, 479232), and the full-nfft paths: STFT(128, 32).power,
 MFCCFrontend(128, 32, 26 mels, 13 MFCCs, 8 kHz) and SpectralGate(128, 32)
 on (16, 479232) and STFT(512, 8).process(x, rfft=False) on (16, 480000),
-each ``calls`` times back to back under torch.profiler. For each it
+and the staged NorthStarChain(fused_head=False) and fir_apply_best at 16
+taps on (16, 479232), each ``calls`` times back to back under
+torch.profiler. For each it
 prints, per call:
 
 - wall: host time of the loop, synchronized at its end;
@@ -91,6 +93,8 @@ def main(argv=None) -> int:
         raise SystemExit("profile_path: no CUDA device")
     from vv_dsp_tpu_torch.models import (MFCCFrontend, NorthStarChain,
                                          SpectralGate)
+    from vv_dsp_tpu_torch.ops.filter_kernels import fir_apply_best
+    from vv_dsp_tpu_torch.ops.fir import design_lowpass_np
     from vv_dsp_tpu_torch.ops.stft import STFT
 
     dev = torch.device("cuda", 0)
@@ -123,6 +127,11 @@ def main(argv=None) -> int:
     report("MFCCFrontend 128/32", lambda: front(xc), args.calls)
     report("SpectralGate 128/32", lambda: gate128(xc), args.calls)
     report("stft 512/8", lambda: dense.process(xs, rfft=False), args.calls)
+    staged = NorthStarChain(fused_head=False, device=dev)
+    h16 = design_lowpass_np(16, 0.3)
+    report("chain, staged head", lambda: staged(xc), args.calls)
+    report("fir_apply_best 16 taps", lambda: fir_apply_best(h16, xc),
+           args.calls)
     return 0
 
 

@@ -18,9 +18,17 @@ Phases, each fatal on failure:
    128/32 for the spectrum). The direct FIR at 16 taps and the per-phase
    resampler at 4/3 on (16, 479232), with the banded upfirdn kernel timed
    beside the resampler, then on 2 channels at taps 1, 7, 129, n < taps
-   and ratios 2/1, 1/2, 3/4, 7/5. Then tier probes, inputs on which a
-   kernel must match the plain version at its own tier and land beyond the
-   limit against another tier (the controls);
+   and ratios 2/1, 1/2, 3/4, 7/5. The windowed-DFT power at 1024/256 on
+   (16, 480000), with the packed power kernel timed beside it, then on 2
+   channels at 2048/512, 1024/1024 and n < nfft; the full-nfft inverse at
+   1024/256 on the COLA-padded input's (16, 1876, 513) one-sided spectrum
+   (the packed inverse timed beside it), on a non-Hermitian (16, 1876,
+   1024) spectrum with all bins inverted, and at 128/32 on (16, 14974,
+   65); the packed fused gate at 1024/256 on the COLA-padded (16, 480768)
+   input at threshold 0, on the tone probe and at the gate's threshold
+   (SpectralGate's split pair timed beside it). Then tier probes, inputs
+   on which a kernel must match the plain version at its own tier and land
+   beyond the limit against another tier (the controls);
 4. slice: through the public entry points, each with every launch counter
    zeroed just before it and read just after, NorthStarChain on
    (16, 479232), STFT(1024, 256).process on (16, 480000), SpectralGate() on
@@ -33,11 +41,16 @@ Phases, each fatal on failure:
    points on (16, 479232): NorthStarChain(fused_head=False),
    fir_apply_best at 16, 64, 256 and 1024 taps, resample_poly_best at 2/1,
    1/2, 4/3 and 160/147, resample_multistage at 160/147 and
-   resample_poly_kernel at 4/3; each path's launch counts equal to the
+   resample_poly_kernel at 4/3; then stft_power_dft at 1024/256 on
+   (16, 480000), the STFT 128/32 roundtrip on (16, 479232), istft_stockham
+   at 1024/256 in both forms and stft_gate_packed at 1024/256 on the
+   COLA-padded input, and STFT(1024, 256).spectrogram on (16, 480000);
+   each path's launch counts equal to the
    kernels it must run, output shapes, finite values, float64 numpy/scipy
    oracles on 2 channels (SpectralGate on a probe input whose every bin
-   lies far from the threshold), the staged chain against the fused one,
-   the roundtrip against its input; then the throughput of each row.
+   lies far from the threshold, and the packed fused gate on the same
+   probe), the staged chain against the fused one, the roundtrips and
+   both inverses against their input; then the throughput of each row.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, without a
 CUDA device or outside a checkout of the repository.
@@ -103,6 +116,13 @@ RATIOS = ((2, 1), (1, 2), (4, 3), (160, 147))
 FIR_TOL = 2e-5
 POLY_TOL = 1e-5
 STAGED_TOL = 1e-4       # staged against fused chain (tests/test_models.py)
+# the windowed-DFT power against its plain version (tests/test_pallas.py's
+# pin), of max power; the full-nfft inverse on samples more than nfft from
+# either end (ISTFT_TOL) and on all samples (tests/test_pallas_fft.py's
+# pins); the packed fused gate at threshold 0 returns its input to 3e-5
+# absolute on the retained samples (tests/test_tpu_hardware.py's pin)
+DFT_POWER_TOL = 1e-5
+ISTFT_ALL_TOL = 1e-2
 
 
 def device_phase() -> str:
@@ -393,6 +413,9 @@ def kernel_phase(xc, xs, chain, front, front128) -> dict:
     results.update(istft_phase(xc, win, failed))
     results.update(stockham_phase(xc, xs, front128, failed))
     results.update(filter_phase(xc, failed))
+    results["stft_power_dft"] = dft_power_phase(xs, win, failed)
+    results["istft_stockham"] = istft_stockham_phase(xc, win, failed)
+    results["stft_gate_packed"] = gate_packed_phase(xc, win, failed)
     tier_probes((up, down, offset, n_out, taps), mfcc_args, failed)
     torch.cuda.synchronize()
     if failed:
@@ -729,6 +752,171 @@ def filter_phase(xc, failed: list) -> dict:
     return out
 
 
+def dft_power_phase(xs, win, failed: list) -> dict:
+    """stft_power_dft at 1024/256 on (16, 480000), with the packed power
+    kernel on the same input; then 2 channels at 2048/512, 1024/1024 and
+    n < nfft."""
+    from vv_dsp_tpu_torch.ops import stft_kernels as sk
+
+    fast = lambda: sk.stft_power_dft(xs, NFFT, HOP)
+    plain = lambda: sk.stft_power_dft_plain(xs, NFFT, HOP)
+    got = fast()
+    r = record("stft_power_dft", "1024/256", got, plain(), DFT_POWER_TOL,
+               fast, plain, failed)
+    r["packed_ms"] = cuda_ms(lambda: sk.stft_power(xs, NFFT, HOP, win))
+    c, nf, bins = got.shape
+    r.update(bound(4 * (xs.numel() + got.numel() + 2 * NFFT * bins),
+                   2 * 2 * c * nf * NFFT * bins, F32_FLOP_PER_S))
+    r["library_ms"] = None
+    print(f"  stft_power_dft: packed stft_power kernel on the same input "
+          f"{r['packed_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}); library call: none (torch.stft writes the "
+          f"complex spectrum; the power takes another pass)")
+    x2 = xs[:2]
+    for nfft, hop, xv in ((2048, 512, x2), (1024, 1024, x2),
+                          (2048, 512, x2[:, :1500].contiguous())):
+        fast = lambda: sk.stft_power_dft(xv, nfft, hop)
+        plain = lambda: sk.stft_power_dft_plain(xv, nfft, hop)
+        record("stft_power_dft", f"{nfft}/{hop}, 2 x {xv.shape[1]}", fast(),
+               plain(), DFT_POWER_TOL, fast, plain, failed)
+    return r
+
+
+def istft_stockham_phase(xc, win, failed: list) -> dict:
+    """istft_stockham at 1024/256 on the one-sided spectrum of the
+    COLA-padded (16, 479232) input, (16, 1876, 513), with the packed
+    inverse kernel on the same spectrum; on a non-Hermitian (16, 1876,
+    1024) spectrum with rfft=False (all bins inverted); and at 128/32 on
+    the one-sided (16, 14974, 65) spectrum of the input."""
+    from vv_dsp_tpu_torch.ops import istft_kernels as ik
+    from vv_dsp_tpu_torch.ops import stft_kernels as sk
+    from vv_dsp_tpu_torch.ops import stockham_kernels as stk
+    from vv_dsp_tpu_torch.ops.stft import STFT
+    from vv_dsp_tpu_torch.ops.window import get_window_np
+
+    xp = torch.nn.functional.pad(xc, (NFFT - HOP, NFFT - HOP))
+    half = sk.stft_spectrum(xp, NFFT, HOP, win, True)
+    c, nf, _ = half.shape
+    gen = torch.Generator(device=xc.device).manual_seed(5)
+    full = torch.complex(*(torch.randn((c, nf, NFFT), generator=gen,
+                                       device=xc.device) for _ in range(2)))
+    win128 = STFT(*SMALL).win(xc.device)
+    small = stk.stft_spectrum_stockham(xc, *SMALL, win128, True)
+    r = None
+    for label, spec, nfft, hop, w, rfft in (
+            ("1024/256 rfft=True", half, NFFT, HOP, win, True),
+            ("1024/256 rfft=False, non-Hermitian", full, NFFT, HOP, win,
+             False),
+            ("128/32 rfft=True", small, *SMALL, win128, True)):
+        n_out = (spec.shape[1] - 1) * hop + nfft
+        norm = ik.ola_norm(get_window_np("hann", nfft), hop, spec.shape[1],
+                           n_out, xc.device)
+        fast = lambda: stk.istft_stockham(spec, nfft, hop, n_out, w, norm,
+                                          rfft)
+        plain = lambda: stk.istft_stockham_plain(spec, nfft, hop, n_out, w,
+                                                 norm, rfft)
+        got, want = fast(), plain()
+        if not torch.equal(got, fast()):
+            failed.append(f"istft_stockham [{label}] differs between two "
+                          f"runs")
+        all_rel = rel_err(got, want)[1]
+        print(f"  istft_stockham [{label}] all samples: {all_rel:.3e} of "
+              f"scale (tol {ISTFT_ALL_TOL:g}) "
+              f"{'ok' if all_rel < ISTFT_ALL_TOL else 'FAIL'}")
+        if not all_rel < ISTFT_ALL_TOL:
+            failed.append(f"istft_stockham [{label}] all samples")
+        rr = record("istft_stockham", label, got, want, ISTFT_TOL, fast,
+                    plain, failed, edge=nfft)
+        rr.update(bound(spec.element_size() * spec.numel()
+                        + 4 * (got.numel() + n_out),
+                        fft_flops(c * spec.shape[1], nfft)
+                        + c * spec.shape[1] * 2 * nfft, F32_FLOP_PER_S))
+        print(f"  istft_stockham [{label}] bound {rr['bound_ms']:.4f} ms "
+              f"({rr['bound_by']})")
+        if r is None:
+            r = rr
+            r["packed_ms"] = cuda_ms(lambda: ik.istft(spec, nfft, hop, n_out,
+                                                      w, norm))
+            print(f"  packed istft kernel on the same spectrum: "
+                  f"{r['packed_ms']:.4f} ms")
+        elif rfft:
+            r.update({f"small_{k}": v for k, v in rr.items()})
+        else:
+            r.update({f"full_{k}": v for k, v in rr.items()})
+    r["library_ms"] = None
+    print("  istft_stockham library call: none (torch.istft refuses the Hann "
+          "window at center=False: its overlap-add is 0 at sample 0)")
+    return r
+
+
+def gate_packed_phase(xc, win, failed: list) -> dict:
+    """stft_gate_packed at 1024/256 on the COLA-padded (16, 480768) input:
+    threshold 0 (a pure roundtrip, the input back on the retained
+    samples), GATE_T on the 1024/256 tone probe (2 channels), and GATE_T
+    on the dense input (the run's row; bins near the threshold may flip
+    between two FFTs, so the count of differing samples is printed, not
+    checked), with SpectralGate's split pair (spectrum kernel, gated
+    inverse kernel) timed on the same input."""
+    from vv_dsp_tpu_torch.ops import istft_kernels as ik
+    from vv_dsp_tpu_torch.ops import stft_kernels as sk
+    from vv_dsp_tpu_torch.ops.framing import stft_num_frames
+    from vv_dsp_tpu_torch.ops.window import get_window_np
+
+    pad = NFFT - HOP
+    xp = torch.nn.functional.pad(xc, (pad, pad))
+    c, n_pad = xp.shape
+    norm = ik.periodic_norm(get_window_np("hann", NFFT), HOP, n_pad,
+                            xc.device)
+    probe = torch.as_tensor(gate_probe(N_CHAIN, 3), device=xc.device)
+    pp = torch.nn.functional.pad(probe, (pad, pad))
+    for label, x, t in (("threshold 0", xp, 0.0),
+                        ("tone probe, threshold 0.1", pp, GATE_T)):
+        fast = lambda: ik.stft_gate_packed(x, NFFT, HOP, t, win, norm)
+        plain = lambda: ik.stft_gate_packed_plain(x, NFFT, HOP, t, win, norm)
+        got, want = fast(), plain()
+        if not torch.equal(got, fast()):
+            failed.append(f"stft_gate_packed [{label}] differs between two "
+                          f"runs")
+        record("stft_gate_packed", label, got[:, pad:-pad],
+               want[:, pad:-pad], GATE_TOL, fast, plain, failed)
+        if t == 0.0:
+            err = (got[:, pad:-pad] - xc).abs().max().item()
+            print(f"  stft_gate_packed [{label}] vs its input, retained "
+                  f"samples: {err:.3e} absolute (limit {ROUNDTRIP_TOL:g}) "
+                  f"{'ok' if err < ROUNDTRIP_TOL else 'FAIL'}")
+            if not err < ROUNDTRIP_TOL:
+                failed.append("stft_gate_packed threshold 0 vs its input")
+    fast = lambda: ik.stft_gate_packed(xp, NFFT, HOP, GATE_T, win, norm)
+    plain = lambda: ik.stft_gate_packed_plain(xp, NFFT, HOP, GATE_T, win,
+                                              norm)
+    got, want = fast(), plain()
+    far = ((got - want)[:, pad:-pad].abs()
+           > GATE_TOL * want.abs().max()).sum().item()
+    r = {"max_abs_err": (got - want)[:, pad:-pad].abs().max().item(),
+         "ms": cuda_ms(fast), "plain_ms": cuda_ms(plain)}
+    exact = ik.ola_norm(get_window_np("hann", NFFT), HOP,
+                        stft_num_frames(n_pad, NFFT, HOP), n_pad, xc.device)
+
+    def split():
+        spec = sk.stft_spectrum(xp, NFFT, HOP, win, True)
+        return ik.istft(spec, NFFT, HOP, n_pad, win, exact, GATE_T)
+
+    r["split_ms"] = cuda_ms(split)
+    nf = stft_num_frames(n_pad, NFFT, HOP)
+    r.update(bound(4 * (2 * xp.numel() + n_pad),
+                   2 * fft_flops(c * nf, NFFT) + c * nf * 4 * NFFT,
+                   F32_FLOP_PER_S))
+    r["library_ms"] = None
+    print(f"kernel stft_gate_packed [dense, threshold {GATE_T:g}]: {far} of "
+          f"{c * (n_pad - 2 * pad)} retained samples differ by more than "
+          f"{GATE_TOL:g} of scale (bins near the threshold; not checked); "
+          f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
+          f"SpectralGate's split pair {r['split_ms']:.4f} ms; bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}); library call: none (no "
+          f"single PyTorch call computes STFT -> per-frame gate -> ISTFT)")
+    return r
+
+
 def chain_oracle(x64: np.ndarray, chain) -> np.ndarray:
     """The whole chain in float64 numpy/scipy (tests/test_models.py's
     oracle): lfilter -> resample_poly -> framed rfft power -> mel -> log ->
@@ -908,6 +1096,45 @@ def full_nfft_oracles(xc, xs, outs, front128, gate128) -> None:
                      want[..., :bins], ORACLE_TOL)
 
 
+def last_slice_oracles(xc, xs, outs, want) -> None:
+    """The last slice's rows against float64 numpy on 2 channels: the
+    windowed-DFT power and the spectrogram against the 1024/256 FFT oracle
+    `want`, the roundtrips and both inverses against their input on the
+    COLA-covered interior, and the packed fused gate on the 1024/256 tone
+    probe against the float64 gate oracle."""
+    from vv_dsp_tpu_torch.ops import istft_kernels as ik
+    from vv_dsp_tpu_torch.ops.stft import STFT
+    from vv_dsp_tpu_torch.ops.window import get_window_np
+    oracle_check("stft_power_pallas 1024/256 vs float64 oracle (2 ch)",
+                 outs["stft_power_pallas_1024_256"][:2].cpu().numpy(),
+                 np.abs(want[..., :NFFT // 2 + 1]) ** 2, ORACLE_TOL)
+    oracle_check("STFT 1024/256 spectrogram vs float64 oracle (2 ch)",
+                 outs["stft_1024_256_spectrogram"][:2].cpu().numpy(),
+                 np.abs(want), ORACLE_TOL)
+    edge = SMALL[0] - SMALL[1]
+    oracle_check("STFT 128/32 roundtrip vs its input, interior",
+                 outs["stft_128_32_roundtrip"][:, edge:-edge].cpu().numpy(),
+                 xc[:, edge:-edge].double().cpu().numpy(), ROUNDTRIP_TOL,
+                 absolute=True)
+    pad = NFFT - HOP
+    for name in ("istft_stockham_1024_256", "istft_stockham_1024_256_full"):
+        oracle_check(f"{name} of the padded input's spectrum vs the input",
+                     outs[name][:, pad:-pad].cpu().numpy(),
+                     xc.double().cpu().numpy(), ROUNDTRIP_TOL, absolute=True)
+    probe = gate_probe(N_CHAIN, 3)
+    gate_want, _ = gate_oracle(probe.astype(np.float64), GATE_T)
+    pp = torch.nn.functional.pad(torch.as_tensor(probe, device=xc.device),
+                                 (pad, pad))
+    norm = ik.periodic_norm(get_window_np("hann", NFFT), HOP, pp.shape[-1],
+                            xc.device)
+    got = ik.stft_gate_packed(pp, NFFT, HOP, GATE_T,
+                              STFT(NFFT, HOP).win(xc.device),
+                              norm)[:, pad:-pad].cpu().numpy()
+    oracle_check("stft_gate_packed 1024/256 vs float64 oracle on the probe "
+                 "(2 ch), interior", got[:, pad:-pad], gate_want[:, pad:-pad],
+                 ORACLE_TOL)
+
+
 def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
     """Drive every entry point of the slice once, each with the launch
     counters zeroed just before it and read just after, then check and
@@ -921,6 +1148,7 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
     from vv_dsp_tpu_torch.ops import upfirdn as uf
     from vv_dsp_tpu_torch.ops.fir import design_lowpass_np
     from vv_dsp_tpu_torch.ops.stft import STFT
+    from vv_dsp_tpu_torch.ops.window import get_window_np
 
     counters = {"upfirdn_banded": uf.upfirdn_banded,
                 "stft_mfcc": sk.stft_mfcc, "stft_spectrum": sk.stft_spectrum,
@@ -930,7 +1158,10 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
                 "stft_gate_stockham": stk.stft_gate_stockham,
                 "stft_spectrum_stockham": stk.stft_spectrum_stockham,
                 "fir_direct": fk.fir_direct,
-                "poly_kernel": fk.resample_poly_kernel}
+                "poly_kernel": fk.resample_poly_kernel,
+                "stft_power_dft": sk.stft_power_dft,
+                "istft_stockham": stk.istft_stockham,
+                "stft_gate_packed": ik.stft_gate_packed}
     plan = STFT(NFFT, HOP)
     gate = SpectralGate()
     firs = {taps: design_lowpass_np(taps, 0.3) for taps in FIR_TAPS}
@@ -986,6 +1217,38 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
          lambda: fk.resample_poly_kernel(xc, 4, 3), {"poly_kernel": 1},
          N_CHAIN)]
     paths += tuple(p[:3] for p in filter_paths)
+    # the last slice: the windowed-DFT power, the 128-point roundtrip, the
+    # full-nfft inverse (both forms) of the COLA-padded input's spectra, the
+    # packed fused gate on that input and the magnitude spectrogram
+    pad = NFFT - HOP
+    xp = torch.nn.functional.pad(xc, (pad, pad))
+    n_pad = xp.shape[-1]
+    half, full = plan.process(xp, rfft=True), plan.process(xp, rfft=False)
+    win = plan.win(xc.device)
+    inv_norm = ik.ola_norm(get_window_np("hann", NFFT), HOP, half.shape[1],
+                           n_pad, xc.device)
+    gate_norm = ik.periodic_norm(get_window_np("hann", NFFT), HOP, n_pad,
+                                 xc.device)
+    small_rt = lambda: small.reconstruct(small.process(xc, rfft=True),
+                                         N_CHAIN, rfft=True)
+    last_paths = (
+        ("stft_power_pallas_1024_256",
+         lambda: sk.stft_power_dft(xs, NFFT, HOP), {"stft_power_dft": 1},
+         N_STFT),
+        ("stft_128_32_roundtrip", small_rt,
+         {"stft_spectrum_stockham": 1, "istft_stockham": 1}, N_CHAIN),
+        ("istft_stockham_1024_256", lambda: stk.istft_stockham(
+            half, NFFT, HOP, n_pad, win, inv_norm, rfft=True),
+         {"istft_stockham": 1}, n_pad),
+        ("istft_stockham_1024_256_full", lambda: stk.istft_stockham(
+            full, NFFT, HOP, n_pad, win, inv_norm, rfft=False),
+         {"istft_stockham": 1}, n_pad),
+        ("stft_gate_packed_1024_256", lambda: ik.stft_gate_packed(
+            xp, NFFT, HOP, GATE_T, win, gate_norm),
+         {"stft_gate_packed": 1}, n_pad),
+        ("stft_1024_256_spectrogram", lambda: plan.spectrogram(xs),
+         {"stft_spectrum": 1}, N_STFT))
+    paths += tuple(p[:3] for p in last_paths)
     outs, launches = {}, dict.fromkeys(counters, 0)
     for name, fn, want in paths:
         for counted in counters.values():
@@ -1036,7 +1299,17 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
              outs["resample_multistage_160_147"],
              (CHANNELS, -(-N_CHAIN * 160 // 147)), torch.float32),
             ("resample_poly_kernel_4_3", outs["resample_poly_kernel_4_3"],
-             (CHANNELS, N_CHAIN * 4 // 3), torch.float32)):
+             (CHANNELS, N_CHAIN * 4 // 3), torch.float32),
+            ("stft_power_pallas_1024_256", outs["stft_power_pallas_1024_256"],
+             (CHANNELS, 1873, NFFT // 2 + 1), torch.float32),
+            *((name, outs[name], (CHANNELS, n_pad), torch.float32)
+              for name in ("istft_stockham_1024_256",
+                           "istft_stockham_1024_256_full",
+                           "stft_gate_packed_1024_256")),
+            ("stft_128_32_roundtrip", outs["stft_128_32_roundtrip"],
+             (CHANNELS, N_CHAIN), torch.float32),
+            ("stft_1024_256_spectrogram", outs["stft_1024_256_spectrogram"],
+             (CHANNELS, 1873, NFFT), torch.float32)):
         assert tuple(t.shape) == shape, (name, tuple(t.shape))
         assert t.dtype == dtype, (name, t.dtype)
         vals = torch.view_as_real(t) if t.is_complex() else t
@@ -1079,6 +1352,8 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
                  mfcc[:2].cpu().numpy(), frontend_oracle(x2, front),
                  ORACLE_TOL)
     full_nfft_oracles(xc, xs, outs, front128, gate128)
+    last_slice_oracles(xc, xs, outs, want=spectrum_oracle(
+        xs[:2].double().cpu().numpy(), NFFT, HOP))
 
     rows = (("northstar_chain_throughput", lambda: chain(xc), N_CHAIN),
             ("stft_1024_256_throughput",
@@ -1097,7 +1372,8 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
              lambda: dense.process(xs, rfft=True), N_STFT),
             ("northstar_chain_staged_throughput", lambda: staged(xc),
              N_CHAIN),
-            *((name, fn, n) for name, fn, _, n in filter_paths))
+            *((name, fn, n) for name, fn, _, n in filter_paths),
+            *((name, fn, n) for name, fn, _, n in last_paths))
     for name, fn, n in rows:
         ms = cuda_ms(fn)
         print(f"{name} {CHANNELS * n / ms / 1e3:.2f} Msamples/s "
@@ -1153,6 +1429,12 @@ def main() -> None:
                        "vv_dsp_tpu/ops/pallas_kernels.py:101"),
         "poly_kernel": ("vv_dsp_tpu_torch/csrc/filter.cu",
                         "vv_dsp_tpu/ops/pallas_kernels.py:183"),
+        "stft_power_dft": ("vv_dsp_tpu_torch/csrc/dft_power.cu",
+                           "vv_dsp_tpu/ops/pallas_kernels.py:345"),
+        "istft_stockham": ("vv_dsp_tpu_torch/csrc/stockham.cu",
+                           "vv_dsp_tpu/ops/pallas_fft.py:2365"),
+        "stft_gate_packed": ("vv_dsp_tpu_torch/csrc/gate_packed.cu",
+                             "vv_dsp_tpu/ops/pallas_fft.py:2028"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -7,7 +7,12 @@ full-nfft kernels at nfft = 128 and hop = 8: short signals, one frame,
 hop == nfft, q = 128, one channel, bit-identical reruns of the fused gate;
 the direct FIR and the per-phase resampler at taps 1 to 2048, n < taps and
 every ratio class, with bit-identical reruns, and the banded kernel at the
-filter and resample entry points' geometries). Needs an NVIDIA GPU and nvcc; skips without them. Run on the card (this
+filter and resample entry points' geometries; the windowed-DFT power at
+hop | nfft, 128 | hop, n < nfft and extra frames; the full-nfft inverse
+with all nfft bins of a non-Hermitian spectrum and with the one-sided
+half, at q = 1 to 128; the packed fused gate at threshold 0 and on the
+tone probe, with bit-identical reruns). Needs an NVIDIA GPU and nvcc;
+skips without them. Run on the card (this
 file imports neither jax nor the JAX package, so the suite's jax conftest
 is not needed):
 
@@ -258,7 +263,7 @@ def test_unsupported_geometry_raises_on_card(dev, gen):
     falls back to the plain version."""
     x = torch.as_tensor(gen.standard_normal((2, 30000)), dtype=torch.float32,
                         device=dev)
-    for nfft, hop in ((128, 32), (1000, 250), (8192, 2048)):
+    for nfft, hop in ((128, 24), (1000, 250), (8192, 2048)):
         with pytest.raises(ValueError):
             STFT(nfft, hop).process(x)
     with pytest.raises(ValueError):
@@ -546,8 +551,8 @@ def test_stockham_wrappers_refuse_what_they_do_not_take(dev, gen):
                                                               device=dev), 0.1)
     with pytest.raises(ValueError):   # SpectralGate at 128/128: no kernel
         SpectralGate(128, 128, device=dev)(x)
-    with pytest.raises(ValueError):   # process takes nfft 128 nowhere
-        STFT(128, 32).process(x)
+    with pytest.raises(ValueError):   # 128/24: off every kernel's lattice
+        STFT(128, 24).process(x)
     with pytest.raises(TypeError):
         tstk.stft_power_stockham(x.double(), 128, 32, STFT(128, 32).win(dev))
 
@@ -715,3 +720,186 @@ def test_fir_apply_best_gradient_on_card(dev, gen):
                                          (xt, ht), cot.to(d)))
     for got, want in zip(grads[1], grads[0]):
         assert _rel(got, want) < 1e-5
+
+
+# the three kernels of the last slice: the windowed-DFT power (1e-5 of max
+# power, tests/test_pallas.py's pin), the full-nfft inverse and the packed
+# fused gate (5e-6 of scale before the norm is divided out, the inverse
+# kernel's pin above; the gate after it on the samples SpectralGate keeps)
+@pytest.mark.parametrize("nfft,hop", [(256, 128), (512, 256), (1024, 256),
+                                      (1024, 1024), (2048, 512),
+                                      (4096, 128)])
+@pytest.mark.parametrize("channels,n", [(1, 700), (3, 9001)])
+def test_dft_power_kernel_matches_plain(dev, gen, nfft, hop, channels, n):
+    """n < nfft (one frame) at the larger nffts; the last bin tile ragged
+    (nfft/2 + 1 bins against 64-bin tiles); frames past the signal."""
+    x = torch.as_tensor(gen.standard_normal((channels, n)),
+                        dtype=torch.float32, device=dev)
+    for nf in (None, stft_num_frames(n, nfft, hop) + 3):
+        before = tsk.stft_power_dft.launches
+        got = tsk.stft_power_dft(x, nfft, hop, "hann", None, nf)
+        torch.cuda.synchronize()
+        assert tsk.stft_power_dft.launches == before + 1
+        want = tsk.stft_power_dft_plain(x, nfft, hop, "hann", None, nf)
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert _rel(got, want) < 1e-5
+    win = STFT(nfft, hop).win(dev)
+    assert _rel(tsk.stft_power_dft(x, nfft, hop),
+                tsk.stft_power_plain(x, nfft, hop, win)) < 1e-5
+
+
+def test_dft_power_refuses_what_it_does_not_take(dev, gen):
+    x = torch.as_tensor(gen.standard_normal((2, 4096)), dtype=torch.float32,
+                        device=dev)
+    for nfft, hop in ((1000, 250), (2048, 640), (1024, 64)):
+        with pytest.raises(ValueError):
+            tsk.stft_power_dft(x, nfft, hop)
+    with pytest.raises(TypeError):
+        tsk.stft_power_dft(x.double(), 1024, 256)
+    with pytest.raises(ValueError):
+        tsk.stft_power_dft(x[None], 1024, 256)
+
+
+@pytest.mark.parametrize("nfft,hop", [(128, 32), (128, 8), (128, 128),
+                                      (256, 64), (512, 512), (1024, 256),
+                                      (1024, 8), (2048, 512)])
+@pytest.mark.parametrize("rfft", [False, True])
+def test_istft_stockham_kernel_matches_plain(dev, gen, nfft, hop, rfft):
+    """A non-Hermitian spectrum with all nfft bins, the one-sided half of
+    one (DC and Nyquist imaginary parts included); output_len at, short of
+    and beyond the frames' cover; the same bits on a second run."""
+    nf = 37
+    bins = nfft // 2 + 1 if rfft else nfft
+    spec = torch.complex(
+        torch.as_tensor(gen.standard_normal((2, nf, bins)),
+                        dtype=torch.float32),
+        torch.as_tensor(gen.standard_normal((2, nf, bins)),
+                        dtype=torch.float32)).to(dev)
+    win = STFT(nfft, hop).win(dev)
+    cover = (nf - 1) * hop + nfft
+    for out_len in (cover, max(cover - hop - 5, nfft // 2), cover + 2 * nfft):
+        norm = tik.ola_norm(get_window_np("hann", nfft), hop, nf, out_len,
+                            dev)
+        before = tstk.istft_stockham.launches
+        got = tstk.istft_stockham(spec, nfft, hop, out_len, win, norm, rfft)
+        again = tstk.istft_stockham(spec, nfft, hop, out_len, win, norm,
+                                    rfft)
+        torch.cuda.synchronize()
+        assert tstk.istft_stockham.launches == before + 2
+        want = tstk.istft_stockham_plain(spec, nfft, hop, out_len, win, norm,
+                                         rfft)
+        assert got.shape == (2, out_len)
+        assert torch.equal(got, again)
+        assert _rel(got * norm, want * norm) < 5e-6, out_len
+        if out_len > cover:
+            assert (got[:, cover:] == 0).all()
+
+
+def test_istft_stockham_refuses_what_it_does_not_take(dev):
+    spec = torch.zeros(2, 5, 65, dtype=torch.complex64, device=dev)
+    win, norm = STFT(128, 32).win(dev), torch.ones(300, device=dev)
+    for nfft, hop in ((128, 24), (4096, 1024), (2048, 8)):
+        sp = torch.zeros(2, 5, nfft // 2 + 1, dtype=torch.complex64,
+                         device=dev)
+        with pytest.raises(ValueError):   # the CPU takes these; no kernel
+            tstk.istft_stockham(sp, nfft, hop, 300, torch.ones(nfft,
+                                                                device=dev),
+                                norm, rfft=True)
+    with pytest.raises(TypeError):
+        tstk.istft_stockham(spec.to(torch.complex128), 128, 32, 300, win,
+                            norm, rfft=True)
+    with pytest.raises(ValueError):       # 65 bins are not rfft=False's 128
+        tstk.istft_stockham(spec, 128, 32, 300, win, norm, rfft=False)
+
+
+def _packed_gate_pair(x, nfft, hop, threshold, dev):
+    """(kernel, its rerun, plain, norm) of the packed fused gate on x padded
+    by nfft - hop at both ends, as SpectralGate pads it."""
+    pad = nfft - hop
+    xp = torch.nn.functional.pad(x, (pad, pad))
+    win = STFT(nfft, hop).win(dev)
+    norm = tik.periodic_norm(get_window_np("hann", nfft), hop, xp.shape[-1],
+                             dev)
+    before = tik.stft_gate_packed.launches
+    got = tik.stft_gate_packed(xp, nfft, hop, threshold, win, norm)
+    again = tik.stft_gate_packed(xp, nfft, hop, threshold, win, norm)
+    torch.cuda.synchronize()
+    assert tik.stft_gate_packed.launches == before + 2
+    want = tik.stft_gate_packed_plain(xp, nfft, hop, threshold, win, norm)
+    assert got.shape == want.shape == xp.shape
+    return got, again, want, norm
+
+
+PACKED_GATE_GEOMETRIES = [(256, 64), (256, 128), (512, 128), (1024, 256),
+                          (1024, 16), (2048, 512), (4096, 1024), (4096, 32)]
+
+
+@pytest.mark.parametrize("nfft,hop", PACKED_GATE_GEOMETRIES)
+@pytest.mark.parametrize("channels,n", [(1, 700), (2, 9001)])
+def test_stft_gate_packed_kernel_matches_plain(dev, gen, nfft, hop, channels,
+                                               n):
+    """Threshold 0 on dense input, a pure roundtrip: before the norm over
+    the full length, and on the samples SpectralGate keeps, which equal the
+    input; q = 2 to 128; the same bits on a second run."""
+    pad = nfft - hop
+    x = torch.as_tensor(gen.standard_normal((channels, n)),
+                        dtype=torch.float32, device=dev)
+    got, again, want, norm = _packed_gate_pair(x, nfft, hop, 0.0, dev)
+    assert torch.equal(got, again)
+    assert _rel(got * norm, want * norm) < 5e-6
+    assert _rel(got[:, pad:pad + n], want[:, pad:pad + n]) < 5e-6
+    assert _rel(got[:, pad:pad + n], x) < 5e-6
+
+
+@pytest.mark.parametrize("nfft,hop", [(256, 64), (1024, 256), (2048, 512),
+                                      (1024, 16)])
+def test_stft_gate_packed_kernel_on_the_tone_probe(dev, nfft, hop):
+    """Threshold 0.1 on tones whose bins all clear it by >= 10x in every
+    frame inside the signal, on the samples only such frames reach."""
+    edge = 2 * (nfft - hop)
+    got, again, want, _ = _packed_gate_pair(_tones(2, 9001 + nfft, nfft, 3,
+                                                   dev), nfft, hop, 0.1, dev)
+    assert torch.equal(got, again)
+    assert _rel(got[:, edge:-edge], want[:, edge:-edge]) < 5e-6
+
+
+def test_stft_gate_packed_refuses_what_it_does_not_take(dev, gen):
+    x = torch.as_tensor(gen.standard_normal((2, 9000)), dtype=torch.float32,
+                        device=dev)
+    norm = torch.ones(9000, device=dev)
+    for nfft, hop in ((128, 32), (1024, 1024), (1024, 8), (8192, 2048)):
+        with pytest.raises(ValueError):   # the CPU takes these; no kernel
+            tik.stft_gate_packed(x, nfft, hop, 0.1,
+                                 torch.ones(nfft, device=dev), norm)
+    win = STFT(1024, 256).win(dev)
+    with pytest.raises(TypeError):
+        tik.stft_gate_packed(x.double(), 1024, 256, 0.1, win, norm)
+    with pytest.raises(ValueError):
+        tik.stft_gate_packed(x, 1024, 256, 0.1, win, norm, "bf16x3")
+
+
+def test_last_slice_entry_points_on_card_match_cpu(dev, gen):
+    """STFT(128, 32).process and reconstruct through the full-nfft kernels,
+    the spectrogram and the parts family through the spectrum kernel and
+    matmuls, against the CPU, with the launches each must make."""
+    x = torch.as_tensor(gen.standard_normal((2, 8192)), dtype=torch.float32)
+    xd = x.to(dev)
+    counted = (tstk.stft_spectrum_stockham, tstk.istft_stockham,
+               tsk.stft_spectrum, tsk.stft_power_dft, tik.stft_gate_packed)
+    counts = [f.launches for f in counted]
+    small = STFT(128, 32)
+    for rfft in (False, True):
+        spec = small.process(xd, rfft=rfft)
+        assert _cplx_rel(spec, small.process(x, rfft=rfft)) < 5e-5
+        back = small.reconstruct(spec, 8192, rfft=rfft)
+        assert _rel(back[:, 128:-128], x[:, 128:-128]) < 5e-6
+    plan = STFT(1024, 256)
+    assert _rel(plan.spectrogram(xd), plan.spectrogram(x)) < 5e-5
+    re, im = plan.power_parts(xd)
+    cre, cim = plan.power_parts(x)
+    assert _rel(re, cre) < 5e-5 and _rel(im, cim) < 5e-5
+    assert _rel(plan.reconstruct_parts(re, im, 8192)[:, 1024:-1024],
+                x[:, 1024:-1024]) < 5e-6
+    torch.cuda.synchronize()
+    after = [f.launches for f in counted]
+    assert [a - b for a, b in zip(after, counts)] == [2, 2, 1, 0, 0]

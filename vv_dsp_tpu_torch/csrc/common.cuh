@@ -15,6 +15,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 enum { ALG_F32 = 0, ALG_BF16X3 = 1, ALG_BF16 = 2 };
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -42,4 +44,13 @@ __device__ __forceinline__ float power2(float2 v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
   return v;
+}
+
+// Owned hop-long output segments of a block of the overlap-add kernels
+// (istft.cu, stockham.cu, gate_packed.cu): at least 4 (q - 1) against the
+// q - 1 frames it recomputes (q = nfft/hop, rounded up), and a strip of at
+// least 4096 samples.
+inline int owned_segments(int nfft, int hop) {
+  const int q = (nfft + hop - 1) / hop;
+  return std::max({4 * (q - 1), (4096 + hop - 1) / hop, 1});
 }

@@ -7,15 +7,14 @@
 // epilogue _ola_strips_epilogue and the _ola_norm_table division.
 //
 // Per frame f (one-sided spectrum X[0..m], m = nfft/2), the real nfft-point
-// inverse runs as an m-point complex inverse FFT of the Hermitian repack
-//   Z[k] = (X[k] + conj X[m-k]) + j W^-k (X[k] - conj X[m-k]),  W = e^{-2 pi
-//   i / nfft},
-// scaled by 1/nfft, whose output z[n] = y[2n] + j y[2n+1] is the frame's
-// even and odd samples. The imaginary parts of X[0] and X[m] are dropped,
-// as torch.fft.irfft drops them (the TPU kernel folds them into Z[0]; for
-// the spectrum of a real signal both are rounding noise). The butterflies
-// are radix-2 DIT in shared memory on bit-reversed input, float32, with
-// float64-built twiddles: the f32 contract of every caller of this path.
+// inverse runs as the packed-real inverse of packed.cuh: an m-point complex
+// inverse FFT of the Hermitian repack, scaled by 1/nfft, whose output holds
+// the frame's even and odd samples. The imaginary parts of X[0] and X[m]
+// are dropped, as torch.fft.irfft drops them (the TPU kernel folds them
+// into Z[0]; for the spectrum of a real signal both are rounding noise).
+// The butterflies are radix-2 DIT in shared memory on bit-reversed input,
+// float32, with float64-built twiddles: the f32 contract of every caller of
+// this path.
 //
 // Gate (gate != 0): per frame, peak2 = max_k p2[k] over the m + 1 bins with
 // p2 = re^2 + im^2, and bin k is kept iff p2[k] >= thresh2 * peak2, in
@@ -37,9 +36,7 @@
 // out) it reads 123 MB of spectrum and writes 31 MB, ~0.05 ms at 3.35 TB/s;
 // its ~0.9 GFLOP are far from the float32 peak. What holds it back is
 // latency: log2(m) barrier-separated stages per batch of frames.
-#include <algorithm>
-
-#include "common.cuh"
+#include "packed.cuh"
 
 constexpr int ISTFT_THREADS = 256;
 constexpr int ISTFT_WARPS = ISTFT_THREADS / 32;
@@ -91,56 +88,13 @@ istft_kernel(const float2* __restrict__ spec, const float* __restrict__ win,
         if (!(power2(a) >= peak2[b])) a = make_float2(0.f, 0.f);
         if (!(power2(r) >= peak2[b])) r = make_float2(0.f, 0.f);
       }
-      if (j == 0) {
-        a.y = 0.f;
-        r.y = 0.f;
-      }
-      // e = a + conj r, d = a - conj r, o = conj(wk[j]) d
-      const float er = a.x + r.x, ei = a.y - r.y;
-      const float dr = a.x - r.x, di = a.y + r.y;
-      const float2 w = wk[j];
-      const float o_r = w.x * dr + w.y * di, o_i = w.x * di - w.y * dr;
       z[b * m + (__brev((unsigned)j) >> (32 - log2m))] =
-          make_float2((er - o_i) * scale, (ei + o_r) * scale);
+          repack_bin(a, r, wk, j, scale);
     }
     __syncthreads();
-    // m-point inverse FFT of every frame of the batch (conjugate twiddles)
-    const int half_m = m >> 1, log2h = log2m - 1;
-    for (int s = 0; s < log2m; ++s) {
-      const int half = 1 << s;
-      const int stride = m >> (s + 1);
-      for (int bi = threadIdx.x; bi < nb * half_m; bi += ISTFT_THREADS) {
-        float2* zf = z + (bi >> log2h) * m;
-        const int b = bi & (half_m - 1);
-        const int pos = b & (half - 1);
-        const int i0 = ((b >> s) << (s + 1)) + pos;
-        const int i1 = i0 + half;
-        const float2 w = tw[pos * stride];
-        const float2 u = zf[i0], v = zf[i1];
-        const float tr = w.x * v.x + w.y * v.y;
-        const float ti = w.x * v.y - w.y * v.x;
-        zf[i0] = make_float2(u.x + tr, u.y + ti);
-        zf[i1] = make_float2(u.x - tr, u.y - ti);
-      }
-      __syncthreads();
-    }
+    packed_ifft(z, nb, m, log2m, tw);
     // window and overlap-add into the strip, frames in ascending order
-    const long long off = (f0 - s0) * hop;  // frame f0's start in the strip
-    const int lo = (int)max(off, 0LL);
-    const int hi = (int)min(off + (long long)(nb - 1) * hop + nfft,
-                            (long long)strip_len);
-    for (int t = lo + threadIdx.x; t < hi; t += ISTFT_THREADS) {
-      float acc = strip[t];
-      for (int b = 0; b < nb; ++b) {
-        const long long i = t - off - (long long)b * hop;
-        if (i >= 0 && i < nfft) {
-          const float2 v = z[b * m + (int)(i >> 1)];
-          acc += ((i & 1) ? v.y : v.x) * win[i];
-        }
-      }
-      strip[t] = acc;
-    }
-    __syncthreads();
+    packed_ola(z, strip, nb, (f0 - s0) * hop, strip_len, m, hop, win);
   }
   float* oc = out + (long long)c * output_len;
   const long long g0 = s0 * hop;
@@ -162,10 +116,7 @@ extern "C" int vv_istft(const void* spec, const float* win, const void* tw,
   if (dev_err != cudaSuccess) return (int)dev_err;
   const int m = nfft / 2;
   const int q = (nfft + hop - 1) / hop;
-  // a batch of up to 2048 complex points; at least 4 (q - 1) owned
-  // segments against the q - 1 recomputed ones, and a strip of >= 4096
-  const int fb = m >= 2048 ? 1 : 2048 / m;
-  const int seg = std::max({4 * (q - 1), (4096 + hop - 1) / hop, 1});
+  const int fb = packed_batch(m), seg = owned_segments(nfft, hop);
   const size_t smem = (size_t)fb * m * sizeof(float2) +
                       ((size_t)seg * hop + fb) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(

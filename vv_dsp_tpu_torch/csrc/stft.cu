@@ -15,12 +15,9 @@
 //     epilogue.
 //
 // Per (channel, frame) block: frame f covers x[f*hop, f*hop + nfft), zero
-// past the signal. Its nfft-point real FFT is an m = nfft/2 point complex
-// FFT of z[j] = w[2j] x[2j] + i w[2j+1] x[2j+1] (loaded in bit-reversed
-// order, radix-2 DIT in shared memory with host-built float64 -> f32
-// twiddles), then the Hermitian unpack
-//   X[k] = E[k] + e^{-2 pi i k / nfft} O[k],  k = 0..m,
-//   E = (Z[k] + conj Z[m-k]) / 2,  O = (Z[k] - conj Z[m-k]) / 2i.
+// past the signal. Its nfft-point real FFT is the packed-real transform of
+// packed.cuh: an m = nfft/2 point complex FFT of the even/odd packed,
+// windowed frame, then the Hermitian unpack of bins 0..m.
 //
 // Bounds. The spectrum kernel writes 8 bytes per bin: 245 MB at the
 // STFT row (16 x 1873 frames x 1024 bins), so it is bound by device-memory
@@ -43,56 +40,17 @@
 // at that tier on its matrix unit; the butterflies are float32 on both
 // machines. (The TPU kernel also runs its DFT-64 tail at the tier; here
 // that part of the transform is butterflies, in float32.)
-#include "common.cuh"
+#include "packed.cuh"
 
 constexpr int STFT_THREADS = 256;
 
-// Load frame `start` of row xc (n samples), windowed and even/odd packed,
-// into z in bit-reversed order, then run the m-point radix-2 DIT FFT.
-// tw[k] = exp(-2 pi i k / m), k < m/2. On return z[k] = Z[k], natural order.
-__device__ void packed_frame_fft(const float* __restrict__ xc, long long n,
-                                 long long start,
-                                 const float* __restrict__ win,
-                                 const float2* __restrict__ tw, float2* z,
-                                 int m, int log2m) {
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    const long long i0 = start + 2 * j;
-    const float a = i0 < n ? xc[i0] : 0.f;
-    const float b = i0 + 1 < n ? xc[i0 + 1] : 0.f;
-    z[__brev((unsigned)j) >> (32 - log2m)] =
-        make_float2(a * win[2 * j], b * win[2 * j + 1]);
-  }
-  __syncthreads();
-  for (int s = 0; s < log2m; ++s) {
-    const int half = 1 << s;
-    const int stride = m >> (s + 1);  // span 2*half: exp(-2 pi i pos / 2half)
-    for (int b = threadIdx.x; b < m / 2; b += blockDim.x) {
-      const int pos = b & (half - 1);
-      const int i0 = ((b >> s) << (s + 1)) + pos;
-      const int i1 = i0 + half;
-      const float2 w = tw[pos * stride];
-      const float2 u = z[i0], v = z[i1];
-      const float tr = w.x * v.x - w.y * v.y;
-      const float ti = w.x * v.y + w.y * v.x;
-      z[i0] = make_float2(u.x + tr, u.y + ti);
-      z[i1] = make_float2(u.x - tr, u.y - ti);
-    }
-    __syncthreads();
-  }
-}
-
-// X[k], 0 <= k <= m, of the 2m-point real frame whose packed spectrum is z;
-// wk[k] = exp(-2 pi i k / 2m)
-__device__ __forceinline__ float2 unpack_bin(const float2* z,
-                                             const float2* __restrict__ wk,
-                                             int k, int m) {
-  const float2 a = z[k & (m - 1)];
-  const float2 b = z[(m - k) & (m - 1)];
-  const float er = 0.5f * (a.x + b.x), ei = 0.5f * (a.y - b.y);
-  const float o_r = 0.5f * (a.y + b.y), o_i = 0.5f * (b.x - a.x);
-  const float2 w = wk[k];
-  return make_float2(er + (w.x * o_r - w.y * o_i),
-                     ei + (w.x * o_i + w.y * o_r));
+// Frame f of row xc (n samples): its packed spectrum Z[k], natural order
+__device__ __forceinline__ void packed_frame_fft(
+    const float* __restrict__ xc, long long n, int f, int hop,
+    const float* __restrict__ win, const float2* __restrict__ tw, float2* z,
+    int m, int log2m) {
+  packed_load(xc, n, f, 1, hop, win, z, m, log2m);
+  packed_fft(z, 1, m, log2m, tw);
 }
 
 // out: (channels, nf, bins) interleaved complex; bins = nfft (two-sided,
@@ -106,8 +64,7 @@ stft_spectrum_kernel(const float* __restrict__ x,
   extern __shared__ float2 z[];
   const int f = blockIdx.x, c = blockIdx.y;
   const int m = nfft / 2, log2m = __ffs(m) - 1;
-  packed_frame_fft(x + (long long)c * n, n, (long long)f * hop, win, tw, z, m,
-                   log2m);
+  packed_frame_fft(x + (long long)c * n, n, f, hop, win, tw, z, m, log2m);
   float2* o = out + ((long long)c * nf + f) * bins;
   for (int k = threadIdx.x; k < bins; k += STFT_THREADS) {
     float2 v = unpack_bin(z, wk, k <= m ? k : nfft - k, m);
@@ -125,8 +82,7 @@ stft_power_kernel(const float* __restrict__ x, const float* __restrict__ win,
   extern __shared__ float2 z[];
   const int f = blockIdx.x, c = blockIdx.y;
   const int m = nfft / 2, log2m = __ffs(m) - 1;
-  packed_frame_fft(x + (long long)c * n, n, (long long)f * hop, win, tw, z, m,
-                   log2m);
+  packed_frame_fft(x + (long long)c * n, n, f, hop, win, tw, z, m, log2m);
   float* o = out + ((long long)c * nf + f) * (m + 1);
   for (int k = threadIdx.x; k <= m; k += STFT_THREADS) {
     const float2 v = unpack_bin(z, wk, k, m);
@@ -156,8 +112,7 @@ stft_mfcc_kernel(const float* __restrict__ x, const float* __restrict__ win,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int WARPS = STFT_THREADS / 32;
 
-  packed_frame_fft(x + (long long)c * n, n, (long long)f * hop, win, tw, z, m,
-                   log2m);
+  packed_frame_fft(x + (long long)c * n, n, f, hop, win, tw, z, m, log2m);
   for (int k = threadIdx.x; k <= m; k += STFT_THREADS) {
     const float2 v = unpack_bin(z, wk, k, m);
     pw[k] = v.x * v.x + v.y * v.y;

@@ -14,7 +14,10 @@
 //   stockham_mel_kernel replaces _stft_mel_kernel (launcher _stft_mel_call,
 //     entries stft_mel_energies_pallas and stft_mfcc_pallas);
 //   stockham_gate_kernel replaces _gate_kernel (stft_gate_pallas) with its
-//     strip-merge epilogue and the w^2 norm division.
+//     strip-merge epilogue and the w^2 norm division;
+//   istft_stockham_kernel replaces _istft_kernel (istft_stockham) with its
+//     strip-merge epilogue and the division by the exact w^2 norm, which the
+//     JAX launcher applies after the kernel.
 //
 // Per frame f (x[f*hop, f*hop + nfft), zero past the signal): the
 // nfft-point complex FFT of the windowed real frame, radix-2 DIT in shared
@@ -64,8 +67,17 @@
 // divides by the interior-periodic norm, which equals it on every sample
 // SpectralGate keeps). seg >= 4 (q - 1), so at 1024/8 (q = 128) a block
 // recomputes at most 127 frames for 512 it owns.
-#include <algorithm>
-
+//
+// Inverse STFT: the same inverse, overlap-add and norm, on frames read from
+// a spectrum in natural bin order (the TPU kernel's storage permutation,
+// _stockham_storage_from_natural, is TPU layout and has no counterpart).
+// With all nfft bins given, the real part of each frame's complex inverse
+// is kept, whether or not the spectrum is Hermitian; with the one-sided
+// nfft/2 + 1 bins, bin k > nfft/2 is the conjugate of bin nfft - k, and
+// the imaginary parts of the DC and Nyquist bins drop out of the real
+// part, as in irfft. Bound: it reads 8 bytes a bin and writes 4 a sample
+// (123 MB and 31 MB at 1024/256 one-sided on 16 x 1876 frames), so device
+// memory bounds it; the radix-2 passes hold it back as they do the rest.
 #include "common.cuh"
 
 constexpr int SH_THREADS = 256;
@@ -151,6 +163,28 @@ __device__ void ifft_dif(float2* z, int nb, int nfft, int log2n,
     }
     __syncthreads();
   }
+}
+
+// Add the real parts of nb inverse frames (unscaled, bit-reversed at
+// slot()), times scale and the window, into strip[lo, hi): frame b starts
+// at strip position off + b*hop, frames in ascending order for each
+// sample. Ends at a barrier.
+__device__ void ola_real(const float2* z, float* strip, int nb, long long off,
+                         int strip_len, int nfft, int log2n, int hop,
+                         const float* __restrict__ win, float scale) {
+  const int lo = (int)max(off, 0LL);
+  const int hi = (int)min(off + (long long)(nb - 1) * hop + nfft,
+                          (long long)strip_len);
+  for (int t = lo + threadIdx.x; t < hi; t += SH_THREADS) {
+    float acc = strip[t];
+    for (int b = 0; b < nb; ++b) {
+      const long long i = t - off - (long long)b * hop;
+      if (i >= 0 && i < nfft)
+        acc += z[slot((b << log2n) + brev((int)i, log2n))].x * scale * win[i];
+    }
+    strip[t] = acc;
+  }
+  __syncthreads();
 }
 
 // out: (channels, nf, bins) interleaved complex, bins = nfft (two-sided) or
@@ -295,27 +329,63 @@ stockham_gate_kernel(const float* __restrict__ x,
     __syncthreads();
     ifft_dif(z, nb, nfft, log2n, tw);
     // window and overlap-add the real parts, frames in ascending order
-    const long long off = (f0 - s0) * hop;  // frame f0's start in the strip
-    const int lo = (int)max(off, 0LL);
-    const int hi = (int)min(off + (long long)(nb - 1) * hop + nfft,
-                            (long long)strip_len);
-    for (int t = lo + threadIdx.x; t < hi; t += SH_THREADS) {
-      float acc = strip[t];
-      for (int b = 0; b < nb; ++b) {
-        const long long i = t - off - (long long)b * hop;
-        if (i >= 0 && i < nfft)
-          acc += z[slot((b << log2n) + brev((int)i, log2n))].x * scale *
-                 win[i];
-      }
-      strip[t] = acc;
-    }
-    __syncthreads();
+    ola_real(z, strip, nb, (f0 - s0) * hop, strip_len, nfft, log2n, hop, win,
+             scale);
   }
   float* oc = out + (long long)c * n;
   const long long g0 = s0 * hop;
   for (int t = threadIdx.x; t < strip_len; t += SH_THREADS) {
     const long long g = g0 + t;
     if (g < n) oc[g] = strip[t] / norm[g];
+  }
+}
+
+// spec: (channels, nf, bins) interleaved complex, bins = nfft or
+// nfft/2 + 1 (the conjugate mirror above nfft/2); norm: (output_len,)
+// guarded w^2 norm of the nf frames; out: (channels, output_len)
+__global__ void __launch_bounds__(SH_THREADS)
+istft_stockham_kernel(const float2* __restrict__ spec,
+                      const float* __restrict__ win,
+                      const float2* __restrict__ tw,
+                      const float* __restrict__ norm, float* __restrict__ out,
+                      int nf, int nfft, int hop, int bins, int q,
+                      long long output_len, int seg) {
+  extern __shared__ float2 smem[];
+  const int log2n = __ffs(nfft) - 1, fpb = frames_per_block(nfft);
+  float2* z = smem;                                    // fpb frames, slot()
+  float* strip = reinterpret_cast<float*>(z + batch_floats2(nfft));  // seg*hop
+  const int c = blockIdx.y, strip_len = seg * hop;
+  const long long s0 = (long long)blockIdx.x * seg;  // first owned segment
+  const float2* xc = spec + (long long)c * nf * bins;
+  const float scale = 1.f / (float)nfft;
+
+  for (int t = threadIdx.x; t < strip_len; t += SH_THREADS) strip[t] = 0.f;
+  const long long f_lo = max(s0 - (q - 1), 0LL);
+  const long long f_hi = min(s0 + seg - 1, (long long)nf - 1);
+  for (long long f0 = f_lo; f0 <= f_hi; f0 += fpb) {
+    const int nb = (int)min((long long)fpb, f_hi - f0 + 1);
+    for (int idx = threadIdx.x; idx < nb * nfft; idx += SH_THREADS) {
+      const int b = idx >> log2n, k = idx & (nfft - 1);
+      const float2* xf = xc + (f0 + b) * bins;
+      float2 v;
+      if (k < bins) {
+        v = xf[k];
+      } else {
+        v = xf[nfft - k];
+        v.y = -v.y;
+      }
+      z[slot(idx)] = v;
+    }
+    __syncthreads();
+    ifft_dif(z, nb, nfft, log2n, tw);
+    ola_real(z, strip, nb, (f0 - s0) * hop, strip_len, nfft, log2n, hop, win,
+             scale);
+  }
+  float* oc = out + (long long)c * output_len;
+  const long long g0 = s0 * hop;
+  for (int t = threadIdx.x; t < strip_len; t += SH_THREADS) {
+    const long long g = g0 + t;
+    if (g < output_len) oc[g] = strip[t] / norm[g];
   }
 }
 
@@ -401,9 +471,7 @@ extern "C" int vv_stockham_gate(const float* x, const float* win,
   if (dev_err != cudaSuccess) return (int)dev_err;
   const int fpb = frames_per_block(nfft);
   const int q = (nfft + hop - 1) / hop;
-  // at least 4 (q - 1) owned segments against the q - 1 recomputed ones,
-  // and a strip of >= 4096 samples
-  const int seg = std::max({4 * (q - 1), (4096 + hop - 1) / hop, 1});
+  const int seg = owned_segments(nfft, hop);
   const size_t smem = batch_floats2(nfft) * sizeof(float2) +
                       ((size_t)seg * hop + fpb) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -418,5 +486,34 @@ extern "C" int vv_stockham_gate(const float* x, const float* win,
   stockham_gate_kernel<<<grid, SH_THREADS, smem, (cudaStream_t)stream>>>(
       x, win, (const float2*)tw, norm, out, n, nf, nfft, hop, q, seg,
       thresh2);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vv_istft_stockham(const void* spec, const float* win,
+                                 const void* tw, const float* norm, float* out,
+                                 int channels, int nf, int nfft, int hop,
+                                 int bins, long long output_len, int device,
+                                 void* stream) {
+  if (bad_geometry(nfft, hop, nf, channels) || output_len < 1 ||
+      (bins != nfft && bins != nfft / 2 + 1))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const int q = (nfft + hop - 1) / hop;
+  const int seg = owned_segments(nfft, hop);
+  const size_t smem = batch_floats2(nfft) * sizeof(float2) +
+                      (size_t)seg * hop * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      istft_stockham_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so the next launch does not report it
+    return (int)err;
+  }
+  const long long segs = (output_len + hop - 1) / hop;
+  const dim3 grid((unsigned)((segs + seg - 1) / seg), (unsigned)channels);
+  istft_stockham_kernel<<<grid, SH_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float2*)spec, win, (const float2*)tw, norm, out, nf, nfft, hop,
+      bins, q, output_len, seg);
   return (int)cudaGetLastError();
 }

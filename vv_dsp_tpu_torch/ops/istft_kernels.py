@@ -2,7 +2,8 @@
 spectrum's inverse with w^2-normalized overlap-add and the SpectralGate's
 optional per-frame peak gate (the part of ``vv_dsp_tpu/ops/pallas_fft.py``
 behind ``istft_packed``, ``istft_packed_from_storage`` and
-``stft_gate_split``).
+``stft_gate_split``); and the packed fused gate, forward, gate, inverse
+and overlap-add in one kernel (``stft_gate_packed``).
 
 Frame f of the output is ``irfft(spec[:, f], nfft)``, windowed and added at
 f*hop; the sum is divided by the w^2 overlap-add norm, whose values at or
@@ -13,8 +14,9 @@ bin k of a frame is zeroed first unless ``p2[k] >= t^2 * max(p2)``, with
 Both versions ignore the imaginary parts of the DC and Nyquist bins, as
 ``torch.fft.irfft`` does (the TPU kernel folds them into its repack; for
 the spectrum of a real signal they are rounding noise). On a CUDA tensor
-``istft`` launches the kernel in ``csrc/istft.cu`` or raises; on a CPU
-tensor it runs the plain version.
+``istft`` launches the kernel in ``csrc/istft.cu`` or raises, and
+``stft_gate_packed`` the kernel in ``csrc/gate_packed.cu``; on a CPU
+tensor each runs its plain version.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from vv_dsp_tpu_torch import _build
+from vv_dsp_tpu_torch import _build, config
 from vv_dsp_tpu_torch.ops import fft as _fft
 from vv_dsp_tpu_torch.ops import framing
 from vv_dsp_tpu_torch.ops import stft_kernels as _sk
@@ -148,3 +150,95 @@ def istft(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
 
 
 istft.launches = 0
+
+
+def periodic_norm_np(window, hop: int, n: int) -> np.ndarray:
+    """(n,) float32 interior-periodic w^2 norm (the JAX package's
+    ``stft_gate_packed`` divides by it): the sum over r < q = nfft/hop of
+    w^2[r*hop:(r+1)*hop], in float64, values <= 1e-12 replaced by 1, tiled
+    over n. It equals ``ola_norm_np`` wherever q frames cover a sample,
+    which is every sample a COLA-padded caller keeps."""
+    wsq = np.asarray(window, np.float64) ** 2
+    q = len(wsq) // hop
+    period = wsq[:q * hop].reshape(q, hop).sum(axis=0)
+    period = np.where(period > 1e-12, period, 1.0)
+    return np.tile(period, -(-n // hop))[:n].astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _periodic_on(window_bytes: bytes, hop: int, n: int,
+                 device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(
+        periodic_norm_np(np.frombuffer(window_bytes, np.float64), hop, n),
+        device=device)
+
+
+def periodic_norm(window, hop: int, n: int, device) -> torch.Tensor:
+    """``periodic_norm_np`` of a float64 host window as a float32 tensor on
+    `device`, built once per geometry."""
+    return _periodic_on(np.asarray(window, np.float64).tobytes(), hop, n,
+                        torch.device(device))
+
+
+def _gate_tier(algorithm: str | None) -> None:
+    """The fused gate computes float32; it names no other tier."""
+    if config.dot_algorithm(algorithm) != "f32":
+        raise ValueError(f"stft_gate_packed computes float32; tier "
+                         f"{algorithm!r} is not available")
+
+
+def stft_gate_packed_plain(x: torch.Tensor, nfft: int, hop: int,
+                           threshold: float, window: torch.Tensor,
+                           norm: torch.Tensor,
+                           algorithm: str | None = None) -> torch.Tensor:
+    """(..., n) real -> (..., n): the one-sided spectrum of every frame,
+    ``gate_plain`` (each bin kept iff re^2 + im^2 >= t^2 times the frame's
+    peak over the nfft//2+1 bins, in float32), irfft, window, overlap-add,
+    divide by the norm."""
+    _gate_tier(algorithm)
+    spec = _sk.stft_spectrum_plain(x, nfft, hop, window, onesided=True)
+    return istft_plain(spec, nfft, hop, x.shape[-1], window, norm, threshold)
+
+
+def stft_gate_packed(x: torch.Tensor, nfft: int, hop: int, threshold: float,
+                     window: torch.Tensor, norm: torch.Tensor,
+                     algorithm: str | None = None) -> torch.Tensor:
+    """Fused STFT -> spectral gate -> ISTFT on the packed-real transforms
+    (the port of ``vv_dsp_tpu/ops/pallas_fft.py::stft_gate_packed``): (c, n)
+    float32 -> (c, n) in one kernel pass on a CUDA tensor, the spectrum
+    never in device memory, each output sample written once. x is
+    COLA-padded by the caller, as for ``stft_gate_split``: a sample whose
+    frames do not all lie in [0, n) is off the contract. norm: the
+    interior-periodic norm, ``periodic_norm`` (the JAX function's), on x's
+    device. algorithm: the JAX function's dot-algorithm argument; the
+    kernel computes float32, and any other tier raises. The geometry is
+    ``stockham_kernels.packed_gate_supported``."""
+    _gate_tier(algorithm)
+    if x.device.type == "cpu":
+        return stft_gate_packed_plain(x, nfft, hop, threshold, window, norm)
+    if x.device.type != "cuda":
+        raise ValueError(f"stft_gate_packed: unsupported device {x.device}")
+    if x.ndim != 2:
+        raise ValueError("stft_gate_packed expects (channels, n)")
+    if not _sk.packed_gate_supported(nfft, hop):
+        raise ValueError(f"stft_gate_packed: unsupported geometry nfft={nfft}"
+                         f" hop={hop}; check packed_gate_supported()")
+    c, n = x.shape
+    if not 0 < c <= 65535:
+        raise ValueError(f"channels must be in [1, 65535], got {c}")
+    _build.require(x, "x", x.device)
+    _build.require(window, "window", x.device, (nfft,))
+    _build.require(norm, "norm", x.device, (n,))
+    out = torch.empty_like(x)
+    tw, wk = _sk._fft_tables(nfft, x.device)
+    err = _build.library().vv_stft_gate_packed(
+        _build.ptr(x), _build.ptr(window), _build.ptr(tw), _build.ptr(wk),
+        _build.ptr(norm), _build.ptr(out), c, n,
+        framing.stft_num_frames(n, nfft, hop), nfft, hop,
+        float(threshold) ** 2, x.device.index, _build.stream_handle(x))
+    _build.check(err, "stft_gate_packed")
+    stft_gate_packed.launches += 1
+    return out
+
+
+stft_gate_packed.launches = 0

@@ -1,5 +1,6 @@
-"""Mel scale, filterbank and MFCC (the part of ``vv_dsp_tpu/ops/mel.py``
-the north-star path uses).
+"""Mel scale, filterbank and MFCC (counterpart of ``vv_dsp_tpu/ops/mel.py``:
+the fused signal -> MFCC entry points, and the power-spectrogram and
+power-parts forms, which are plain matrix products and logs).
 
 The filterbank, DCT and lifter constants are copies of the JAX package's
 numpy float64 builders. ``mfcc_stft`` goes through the fused STFT -> mel
@@ -107,6 +108,64 @@ def mfcc_from_log_mel(log_mel: torch.Tensor, n_coeffs: int,
     lw = torch.as_tensor(_lifter_np(n_coeffs, float(lifter)),
                          dtype=log_mel.dtype, device=log_mel.device)
     return (log_mel @ dct.T) * lw
+
+
+def _filterbank_like(t: torch.Tensor, n_fft: int, n_mels: int,
+                     sample_rate: float, fmin: float, fmax: float | None,
+                     variant: str) -> torch.Tensor:
+    if fmax is None:
+        fmax = sample_rate / 2.0
+    fb = mel_filterbank_np(n_fft, n_mels, float(sample_rate), float(fmin),
+                           float(fmax), variant)
+    return torch.as_tensor(fb, dtype=t.dtype, device=t.device)
+
+
+def log_mel_spectrogram(power_spec: torch.Tensor, n_fft: int, n_mels: int,
+                        sample_rate: float, fmin: float = 0.0,
+                        fmax: float | None = None, log_epsilon: float = 1e-10,
+                        variant: str = "htk") -> torch.Tensor:
+    """(..., frames, n_fft//2+1) power -> (..., frames, n_mels) log-mel
+    (vv_dsp_compute_log_mel_spectrogram, mel.c:204-245)."""
+    fb = _filterbank_like(power_spec, n_fft, n_mels, sample_rate, fmin, fmax,
+                          variant)
+    return torch.log(power_spec @ fb.T + log_epsilon)
+
+
+def mel_energies_from_power_parts(re: torch.Tensor, im: torch.Tensor,
+                                  n_fft: int, n_mels: int,
+                                  sample_rate: float, fmin: float = 0.0,
+                                  fmax: float | None = None,
+                                  variant: str = "htk") -> torch.Tensor:
+    """Mel energies from the (re, im) rfft parts (``STFT.power_parts``):
+    the projection is linear in the power, so mel_e = (re*re) @ fb.T +
+    (im*im) @ fb.T, with no power array."""
+    fb = _filterbank_like(re, n_fft, n_mels, sample_rate, fmin, fmax,
+                          variant)
+    return (re * re) @ fb.T + (im * im) @ fb.T
+
+
+def mfcc_from_power_parts(re: torch.Tensor, im: torch.Tensor, n_fft: int,
+                          n_mels: int, n_coeffs: int, sample_rate: float,
+                          fmin: float = 0.0, fmax: float | None = None,
+                          log_epsilon: float = 1e-10, lifter: float = 0.0,
+                          variant: str = "htk") -> torch.Tensor:
+    """MFCC from the (re, im) rfft parts: ``mfcc`` of re*re + im*im, the
+    power never formed."""
+    mel_e = mel_energies_from_power_parts(re, im, n_fft, n_mels, sample_rate,
+                                          fmin, fmax, variant)
+    return mfcc_from_log_mel(torch.log(mel_e + log_epsilon), n_coeffs,
+                             lifter)
+
+
+def mfcc(power_spec: torch.Tensor, n_fft: int, n_mels: int, n_coeffs: int,
+         sample_rate: float, fmin: float = 0.0, fmax: float | None = None,
+         log_epsilon: float = 1e-10, lifter: float = 0.0,
+         variant: str = "htk") -> torch.Tensor:
+    """MFCC plan execute (vv_dsp_mfcc_init/process, mel.c:314-463): power
+    spectrogram -> log-mel -> DCT-II -> lifter."""
+    lm = log_mel_spectrogram(power_spec, n_fft, n_mels, sample_rate, fmin,
+                             fmax, log_epsilon, variant)
+    return mfcc_from_log_mel(lm, n_coeffs, lifter)
 
 
 def mfcc_dct_np(n_mels: int, n_coeffs: int, lifter: float = 0.0) -> np.ndarray:

@@ -16,6 +16,13 @@ does not take (complex input to the forward kernels included). ``process``
 and ``power`` pick the kernel as the JAX package does on the TPU: the
 full-nfft kernels (``stockham_kernels``) where ``takes_stockham`` holds
 (nfft = 128 for ``power``, hop = 8), the packed ones everywhere else.
+At nfft = 128, where the JAX package runs ``process`` and ``reconstruct``
+on XLA and the packed kernels do not reach, both take the full-nfft
+kernels (``takes_stockham_128``): the same numbers, on the card.
+
+The framing-free parts (``power_parts``, ``reconstruct_parts``, and the
+mel functions of ``ops/mel.py`` built on them) are plain matrix products
+with the windowed DFT bases, as the JAX package computes them on XLA.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import functools
 import torch
 
 from vv_dsp_tpu_torch import config
+from vv_dsp_tpu_torch.ops import fft as _fft
 from vv_dsp_tpu_torch.ops import framing
 from vv_dsp_tpu_torch.ops import istft_kernels as _ik
 from vv_dsp_tpu_torch.ops import stft_kernels as _sk
@@ -78,10 +86,11 @@ class STFT:
             return y.reshape(lead + y.shape[-2:])
         win = self.win(x.device)
         # the JAX package's route: packed kernels, else the full-nfft one
-        # from nfft 512 up, else the packed kernels (which raise on a CUDA
-        # tensor where they do not take the geometry)
-        spectrum = (_stk.stft_spectrum_stockham
-                    if _stk.takes_stockham(self.nfft, self.hop, min_nfft=512)
+        # from nfft 512 up (and at nfft 128), else the packed kernels (which
+        # raise on a CUDA tensor where they do not take the geometry)
+        full = (_stk.takes_stockham(self.nfft, self.hop, min_nfft=512)
+                or _stk.takes_stockham_128(self.nfft, self.hop))
+        spectrum = (_stk.stft_spectrum_stockham if full
                     else _sk.stft_spectrum)
         return kernel_with_torch_vjp(
             lambda xv: spectrum(xv, self.nfft, self.hop, win, onesided=rfft),
@@ -107,6 +116,36 @@ class STFT:
             lambda xv: _sk.stft_power_plain(xv, self.nfft, self.hop, win),
         )(x)
 
+    def power_parts(self, x: torch.Tensor, nf: int | None = None):
+        """(re, im) of the windowed rfft, framing-free, for hop | nfft:
+        (..., n) -> two (..., frames, nfft//2+1). Frame k spans
+        x[k*hop : k*hop + nfft], so the windowed basis cut into q = nfft/hop
+        row blocks gives X[k] = sum_r x_r[k] @ Bw[r*hop:(r+1)*hop], x_r a
+        strided view of x shifted by r*hop; the frames never exist. Linear
+        reductions of the power (the mel projection) can then take
+        (re*re) and (im*im) (``mel.mel_energies_from_power_parts``). Real
+        input only (the windowed r2c basis assumes it)."""
+        if x.is_complex():
+            raise TypeError("power_parts requires real input (windowed r2c)")
+        if self.nfft % self.hop:
+            raise ValueError("power_parts needs hop | nfft")
+        x = config.as_compute(x)
+        # float64 stays float64, else float32 (``_real_compute_dtype``)
+        if x.dtype != torch.float64:
+            x = x.float()
+        if nf is None:
+            nf = self.num_frames(x.shape[-1])
+        bre, bim = _sk._dft_basis_on(self.nfft, self.window,
+                                     self.window_param, x.dtype, x.device,
+                                     self.nfft // 2 + 1)
+        return _sk.power_parts(x, self.nfft, self.hop, bre, bim, nf)
+
+    def _power_direct(self, x: torch.Tensor, nf: int) -> torch.Tensor:
+        """Framing-free power spectrogram for hop | nfft (see power_parts):
+        |X|^2 = re^2 + im^2; the plain version of ``stft_power_dft``."""
+        re, im = self.power_parts(x, nf)
+        return re * re + im * im
+
     def _norm(self, nf: int, output_len: int, device) -> torch.Tensor:
         return _ik.ola_norm(get_window_np(self.window, self.nfft,
                                           self.window_param),
@@ -118,7 +157,9 @@ class STFT:
         -> (..., output_len), bins = nfft//2+1 with rfft=True, else nfft.
         Only bins 0..nfft//2 are read, as the JAX package's packed inverse
         does, so with rfft=False the spectrum is taken to be Hermitian
-        (the spectrum of a real signal)."""
+        (the spectrum of a real signal). At nfft = 128 the full-nfft
+        inverse (``stockham_kernels.istft_stockham``) takes the half
+        spectrum in its rfft=True form; elsewhere the packed inverse."""
         if spec.ndim != 3:
             lead = spec.shape[:-2]
             out = self.reconstruct(spec.reshape((-1,) + spec.shape[-2:]),
@@ -133,12 +174,30 @@ class STFT:
         half = (spec if rfft else spec[..., :m + 1]).contiguous()
         win = self.win(spec.device)
         norm = self._norm(spec.shape[-2], output_len, spec.device)
+        if _stk.takes_stockham_128(self.nfft, self.hop):
+            fast = lambda sp: _stk.istft_stockham(
+                sp, self.nfft, self.hop, output_len, win, norm, rfft=True)
+        else:
+            fast = lambda sp: _ik.istft(sp, self.nfft, self.hop, output_len,
+                                        win, norm)
         return kernel_with_torch_vjp(
-            lambda sp: _ik.istft(sp, self.nfft, self.hop, output_len, win,
-                                 norm),
+            fast,
             lambda sp: _ik.istft_plain(sp, self.nfft, self.hop, output_len,
                                        win, norm),
         )(half)
+
+    def reconstruct_parts(self, re: torch.Tensor, im: torch.Tensor,
+                          output_len: int) -> torch.Tensor:
+        """Inverse STFT from the one-sided (re, im) rfft parts, the complex
+        spectrum never formed: irfft(X) = re @ M_re - im @ M_im with M the
+        weighted c2r basis (1/nfft and the Hermitian double weights folded
+        in, ``fft._dft_basis``), then the windowed, w^2-normalized
+        overlap-add of ``reconstruct``. Pairs with ``power_parts``."""
+        name = str(re.dtype).removeprefix("torch.")
+        mre, mim = (torch.as_tensor(_fft._basis_cast(self.nfft, "c2r", part,
+                                                     name), device=re.device)
+                    for part in ("re", "im"))
+        return self._ola_norm(re @ mre - im @ mim, output_len)
 
     def _ola_norm(self, time: torch.Tensor, output_len: int) -> torch.Tensor:
         """(..., frames, nfft) inverse frames -> (..., output_len): window,
@@ -164,6 +223,18 @@ class STFT:
             raise ValueError(f"spectrum of nfft={ps.nfft} hop={ps.hop} given "
                              f"to a plan of nfft={self.nfft} hop={self.hop}")
         return self.reconstruct(ps.spec, output_len, rfft=True)
+
+    def spectrogram(self, x: torch.Tensor) -> torch.Tensor:
+        """Magnitude spectrogram (vv_dsp_stft_spectrogram,
+        src/spectral/stft.c:112-144): (..., n) -> (..., frames, nfft), all
+        two-sided bins, |process(x)| (the JAX package's route off its
+        dense-matmul tier)."""
+        return self.process(x).abs()
+
+
+def stft_spectrogram(x: torch.Tensor, nfft: int, hop: int,
+                     window: str = "hann") -> torch.Tensor:
+    return STFT(nfft, hop, window).spectrogram(x)
 
 
 def power_spectrogram_onesided(x: torch.Tensor, nfft: int, hop: int,

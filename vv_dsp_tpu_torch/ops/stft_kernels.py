@@ -3,7 +3,9 @@ packed-real STFT spectrum, the one-sided power spectrogram and the fused
 STFT -> mel -> log -> DCT (MFCC) front end (the parts of
 ``vv_dsp_tpu/ops/pallas_fft.py`` behind ``stft_spectrum_packed``,
 ``stft_power_packed`` and ``stft_mfcc_pallas`` /
-``stft_mel_energies_pallas``).
+``stft_mel_energies_pallas``), and the power spectrogram as a windowed-DFT
+product (``vv_dsp_tpu/ops/pallas_kernels.py::stft_power_pallas``), whose
+plain version is the framing-free ``power_parts``.
 
 Frame f covers x[f*hop, f*hop + nfft), zero-padded past the signal, and a
 signal of n samples has ``stft_num_frames(n, nfft, hop)`` frames. On a CUDA
@@ -23,6 +25,7 @@ import torch
 from vv_dsp_tpu_torch import _build, config
 from vv_dsp_tpu_torch.ops import fft as _fft
 from vv_dsp_tpu_torch.ops.framing import frames_strided, stft_num_frames
+from vv_dsp_tpu_torch.ops.window import get_window_np
 
 
 def stft_supported(nfft: int, hop: int) -> bool:
@@ -32,6 +35,21 @@ def stft_supported(nfft: int, hop: int) -> bool:
     TPU sublanes aligned and has no counterpart here."""
     return (256 <= nfft <= 4096 and nfft & (nfft - 1) == 0
             and 0 < hop <= nfft)
+
+
+def packed_supported(nfft: int, hop: int) -> bool:
+    """The JAX package's packed-real kernels' geometry (a copy of
+    ``stft_mel_packed_supported``): pow2 nfft in [256, 4096], hop | nfft,
+    hop % 16 == 0, q = nfft/hop <= 128."""
+    return (256 <= nfft <= 4096 and nfft & (nfft - 1) == 0
+            and hop > 0 and nfft % hop == 0 and hop % 16 == 0
+            and nfft // hop <= 128)
+
+
+def packed_gate_supported(nfft: int, hop: int) -> bool:
+    """A copy of ``stft_gate_packed_supported``: the packed geometry with
+    hop < nfft, so the overlap-add has coverage."""
+    return packed_supported(nfft, hop) and hop < nfft
 
 
 @functools.lru_cache(maxsize=16)
@@ -197,3 +215,119 @@ def stft_mfcc(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
 
 
 stft_mfcc.launches = 0
+
+
+@functools.lru_cache(maxsize=16)
+def _windowed_rfft_basis(nfft: int, window: str, param, dtype_name: str):
+    """(re, im) of diag(w) @ B_r2c, (nfft, nfft//2+1), built in float64 on
+    the host and cast once (a copy of the JAX package's
+    ``ops/stft.py::_windowed_rfft_basis``): windowing a frame and
+    multiplying by the DFT basis is multiplying by the row-scaled basis."""
+    w = get_window_np(window, nfft, param)
+    b = _fft._dft_basis(nfft, "r2c") * w[:, None]
+    dt = np.dtype(dtype_name)
+    return (np.ascontiguousarray(b.real).astype(dt),
+            np.ascontiguousarray(b.imag).astype(dt))
+
+
+def power_parts(x: torch.Tensor, nfft: int, hop: int, bre: torch.Tensor,
+                bim: torch.Tensor, nf: int):
+    """(re, im) of the windowed rfft of nf frames, for hop | nfft, without
+    framing: frame k spans x[k*hop : k*hop + nfft], so with the windowed
+    basis cut into q = nfft/hop row blocks, X[k] = sum_r x_r[k] @
+    B[r*hop:(r+1)*hop], where x_r is the signal shifted by r*hop and viewed
+    as (nf, hop) rows. bre, bim: the basis parts in x's dtype on x's
+    device. (..., n) -> two (..., nf, nfft//2+1)."""
+    need = (nf - 1) * hop + nfft
+    if need > x.shape[-1]:
+        x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
+    lead = x.shape[:-1]
+    re = im = 0.0
+    for r in range(nfft // hop):
+        seg = x[..., r * hop:r * hop + nf * hop].reshape(lead + (nf, hop))
+        re = re + torch.matmul(seg, bre[r * hop:(r + 1) * hop])
+        im = im + torch.matmul(seg, bim[r * hop:(r + 1) * hop])
+    return re, im
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_basis_on(nfft: int, window: str, param, dtype: torch.dtype,
+                  device: torch.device, cols: int):
+    """The windowed basis parts as (nfft, cols) tensors on `device`, zero
+    past column nfft//2: the plain version's operands (cols = bins) and the
+    kernel's (cols a multiple of its 64-bin tile)."""
+    name = str(dtype).removeprefix("torch.")
+    parts = []
+    for b in _windowed_rfft_basis(nfft, window, param, name):
+        b = np.pad(b, ((0, 0), (0, cols - b.shape[1])))
+        parts.append(torch.as_tensor(b, device=device))
+    return tuple(parts)
+
+
+def _check_dft_geometry(nfft: int, hop: int) -> None:
+    if nfft % hop or hop % 128:
+        raise ValueError("stft_power_dft needs hop | nfft and 128 | hop")
+
+
+def stft_power_dft_plain(x: torch.Tensor, nfft: int, hop: int,
+                         window: str = "hann", window_param=None,
+                         n_frames: int | None = None) -> torch.Tensor:
+    """|power_parts|^2 = re^2 + im^2 (the JAX package's
+    ``STFT._power_direct``): (c, n) real -> (c, frames, nfft//2+1)."""
+    _check_dft_geometry(nfft, hop)
+    if x.is_complex():
+        raise TypeError("stft_power_dft requires real input")
+    if n_frames is None:
+        n_frames = stft_num_frames(x.shape[-1], nfft, hop)
+    bre, bim = _dft_basis_on(nfft, window, window_param, x.dtype, x.device,
+                             nfft // 2 + 1)
+    re, im = power_parts(x, nfft, hop, bre, bim, n_frames)
+    return re * re + im * im
+
+
+DFT_TILE_BINS = 64   # csrc/dft_power.cu's bin tile
+
+
+def stft_power_dft(x: torch.Tensor, nfft: int, hop: int,
+                   window: str = "hann", window_param=None,
+                   n_frames: int | None = None) -> torch.Tensor:
+    """|rfft(w * frame)|^2 as one windowed-DFT product (the port's
+    ``vv_dsp_tpu/ops/pallas_kernels.py::stft_power_pallas``, with its
+    signature and refusals): (c, n) float32 -> (c, n_frames, nfft//2+1)
+    float32, n_frames the STFT's frame count unless given. Needs hop | nfft
+    and 128 | hop, on every device. On a CUDA tensor one kernel
+    (``csrc/dft_power.cu``) multiplies the frames, never formed, by the
+    windowed r2c basis and squares in registers; on a CPU tensor it runs
+    the plain version."""
+    _check_dft_geometry(nfft, hop)
+    if x.device.type == "cpu":
+        return stft_power_dft_plain(x, nfft, hop, window, window_param,
+                                    n_frames)
+    if x.device.type != "cuda":
+        raise ValueError(f"stft_power_dft: unsupported device {x.device}")
+    if x.ndim != 2:
+        raise ValueError("stft_power_dft expects (channels, n)")
+    _build.require(x, "x", x.device)
+    c, n = x.shape
+    if not 0 < c <= 65535:
+        raise ValueError(f"channels must be in [1, 65535], got {c}")
+    if n_frames is None:
+        n_frames = stft_num_frames(n, nfft, hop)
+    if n_frames < 1:
+        raise ValueError(f"n_frames must be positive, got {n_frames}")
+    bins = nfft // 2 + 1
+    cols = -(-bins // DFT_TILE_BINS) * DFT_TILE_BINS
+    bre, bim = _dft_basis_on(nfft, window, window_param, torch.float32,
+                             x.device, cols)
+    out = torch.empty((c, n_frames, bins), dtype=torch.float32,
+                      device=x.device)
+    err = _build.library().vv_dft_power(
+        _build.ptr(x), _build.ptr(bre), _build.ptr(bim), _build.ptr(out), c,
+        n, n_frames, nfft, hop, bins, cols, x.device.index,
+        _build.stream_handle(x))
+    _build.check(err, "stft_power_dft")
+    stft_power_dft.launches += 1
+    return out
+
+
+stft_power_dft.launches = 0

@@ -1,9 +1,9 @@
 """The port's full-nfft STFT kernels, with their plain versions: the
 windowed complex spectrum, the one-sided power spectrogram, the fused
-STFT -> power -> mel (-> log -> DCT) front end and the fused SpectralGate
-(the parts of ``vv_dsp_tpu/ops/pallas_fft.py`` behind
-``stft_spectrum_stockham``, ``stft_power_stockham``, ``_stft_mel_call``
-and ``stft_gate_pallas``).
+STFT -> power -> mel (-> log -> DCT) front end, the fused SpectralGate and
+the inverse STFT (the parts of ``vv_dsp_tpu/ops/pallas_fft.py`` behind
+``stft_spectrum_stockham``, ``stft_power_stockham``, ``_stft_mel_call``,
+``stft_gate_pallas`` and ``istft_stockham``).
 
 The JAX package runs these where its packed-real kernels refuse the
 geometry: ``stockham_supported`` and not ``packed_supported`` (copies of
@@ -11,9 +11,11 @@ geometry: ``stockham_supported`` and not ``packed_supported`` (copies of
 power-of-two nfft is nfft = 128 at any hop, or hop = 8. ``takes_stockham``
 and ``takes_stockham_gate`` are that route; the entry points
 (``STFT.process``/``power``, ``mel.mfcc_stft_with``, ``SpectralGate``)
-follow it on every device. On a CUDA tensor each wrapper launches its
-kernel in ``csrc/stockham.cu`` or raises; on a CPU tensor it runs the plain
-version. The spectrum, power and mel kernels compute the functions of the
+follow it on every device. ``takes_stockham_128`` adds the one route the
+JAX package leaves to XLA: ``STFT.process`` and ``reconstruct`` at
+nfft = 128, below the packed kernels' lattice. On a CUDA tensor each
+wrapper launches its kernel in ``csrc/stockham.cu`` or raises; on a CPU
+tensor it runs the plain version. The spectrum, power and mel kernels compute the functions of the
 packed kernels of ``stft_kernels`` (only the transform inside differs), so
 they share those plain versions; the mel kernel's contractions are float32
 whatever tier the caller names, as on the TPU.
@@ -30,19 +32,9 @@ from vv_dsp_tpu_torch.ops import stft_kernels as _sk
 from vv_dsp_tpu_torch.ops.framing import stft_num_frames
 
 
-def packed_supported(nfft: int, hop: int) -> bool:
-    """The JAX package's packed-real kernels' geometry (a copy of
-    ``stft_mel_packed_supported``): pow2 nfft in [256, 4096], hop | nfft,
-    hop % 16 == 0, q = nfft/hop <= 128."""
-    return (256 <= nfft <= 4096 and nfft & (nfft - 1) == 0
-            and hop > 0 and nfft % hop == 0 and hop % 16 == 0
-            and nfft // hop <= 128)
-
-
-def packed_gate_supported(nfft: int, hop: int) -> bool:
-    """A copy of ``stft_gate_packed_supported``: the packed geometry with
-    hop < nfft, so the overlap-add has coverage."""
-    return packed_supported(nfft, hop) and hop < nfft
+# the JAX package's packed-real geometry, which its route tests first
+packed_supported = _sk.packed_supported
+packed_gate_supported = _sk.packed_gate_supported
 
 
 def stockham_supported(nfft: int, hop: int) -> bool:
@@ -73,6 +65,13 @@ def takes_stockham_gate(nfft: int, hop: int) -> bool:
     gate kernel rather than the packed split pair."""
     return (not packed_gate_supported(nfft, hop)
             and stockham_gate_supported(nfft, hop))
+
+
+def takes_stockham_128(nfft: int, hop: int) -> bool:
+    """Whether ``STFT.process`` and ``reconstruct`` take the full-nfft
+    kernels at a geometry where the JAX package runs XLA: nfft = 128 (below
+    the packed kernels' 256) on the full-nfft lattice."""
+    return nfft == 128 and stockham_supported(nfft, hop)
 
 
 def _check_signal(x: torch.Tensor, window: torch.Tensor, nfft: int,
@@ -231,3 +230,64 @@ def stft_gate_stockham(x: torch.Tensor, nfft: int, hop: int,
 
 
 stft_gate_stockham.launches = 0
+
+
+def istft_stockham_plain(spec: torch.Tensor, nfft: int, hop: int,
+                         output_len: int, window: torch.Tensor,
+                         norm: torch.Tensor,
+                         rfft: bool = False) -> torch.Tensor:
+    """(..., frames, bins) -> (..., output_len): each frame's inverse
+    (irfft of nfft//2+1 bins with rfft=True; the real part of the complex
+    inverse of all nfft bins with rfft=False), windowed, overlap-added and
+    divided by the norm."""
+    time = _fft.irfft(spec, nfft) if rfft else _fft.ifft(spec).real
+    return _ik.overlap_add_normalized(time, window, hop, output_len, norm)
+
+
+def istft_stockham(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
+                   window: torch.Tensor, norm: torch.Tensor,
+                   rfft: bool = False) -> torch.Tensor:
+    """(c, frames, bins) complex64 -> (c, output_len) float32 in one kernel
+    pass on a CUDA tensor, each output sample written once. bins = nfft
+    (rfft=False: all nfft bins are inverted, a non-Hermitian spectrum
+    included, and the real part kept, as the JAX package's
+    ``istft_stockham``) or nfft//2+1 (rfft=True: bins above nfft/2 are the
+    conjugate mirror, and the imaginary parts of the DC and Nyquist bins
+    drop out of the real part, as in irfft). norm: ``istft_kernels.ola_norm``
+    of the window's float64 values for these frames, on spec's device (the
+    exact guarded w^2 norm the JAX launcher divides by)."""
+    bins = nfft // 2 + 1 if rfft else nfft
+    if spec.shape[-1] != bins:
+        raise ValueError(f"rfft={rfft} expects {bins} bins, got "
+                         f"{spec.shape[-1]}")
+    if spec.device.type == "cpu":
+        return istft_stockham_plain(spec, nfft, hop, output_len, window, norm,
+                                    rfft)
+    if spec.device.type != "cuda":
+        raise ValueError(f"istft_stockham: unsupported device {spec.device}")
+    if spec.ndim != 3:
+        raise ValueError("istft_stockham expects (channels, frames, bins)")
+    if not stockham_supported(nfft, hop):
+        raise ValueError(f"istft_stockham: unsupported geometry nfft={nfft} "
+                         f"hop={hop}; check stockham_supported()")
+    c, nf, _ = spec.shape
+    if not 0 < c <= 65535:
+        raise ValueError(f"channels must be in [1, 65535], got {c}")
+    if output_len < 1:
+        raise ValueError(f"output_len must be positive, got {output_len}")
+    _build.require(spec, "spec", spec.device, (c, nf, bins), torch.complex64)
+    _build.require(window, "window", spec.device, (nfft,))
+    _build.require(norm, "norm", spec.device, (output_len,))
+    out = torch.empty((c, output_len), dtype=torch.float32,
+                      device=spec.device)
+    err = _build.library().vv_istft_stockham(
+        _build.ptr(spec), _build.ptr(window),
+        _build.ptr(_twiddles(nfft, spec.device)), _build.ptr(norm),
+        _build.ptr(out), c, nf, nfft, hop, bins, output_len,
+        spec.device.index, _build.stream_handle(spec))
+    _build.check(err, "istft_stockham")
+    istft_stockham.launches += 1
+    return out
+
+
+istft_stockham.launches = 0

@@ -9,8 +9,11 @@ the STFT 1024/256 roundtrip (process(x, rfft=True) -> reconstruct) on
 MFCCFrontend(128, 32, 26 mels, 13 MFCCs, 8 kHz) and SpectralGate(128, 32)
 on (16, 479232) and STFT(512, 8).process(x, rfft=False) on (16, 480000),
 and the staged NorthStarChain(fused_head=False) and fir_apply_best at 16
-taps on (16, 479232), each ``calls`` times back to back under
-torch.profiler. For each it
+taps on (16, 479232), and the last three kernels' paths: stft_power_dft
+at 1024/256 on (16, 480000), the STFT 128/32 roundtrip on (16, 479232),
+and istft_stockham and stft_gate_packed at 1024/256 on the COLA-padded
+(16, 480768) input (the inverse of its one-sided spectrum), each
+``calls`` times back to back under torch.profiler. For each it
 prints, per call:
 
 - wall: host time of the loop, synchronized at its end;
@@ -132,6 +135,23 @@ def main(argv=None) -> int:
     report("chain, staged head", lambda: staged(xc), args.calls)
     report("fir_apply_best 16 taps", lambda: fir_apply_best(h16, xc),
            args.calls)
+    from vv_dsp_tpu_torch.ops import istft_kernels as ik
+    from vv_dsp_tpu_torch.ops import stft_kernels as sk
+    from vv_dsp_tpu_torch.ops import stockham_kernels as stk
+    from vv_dsp_tpu_torch.ops.window import get_window_np
+    report("stft_power_dft 1024/256", lambda: sk.stft_power_dft(
+        xs, 1024, 256), args.calls)
+    report("roundtrip 128/32", lambda: small.reconstruct(
+        small.process(xc, rfft=True), n, rfft=True), args.calls)
+    xp = torch.nn.functional.pad(xc, (768, 768))
+    win, w64 = plan.win(dev), get_window_np("hann", 1024)
+    half = plan.process(xp, rfft=True)
+    norm = ik.ola_norm(w64, 256, half.shape[1], xp.shape[1], dev)
+    report("istft_stockham 1024/256", lambda: stk.istft_stockham(
+        half, 1024, 256, xp.shape[1], win, norm, rfft=True), args.calls)
+    periodic = ik.periodic_norm(w64, 256, xp.shape[1], dev)
+    report("stft_gate_packed 1024/256", lambda: ik.stft_gate_packed(
+        xp, 1024, 256, 0.1, win, periodic), args.calls)
     return 0
 
 

@@ -194,9 +194,9 @@ def test_geometry_predicates_equal_the_jax_package():
     checked = 0
     for nfft in (64, 128, 256, 512, 1000, 1024, 2048, 4096, 8192):
         for hop in (1, 8, 16, 24, 32, 64, 128, 250, 256, 512, 4096):
-            assert tstk.packed_supported(nfft, hop) == \
+            assert tsk.packed_supported(nfft, hop) == \
                 jpf.stft_mel_packed_supported(nfft, hop)
-            assert tstk.packed_gate_supported(nfft, hop) == \
+            assert tsk.packed_gate_supported(nfft, hop) == \
                 jpf.stft_gate_packed_supported(nfft, hop)
             assert tstk.stockham_supported(nfft, hop) == \
                 jpf.stft_mel_supported(nfft, hop)

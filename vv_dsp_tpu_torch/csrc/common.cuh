@@ -54,3 +54,27 @@ inline int owned_segments(int nfft, int hop) {
   const int q = (nfft + hop - 1) / hop;
   return std::max({4 * (q - 1), (4096 + hop - 1) / hop, 1});
 }
+
+// Overlap-add of the overlap-add kernels: add sample(b, i) * win[i], sample
+// i < nfft of inverse frame b < nb, into strip[lo, hi), frame b starting at
+// strip position off + b*hop, frames in ascending order for each sample, so
+// every block sums a sample the same way. Ends at a barrier. sample says
+// where a kernel's inverse frames keep their samples.
+template <class Sample>
+__device__ __forceinline__ void ola_strip(Sample sample, float* strip, int nb,
+                                          long long off, int strip_len,
+                                          int nfft, int hop,
+                                          const float* __restrict__ win) {
+  const int lo = (int)max(off, 0LL);
+  const int hi = (int)min(off + (long long)(nb - 1) * hop + nfft,
+                          (long long)strip_len);
+  for (int t = lo + threadIdx.x; t < hi; t += blockDim.x) {
+    float acc = strip[t];
+    for (int b = 0; b < nb; ++b) {
+      const long long i = t - off - (long long)b * hop;
+      if (i >= 0 && i < nfft) acc += sample(b, (int)i) * win[i];
+    }
+    strip[t] = acc;
+  }
+  __syncthreads();
+}

@@ -21,13 +21,15 @@
 // re^2 + im^2 is written once, at the end. Products are float32, which the
 // JAX kernel computes at its default precision (HIGHEST).
 //
-// Bound. 2 x 2 x frames x nfft x bins operations: 62.97 GFLOP at 1024/256
-// on 16 x 1873 frames, 0.94 ms at the card's 67 TFLOP/s float32 peak,
-// against 96 MB moved (0.03 ms): the operations bound it. An FFT does the
-// same in O(log nfft) operations a bin; this form exists because it is one
-// GEMM (the TPU's matrix unit runs it at its full rate). The basis holds
-// the bins padded to the 64-bin tile with zero columns; their power is
-// never written.
+// Bound. The function reads the signal and writes the power, 92 MB at
+// 1024/256 on 16 x 1873 frames (0.028 ms at 3.35 TB/s), and an FFT needs
+// far fewer operations than that moves, so device memory bounds it, as it
+// does the packed power kernel of stft.cu. This algorithm does 2 x 2 x nfft
+// operations a bin, O(nfft) where an FFT does O(log nfft): 62.97 GFLOP,
+// 0.94 ms at the card's 67 TFLOP/s float32 peak, a floor of the form, not
+// of the function. The form exists because it is one GEMM (the TPU's matrix
+// unit runs it at its full rate). The basis holds the bins padded to the
+// 64-bin tile with zero columns; their power is never written.
 #include "common.cuh"
 
 constexpr int DP_THREADS = 256;

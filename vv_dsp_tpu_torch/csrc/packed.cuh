@@ -126,27 +126,16 @@ __device__ inline void packed_ifft(float2* z, int nb, int m, int log2m,
   }
 }
 
-// Add the windowed samples of nb inverse frames (packed: z[b*m + i/2] holds
-// samples i and i+1 of frame b as (re, im)) into strip[lo, hi), frame
-// f0 + b starting at strip position off + b*hop, frames in ascending order
-// for each sample. Ends at a barrier.
-__device__ inline void packed_ola(const float2* z, float* strip, int nb,
-                                  long long off, int strip_len, int m,
-                                  int hop, const float* __restrict__ win) {
-  const int nfft = 2 * m;
-  const int lo = (int)max(off, 0LL);
-  const int hi = (int)min(off + (long long)(nb - 1) * hop + nfft,
-                          (long long)strip_len);
-  for (int t = lo + threadIdx.x; t < hi; t += blockDim.x) {
-    float acc = strip[t];
-    for (int b = 0; b < nb; ++b) {
-      const long long i = t - off - (long long)b * hop;
-      if (i >= 0 && i < nfft) {
-        const float2 v = z[b * m + (int)(i >> 1)];
-        acc += ((i & 1) ? v.y : v.x) * win[i];
-      }
-    }
-    strip[t] = acc;
-  }
-  __syncthreads();
+// ola_strip of nb packed inverse frames: z[b*m + i/2] holds samples i and
+// i+1 of frame b as (re, im).
+__device__ __forceinline__ void packed_ola(const float2* z, float* strip,
+                                           int nb, long long off,
+                                           int strip_len, int m, int hop,
+                                           const float* __restrict__ win) {
+  ola_strip(
+      [=](int b, int i) {
+        const float2 v = z[b * m + (i >> 1)];
+        return (i & 1) ? v.y : v.x;
+      },
+      strip, nb, off, strip_len, 2 * m, hop, win);
 }

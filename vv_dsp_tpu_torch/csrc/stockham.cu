@@ -165,26 +165,18 @@ __device__ void ifft_dif(float2* z, int nb, int nfft, int log2n,
   }
 }
 
-// Add the real parts of nb inverse frames (unscaled, bit-reversed at
-// slot()), times scale and the window, into strip[lo, hi): frame b starts
-// at strip position off + b*hop, frames in ascending order for each
-// sample. Ends at a barrier.
-__device__ void ola_real(const float2* z, float* strip, int nb, long long off,
-                         int strip_len, int nfft, int log2n, int hop,
-                         const float* __restrict__ win, float scale) {
-  const int lo = (int)max(off, 0LL);
-  const int hi = (int)min(off + (long long)(nb - 1) * hop + nfft,
-                          (long long)strip_len);
-  for (int t = lo + threadIdx.x; t < hi; t += SH_THREADS) {
-    float acc = strip[t];
-    for (int b = 0; b < nb; ++b) {
-      const long long i = t - off - (long long)b * hop;
-      if (i >= 0 && i < nfft)
-        acc += z[slot((b << log2n) + brev((int)i, log2n))].x * scale * win[i];
-    }
-    strip[t] = acc;
-  }
-  __syncthreads();
+// ola_strip of the real parts of nb inverse frames (unscaled, bit-reversed
+// at slot()), times scale.
+__device__ __forceinline__ void ola_real(const float2* z, float* strip, int nb,
+                                         long long off, int strip_len,
+                                         int nfft, int log2n, int hop,
+                                         const float* __restrict__ win,
+                                         float scale) {
+  ola_strip(
+      [=](int b, int i) {
+        return z[slot((b << log2n) + brev(i, log2n))].x * scale;
+      },
+      strip, nb, off, strip_len, nfft, hop, win);
 }
 
 // out: (channels, nf, bins) interleaved complex, bins = nfft (two-sided) or

@@ -212,7 +212,7 @@ def stft_gate_packed(x: torch.Tensor, nfft: int, hop: int, threshold: float,
     interior-periodic norm, ``periodic_norm`` (the JAX function's), on x's
     device. algorithm: the JAX function's dot-algorithm argument; the
     kernel computes float32, and any other tier raises. The geometry is
-    ``stockham_kernels.packed_gate_supported``."""
+    ``stft_kernels.packed_gate_supported``."""
     _gate_tier(algorithm)
     if x.device.type == "cpu":
         return stft_gate_packed_plain(x, nfft, hop, threshold, window, norm)

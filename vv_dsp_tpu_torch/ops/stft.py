@@ -125,14 +125,7 @@ class STFT:
         reductions of the power (the mel projection) can then take
         (re*re) and (im*im) (``mel.mel_energies_from_power_parts``). Real
         input only (the windowed r2c basis assumes it)."""
-        if x.is_complex():
-            raise TypeError("power_parts requires real input (windowed r2c)")
-        if self.nfft % self.hop:
-            raise ValueError("power_parts needs hop | nfft")
-        x = config.as_compute(x)
-        # float64 stays float64, else float32 (``_real_compute_dtype``)
-        if x.dtype != torch.float64:
-            x = x.float()
+        x = self._parts_input(x)
         if nf is None:
             nf = self.num_frames(x.shape[-1])
         bre, bim = _sk._dft_basis_on(self.nfft, self.window,
@@ -143,8 +136,19 @@ class STFT:
     def _power_direct(self, x: torch.Tensor, nf: int) -> torch.Tensor:
         """Framing-free power spectrogram for hop | nfft (see power_parts):
         |X|^2 = re^2 + im^2; the plain version of ``stft_power_dft``."""
-        re, im = self.power_parts(x, nf)
-        return re * re + im * im
+        return _sk.stft_power_dft_plain(self._parts_input(x), self.nfft,
+                                        self.hop, self.window,
+                                        self.window_param, nf)
+
+    def _parts_input(self, x: torch.Tensor) -> torch.Tensor:
+        """x for the framing-free parts: real, hop | nfft; float64 stays
+        float64, else float32 (``_real_compute_dtype``)."""
+        if x.is_complex():
+            raise TypeError("power_parts requires real input (windowed r2c)")
+        if self.nfft % self.hop:
+            raise ValueError("power_parts needs hop | nfft")
+        x = config.as_compute(x)
+        return x if x.dtype == torch.float64 else x.float()
 
     def _norm(self, nf: int, output_len: int, device) -> torch.Tensor:
         return _ik.ola_norm(get_window_np(self.window, self.nfft,

@@ -272,9 +272,10 @@ def _check_dft_geometry(nfft: int, hop: int) -> None:
 def stft_power_dft_plain(x: torch.Tensor, nfft: int, hop: int,
                          window: str = "hann", window_param=None,
                          n_frames: int | None = None) -> torch.Tensor:
-    """|power_parts|^2 = re^2 + im^2 (the JAX package's
-    ``STFT._power_direct``): (c, n) real -> (c, frames, nfft//2+1)."""
-    _check_dft_geometry(nfft, hop)
+    """|power_parts|^2 = re^2 + im^2, the JAX package's
+    ``STFT._power_direct`` (the port's ``STFT._power_direct`` is this):
+    (..., n) real -> (..., frames, nfft//2+1), for hop | nfft;
+    ``stft_power_dft`` adds its 128 | hop refusal."""
     if x.is_complex():
         raise TypeError("stft_power_dft requires real input")
     if n_frames is None:

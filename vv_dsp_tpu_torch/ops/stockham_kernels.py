@@ -6,9 +6,9 @@ the inverse STFT (the parts of ``vv_dsp_tpu/ops/pallas_fft.py`` behind
 ``stft_gate_pallas`` and ``istft_stockham``).
 
 The JAX package runs these where its packed-real kernels refuse the
-geometry: ``stockham_supported`` and not ``packed_supported`` (copies of
-``stft_mel_supported`` and ``stft_mel_packed_supported``), which for a
-power-of-two nfft is nfft = 128 at any hop, or hop = 8. ``takes_stockham``
+geometry: ``stockham_supported`` and not ``stft_kernels.packed_supported``
+(copies of ``stft_mel_supported`` and ``stft_mel_packed_supported``), which
+for a power-of-two nfft is nfft = 128 at any hop, or hop = 8. ``takes_stockham``
 and ``takes_stockham_gate`` are that route; the entry points
 (``STFT.process``/``power``, ``mel.mfcc_stft_with``, ``SpectralGate``)
 follow it on every device. ``takes_stockham_128`` adds the one route the
@@ -32,11 +32,6 @@ from vv_dsp_tpu_torch.ops import stft_kernels as _sk
 from vv_dsp_tpu_torch.ops.framing import stft_num_frames
 
 
-# the JAX package's packed-real geometry, which its route tests first
-packed_supported = _sk.packed_supported
-packed_gate_supported = _sk.packed_gate_supported
-
-
 def stockham_supported(nfft: int, hop: int) -> bool:
     """The full-nfft kernels' geometry (a copy of ``stft_mel_supported``):
     pow2 nfft in [128, 2048], hop | nfft, hop % 8 == 0, q = nfft/hop <=
@@ -56,14 +51,14 @@ def takes_stockham(nfft: int, hop: int, min_nfft: int = 128) -> bool:
     """Whether the JAX package routes this geometry to the full-nfft
     kernels: the packed kernels refuse it and the full-nfft ones take it
     (from min_nfft up: ``STFT.process`` starts at 512)."""
-    return (not packed_supported(nfft, hop) and nfft >= min_nfft
+    return (not _sk.packed_supported(nfft, hop) and nfft >= min_nfft
             and stockham_supported(nfft, hop))
 
 
 def takes_stockham_gate(nfft: int, hop: int) -> bool:
     """Whether the JAX package's SpectralGate takes the fused full-nfft
     gate kernel rather than the packed split pair."""
-    return (not packed_gate_supported(nfft, hop)
+    return (not _sk.packed_gate_supported(nfft, hop)
             and stockham_gate_supported(nfft, hop))
 
 

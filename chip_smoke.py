@@ -15,7 +15,12 @@ Phases, each fatal on failure:
    128/32 on (16, 479232), the spectrum at 512/8 on (16, 480000), with the
    packed spectrum kernel timed on that input), and at one geometry of
    the other kind each on 2 channels (1024/8 for power, mel and gate;
-   128/32 for the spectrum). The direct FIR at 16 taps and the per-phase
+   128/32 and 2048/16 for the spectrum). The two spectrum kernels share
+   the register-resident FFT of csrc/fft_reg.cuh: the packed one is also
+   held at the ends of its range on 2 channels (256/64, 4096/1024), and
+   each main-path row of the two prints kernel, torch.stft and bound ms,
+   the bound's share and the registers ptxas gave the kernel (build.log).
+   The direct FIR at 16 taps and the per-phase
    resampler at 4/3 on (16, 479232), with the banded upfirdn kernel timed
    beside the resampler, then on 2 channels at taps 1, 7, 129, n < taps
    and ratios 2/1, 1/2, 3/4, 7/5. The windowed-DFT power at 1024/256 on
@@ -61,6 +66,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -152,7 +158,8 @@ def import_port():
     return vv_dsp_tpu_torch
 
 
-def build_phase() -> None:
+def build_phase() -> list[str]:
+    """Build the kernels; returns build.log's lines (ptxas -v)."""
     from vv_dsp_tpu_torch import _build
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -163,6 +170,7 @@ def build_phase() -> None:
     for line in log:
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    return log
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -201,6 +209,49 @@ def bound(nbytes: float, flops: float, flop_rate: float) -> dict:
     t_ops = flops / flop_rate * 1e3
     return {"bound_ms": float(max(t_bytes, t_ops)),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ptxas_usage(log: list[str], kernel: str, n: int, onesided: bool) -> str:
+    """Registers, spill stores and static shared memory of one instance of
+    a spectrum kernel template <N, ONESIDED>, as build.log (nvcc -Xptxas
+    -v) gives them."""
+    tag, found, got = f"{kernel}ILi{n}ELb{int(onesided)}E", False, {}
+    for line in log:
+        if "Compiling entry function" in line:
+            if found:
+                break
+            found = tag in line
+        elif found:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("spill stores", r"(\d+) bytes spill stores"),
+                             ("static smem", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    got[key] = int(m.group(1))
+    if not found:
+        return f"{tag}: not in build.log"
+    return (f"{got.get('registers')} registers, "
+            f"{got.get('spill stores')} bytes spill stores, "
+            f"{got.get('static smem', 0)} bytes static shared memory")
+
+
+def redesign_line(name, label, r, log, kernel, n, onesided, smem) -> None:
+    """The redesigned spectrum kernels' row: kernel, torch.stft and bound
+    ms, the bound's share of the kernel time, and what ptxas gave it."""
+    print(f"  redesign {name} [{label}]: kernel {r['ms']:.4f} ms, torch.stft "
+          f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x), "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share of the "
+          f"bound {r['bound_ms'] / r['ms']:.3f}; build.log: "
+          f"{ptxas_usage(log, kernel, n, onesided)}; dynamic shared memory "
+          f"{smem} bytes a block (the launcher's request)")
+
+
+def fr_smem(n: int, packed: bool) -> int:
+    """Dynamic shared memory of a register-resident spectrum block: the
+    twiddle table, wk (packed) and two exchange buffers of 2048 points."""
+    from vv_dsp_tpu_torch.ops import fft_plan
+    return 8 * (fft_plan.pass_offsets(n)[-1] + (n + 1 if packed else 0)
+                + 2 * 2048)
 
 
 def fft_flops(frames: int, nfft: int) -> float:
@@ -302,7 +353,7 @@ def record(name, label, got, want, tol, fast, plain, failed: list,
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def kernel_phase(xc, xs, chain, front, front128) -> dict:
+def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
     """Each kernel against its plain version at the main path's shapes
     (the MFCC kernel at the chain's and at MFCCFrontend's geometry)."""
     from vv_dsp_tpu_torch.ops import resample as rs
@@ -400,8 +451,25 @@ def kernel_phase(xc, xs, chain, front, front128) -> dict:
         print(f"  torch.stft (layout c, bins, frames): "
               f"{r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
+        redesign_line("stft_spectrum", f"{NFFT}/{HOP} "
+                      f"{'one' if onesided else 'two'}-sided", r, log,
+                      "stft_spectrum_kernel", NFFT // 2, onesided,
+                      fr_smem(NFFT // 2, True))
         if not onesided:
             results["stft_spectrum"] = r
+        else:
+            results["stft_spectrum"].update(
+                {f"onesided_{k}": v for k, v in r.items()})
+    # the ends of the packed kernel's range, N = 128 and 2048, on 2 channels
+    for nfft, hop in ((256, 64), (4096, 1024)):
+        w = STFT(nfft, hop).win(xs.device)
+        for onesided in (False, True):
+            fast = lambda: sk.stft_spectrum(xs[:2], nfft, hop, w, onesided)
+            plain = lambda: sk.stft_spectrum_plain(xs[:2], nfft, hop, w,
+                                                   onesided)
+            record("stft_spectrum", f"{nfft}/{hop} "
+                   f"{'one' if onesided else 'two'}-sided, 2 ch", fast(),
+                   plain(), SPECTRUM_TOL, fast, plain, failed)
 
     fast = lambda: sk.stft_power(xs, NFFT, HOP, win)
     plain = lambda: sk.stft_power_plain(xs, NFFT, HOP, win)
@@ -416,7 +484,7 @@ def kernel_phase(xc, xs, chain, front, front128) -> dict:
     results["stft_power"] = r
 
     results.update(istft_phase(xc, win, failed))
-    results.update(stockham_phase(xc, xs, front128, failed))
+    results.update(stockham_phase(xc, xs, front128, failed, log))
     results.update(filter_phase(xc, failed))
     results["stft_power_dft"] = dft_power_phase(xs, win, failed)
     results["istft_stockham"] = istft_stockham_phase(xc, win, failed)
@@ -490,7 +558,7 @@ def istft_phase(xc, win, failed: list) -> dict:
     return out
 
 
-def stockham_phase(xc, xs, front128, failed: list) -> dict:
+def stockham_phase(xc, xs, front128, failed: list, log: list[str]) -> dict:
     """The full-nfft kernels against their plain versions: power, mel/MFCC
     and the fused gate at 128/32 on (16, 479232), the spectrum at 512/8 on
     (16, 480000) (the shapes their entry points give them), and each at one
@@ -576,20 +644,25 @@ def stockham_phase(xc, xs, front128, failed: list) -> dict:
               f"ms ({faster} is faster); torch.stft (layout c, bins, frames) "
               f"{r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
+        redesign_line("stft_spectrum_stockham", label, r, log,
+                      "stockham_spectrum_kernel", DENSE[0], onesided,
+                      fr_smem(DENSE[0], False))
         if not onesided:
             out["stft_spectrum_stockham"] = r
         else:
             out["stft_spectrum_stockham"].update(
                 {f"onesided_{k}": v for k, v in r.items()})
-    for onesided in (False, True):
-        fast = lambda: stk.stft_spectrum_stockham(x2, *SMALL, win128,
-                                                  onesided)
-        plain = lambda: stk.stft_spectrum_stockham_plain(x2, *SMALL, win128,
-                                                         onesided)
-        got = fast()
-        record("stft_spectrum_stockham",
-               f"128/32 {'one' if onesided else 'two'}-sided, {io(got, x2)}",
-               got, plain(), STOCKHAM_TOL, fast, plain, failed)
+    win2048 = STFT(2048, 16).win(dev)
+    for geo, w in ((SMALL, win128), ((2048, 16), win2048)):
+        for onesided in (False, True):
+            fast = lambda: stk.stft_spectrum_stockham(x2, *geo, w, onesided)
+            plain = lambda: stk.stft_spectrum_stockham_plain(x2, *geo, w,
+                                                             onesided)
+            got = fast()
+            record("stft_spectrum_stockham",
+                   f"{geo[0]}/{geo[1]} {'one' if onesided else 'two'}-sided, "
+                   f"{io(got, x2)}", got, plain(), STOCKHAM_TOL, fast, plain,
+                   failed)
     return out
 
 
@@ -1412,7 +1485,7 @@ def main() -> None:
 
     card = device_phase()
 
-    build_phase()
+    log = build_phase()
     torch.cuda.synchronize()
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
@@ -1424,7 +1497,7 @@ def main() -> None:
     staged = NorthStarChain(fused_head=False, device=dev)
     front128 = MFCCFrontend(*SMALL, n_mels=26, n_mfcc=13, sample_rate=8000.0,
                             device=dev)
-    kernels = kernel_phase(xc, xs, chain, front, front128)
+    kernels = kernel_phase(xc, xs, chain, front, front128, log)
     torch.cuda.synchronize()
     launches = slice_phase(xc, xs, chain, staged, front, front128, card)
     torch.cuda.synchronize()

@@ -11,7 +11,10 @@ filter and resample entry points' geometries; the windowed-DFT power at
 hop | nfft, 128 | hop, n < nfft and extra frames; the full-nfft inverse
 with all nfft bins of a non-Hermitian spectrum and with the one-sided
 half, at q = 1 to 128; the packed fused gate at threshold 0 and on the
-tone probe, with bit-identical reruns). Needs an NVIDIA GPU and nvcc;
+tone probe, with bit-identical reruns; the two register-resident spectrum
+kernels at every transform size, 128 to 2048 points, on part groups of
+frames, tails past the signal and a unit impulse, whose spectrum is known
+to 1e-6 absolute). Needs an NVIDIA GPU and nvcc;
 skips without them. Run on the card (this
 file imports neither jax nor the JAX package, so the suite's jax conftest
 is not needed):
@@ -123,7 +126,8 @@ def test_fused_head_kernel_matches_plain(dev, gen, n):
     assert _rel(got, want) < 1e-5
 
 
-@pytest.mark.parametrize("nfft,hop", [(256, 64), (1024, 256), (2048, 512),
+@pytest.mark.parametrize("nfft,hop", [(256, 64), (512, 128), (1024, 256),
+                                      (1024, 255), (1024, 1024), (2048, 512),
                                       (2048, 300), (4096, 1024)])
 @pytest.mark.parametrize("n", [1000, 9001])
 @pytest.mark.parametrize("onesided", [False, True])
@@ -135,6 +139,69 @@ def test_spectrum_kernel_matches_plain(dev, gen, nfft, hop, n, onesided):
     want = tsk.stft_spectrum_plain(x, nfft, hop, win, onesided)
     assert got.shape == want.shape and got.dtype == torch.complex64
     assert _cplx_rel(got, want) < 5e-5
+
+
+# the register-resident spectrum kernels (csrc/fft_reg.cuh) at every
+# transform size N: the packed kernel at N = nfft/2, the full-nfft one at
+# N = nfft
+SPECTRUM_KERNELS = [("packed", nfft, hop) for nfft, hop in
+                    ((256, 64), (512, 128), (1024, 256), (2048, 512),
+                     (4096, 1024))] + [
+    ("full", nfft, hop) for nfft, hop in
+    ((128, 32), (256, 32), (512, 8), (1024, 8), (2048, 16))]
+
+
+def _spectrum_kernel(kind):
+    return (tsk.stft_spectrum, tsk.stft_spectrum_plain) if kind == "packed" \
+        else (tstk.stft_spectrum_stockham, tstk.stft_spectrum_stockham_plain)
+
+
+@pytest.mark.parametrize("kind,nfft,hop", SPECTRUM_KERNELS)
+@pytest.mark.parametrize("channels", [1, 3])
+def test_spectrum_kernels_on_part_groups_and_tails(dev, gen, kind, nfft, hop,
+                                                   channels):
+    """Frame counts that are not a multiple of a block's frames, and the
+    frames that run past the signal (zero there), on 1 and 3 channels."""
+    fast, plain = _spectrum_kernel(kind)
+    # a packed block transforms 2048/m frames; a full-nfft block two real
+    # frames in each of its 2048/nfft transforms
+    per_block = 2048 // (nfft // 2) if kind == "packed" else 4096 // nfft
+    n = 7 * nfft + 3 * hop + 5
+    nf = stft_num_frames(n, nfft, hop)
+    assert nf % per_block or per_block == 1
+    x = torch.as_tensor(gen.standard_normal((channels, n)),
+                        dtype=torch.float32, device=dev)
+    win = STFT(nfft, hop).win(dev)
+    for onesided in (False, True):
+        before = fast.launches
+        got = fast(x, nfft, hop, win, onesided)
+        torch.cuda.synchronize()
+        assert fast.launches == before + 1
+        want = plain(x, nfft, hop, win, onesided)
+        assert got.shape == want.shape == (channels, nf, want.shape[2])
+        assert _cplx_rel(got, want) < 5e-5
+        # the last frame reaches past the signal: its tail reads as zero
+        assert _cplx_rel(got[:, -1], want[:, -1]) < 5e-5
+
+
+@pytest.mark.parametrize("kind,nfft,hop", SPECTRUM_KERNELS)
+@pytest.mark.parametrize("at", [1, 3, 0.5, -1])
+def test_spectrum_kernels_on_an_impulse(dev, kind, nfft, hop, at):
+    """A unit impulse at sample j of frame 0 is w[j] exp(-2 pi i k j / nfft)
+    in every bin k: a wrong bin order or a lost twiddle shows here as an
+    error of order 1, which a relative error on noise could blur."""
+    j = int(at * nfft) if isinstance(at, float) else at % nfft
+    fast, _ = _spectrum_kernel(kind)
+    x = torch.zeros((2, 3 * nfft), dtype=torch.float32, device=dev)
+    x[:, j] = 1.0
+    win = STFT(nfft, hop).win(dev)
+    w = float(win[j])
+    k = np.arange(nfft)
+    want = w * np.exp(-2j * np.pi * k * j / nfft)
+    for onesided in (False, True):
+        got = fast(x, nfft, hop, win, onesided)[:, 0].cpu().numpy()
+        bins = nfft // 2 + 1 if onesided else nfft
+        assert np.abs(got - want[:bins]).max() < 1e-6
 
 
 @pytest.mark.parametrize("nfft,hop,n_mels,n_mfcc,sr,lifter", [
@@ -394,8 +461,8 @@ def test_synthesis_refuses_what_the_kernels_do_not_take(dev, gen):
 
 # the full-nfft family: nfft = 128 at several hops (hop == nfft included),
 # hop 8 up to q = 128 (1024/8)
-STOCKHAM_GEOMETRIES = [(128, 32), (128, 8), (128, 128), (256, 8), (512, 8),
-                       (1024, 8)]
+STOCKHAM_GEOMETRIES = [(128, 32), (128, 8), (128, 128), (256, 8), (256, 32),
+                       (512, 8), (1024, 8), (2048, 16)]
 
 
 @pytest.mark.parametrize("nfft,hop", STOCKHAM_GEOMETRIES)

@@ -20,27 +20,31 @@
 //     JAX launcher applies after the kernel.
 //
 // Per frame f (x[f*hop, f*hop + nfft), zero past the signal): the
-// nfft-point complex FFT of the windowed real frame, radix-2 DIT in shared
-// memory on bit-reversed input, float32, with host-built float64 -> f32
-// twiddles tw[k] = exp(-2 pi i k / nfft), k < nfft/2. Bins come out in
-// natural order, so the TPU kernels' bin permutation and the epilogue that
-// undoes it have no counterpart, nor has their DFT-64 matrix tail: the
-// butterflies run to the end. A block takes FB = max(1, 2048/nfft)
-// consecutive frames of one channel, so every barrier-separated stage has
-// 1024 butterflies for its 256 threads whatever nfft is (16 frames a block
-// at nfft = 128, where one frame a block would leave 3/4 of the threads
-// idle). Points sit in shared memory with one pad slot per 32 (slot()), so
-// the bit-reversed scatter is free of bank conflicts.
+// nfft-point complex FFT of the windowed real frame, float32, with
+// host-built float64 -> f32 twiddles. Bins come out in natural order, so
+// the TPU kernels' bin permutation and the epilogue that undoes it have no
+// counterpart, nor has their DFT-64 matrix tail: the butterflies run to
+// the end. The spectrum kernel runs the register-resident radix-8
+// transform of fft_reg.cuh (its own section below). The other four run a
+// radix-2 DIT in shared memory on bit-reversed input, twiddles
+// tw[k] = exp(-2 pi i k / nfft), k < nfft/2: a block takes FB =
+// max(1, 2048/nfft) consecutive frames of one channel, so every
+// barrier-separated stage has 1024 butterflies for its 256 threads
+// whatever nfft is (16 frames a block at nfft = 128, where one frame a
+// block would leave 3/4 of the threads idle). Points sit in shared memory
+// with one pad slot per 32 (slot()), so the bit-reversed scatter is free
+// of bank conflicts.
 //
 // Bounds, at the shapes the port's entry points give them on 16 channels
 // of ~480k samples: the spectrum at 512/8 writes 3.93 GB (1.97 GB
 // one-sided), ~1.2 ms at 3.35 TB/s, so its bound is device-memory writes;
-// each block writes its FB frames' rows as one contiguous run. The power
-// (128/32: 30.7 MB read, 62.3 MB written), mel (12.5 MB written) and gate
-// (31 MB each way) kernels move little. What holds all four back is the
-// radix-2 transform itself: log2(nfft) passes of every point through
-// shared memory, each behind a barrier (nine round trips of every point at
-// 512/8), which a radix-4 or register-resident transform would cut.
+// each block writes its FB frames' rows as one contiguous run. Its radix-2
+// form took 5.5-11x that bound (nine round trips of every point through
+// shared memory, each behind a barrier); the register-resident transform
+// makes two exchanges at 512 points. The power (128/32: 30.7 MB read,
+// 62.3 MB written), mel (12.5 MB written) and gate (31 MB each way)
+// kernels move little: what holds them back is the radix-2 transform, the
+// next to move onto fft_reg.cuh.
 //
 // Mel/MFCC: the power row stays in shared memory; each mel band is summed
 // over its nonzero bin range only (the host's band edges, as
@@ -79,6 +83,7 @@
 // (123 MB and 31 MB at 1024/256 one-sided on 16 x 1876 frames), so device
 // memory bounds it; the radix-2 passes hold it back as they do the rest.
 #include "common.cuh"
+#include "fft_reg.cuh"
 
 constexpr int SH_THREADS = 256;
 constexpr int SH_WARPS = SH_THREADS / 32;
@@ -179,26 +184,92 @@ __device__ __forceinline__ void ola_real(const float2* z, float* strip, int nb,
       strip, nb, off, strip_len, nfft, hop, win);
 }
 
-// out: (channels, nf, bins) interleaved complex, bins = nfft (two-sided) or
-// nfft/2 + 1 (one-sided)
-__global__ void __launch_bounds__(SH_THREADS)
+// out: (channels, nf, BINS) interleaved complex, BINS = N (two-sided) or
+// N/2 + 1 (one-sided). The register-resident transform of fft_reg.cuh,
+// each N-point complex FFT taking two real windowed frames at once:
+// z = x_f + i x_f+1, whose spectrum Z gives X_f[k] = (Z[k] + conj
+// Z[N-k]) / 2 and X_f+1[k] = (Z[k] - conj Z[N-k]) / 2i (unpack_bin's E and
+// O), so a frame costs half a transform; the window carries the 1/2.
+// Thread j loads samples j + s N/8 of both frames straight into registers,
+// windowed (its 8 window values stay in registers for the whole grid
+// walk), zero past the signal (bounds checked only for pairs that reach
+// past it or past the last frame). A group of FB = 4096/N consecutive
+// frames of one channel ends in shared memory in natural order, and its FB
+// rows, contiguous in out, are written as one coalesced run (the division
+// by BINS is by a constant).
+template <int N, bool ONESIDED>
+__global__ void __launch_bounds__(FR_THREADS, 4)
 stockham_spectrum_kernel(const float* __restrict__ x,
                          const float* __restrict__ win,
                          const float2* __restrict__ tw,
                          float2* __restrict__ out, long long n, int nf,
-                         int nfft, int hop, int bins) {
-  extern __shared__ float2 z[];
-  const int log2n = __ffs(nfft) - 1, fb = frames_per_block(nfft);
-  const int c = blockIdx.y;
-  const long long f0 = (long long)blockIdx.x * fb;
-  const int nb = (int)min((long long)fb, nf - f0);
-  load_frames(x + (long long)c * n, n, f0, nb, hop, win, z, nfft, log2n);
-  fft_dit(z, nb, nfft, log2n, tw);
-  float2* o = out + ((long long)c * nf + f0) * bins;
-  for (int idx = threadIdx.x; idx < nb * bins; idx += SH_THREADS) {
-    const int b = idx / bins;
-    o[idx] = z[slot((b << log2n) + idx - b * bins)];
+                         int hop, int groups_per_row, long long groups) {
+  constexpr int T = N / 8, FB = 2 * FR_POINTS / N;
+  constexpr int BINS = ONESIDED ? N / 2 + 1 : N;
+  extern __shared__ float2 sm[];
+  float2* tws = sm;
+  float2* a = sm + fr_table_size(N);
+  float2* b = a + FR_POINTS;
+  fr_stage(tws, tw, fr_table_size(N));
+  const int pair = threadIdx.x / T, j = threadIdx.x % T;
+  // the window times 1/2, the unpack's factor (exact: the transform is
+  // linear and halving rounds nothing)
+  float w[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) w[s] = 0.5f * win[j + s * T];
+  __syncthreads();
+  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+    const int c = (int)(g / groups_per_row);
+    const int f0 = (int)(g - (long long)c * groups_per_row) * FB;
+    const int f = f0 + 2 * pair;
+    const long long i0 = (long long)f * hop;
+    const float* xf = x + (long long)c * n + i0 + j;
+    float2 v[8];
+    if (f + 1 < nf && i0 + hop + N <= n) {  // both frames inside the signal
+#pragma unroll
+      for (int s = 0; s < 8; ++s)
+        v[s] = make_float2(__ldg(xf + s * T) * w[s],
+                           __ldg(xf + hop + s * T) * w[s]);
+    } else {
+      const long long left = n - i0 - j;  // samples from xf to the end
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const int i = s * T;
+        const float re = f < nf && i < left ? __ldg(xf + i) : 0.f;
+        const float im =
+            f + 1 < nf && i + hop < left ? __ldg(xf + i + hop) : 0.f;
+        v[s] = make_float2(re * w[s], im * w[s]);
+      }
+    }
+    fr_fft<N>(v, j, tws, a + pair * N, b + pair * N);
+    const float2* z = fr_result<N>(a, b);
+    const int nb = min(FB, nf - f0);
+    float2* o = out + ((long long)c * nf + f0) * BINS;
+    for (int idx = threadIdx.x; idx < nb * BINS; idx += FR_THREADS) {
+      const int q = idx / BINS, k = idx - q * BINS;
+      const float2* zp = z + (q >> 1) * N;
+      const float2 p = zp[k], r = zp[(N - k) & (N - 1)];
+      // p +- conj r: exact products by +-1, one rounding each as a sum
+      const float sg = q & 1 ? -1.f : 1.f;
+      const float u = fmaf(sg, r.x, p.x), t = fmaf(-sg, r.y, p.y);
+      o[idx] = q & 1 ? make_float2(t, -u) : make_float2(u, t);
+    }
+    fr_swap_after<N>(a, b);
   }
+}
+
+template <int N, bool ONESIDED>
+static cudaError_t launch_spectrum(const float* x, const float* win,
+                                   const void* tw, void* out, int channels,
+                                   long long n, int nf, int hop, int device,
+                                   cudaStream_t stream) {
+  constexpr int FB = 2 * FR_POINTS / N;
+  const int per_row = (nf + FB - 1) / FB;
+  const size_t smem = (fr_table_size(N) + 2 * FR_POINTS) * sizeof(float2);
+  return fr_launch<stockham_spectrum_kernel<N, ONESIDED>>(
+      smem, (long long)per_row * channels, device, stream, x, win,
+      (const float2*)tw, (float2*)out, n, nf, hop, per_row,
+      (long long)per_row * channels);
 }
 
 // out: (channels, nf, nfft/2 + 1) |X[k]|^2, natural bin order
@@ -403,11 +474,22 @@ extern "C" int vv_stockham_spectrum(const float* x, const float* win,
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const size_t smem = batch_floats2(nfft) * sizeof(float2);
-  stockham_spectrum_kernel<<<frame_grid(nf, nfft, channels), SH_THREADS, smem,
-                             (cudaStream_t)stream>>>(
-      x, win, (const float2*)tw, (float2*)out, n, nf, nfft, hop, bins);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool one = bins != nfft;
+#define VV_SPECTRUM(N)                                                       \
+  return (int)(one ? launch_spectrum<N, true>(x, win, tw, out, channels, n, \
+                                              nf, hop, device, s)           \
+                   : launch_spectrum<N, false>(x, win, tw, out, channels,   \
+                                               n, nf, hop, device, s))
+  switch (nfft) {
+    case 128: VV_SPECTRUM(128);
+    case 256: VV_SPECTRUM(256);
+    case 512: VV_SPECTRUM(512);
+    case 1024: VV_SPECTRUM(1024);
+    case 2048: VV_SPECTRUM(2048);
+  }
+#undef VV_SPECTRUM
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int vv_stockham_power(const float* x, const float* win,

@@ -24,6 +24,7 @@ import torch
 
 from vv_dsp_tpu_torch import _build, config
 from vv_dsp_tpu_torch.ops import fft as _fft
+from vv_dsp_tpu_torch.ops import fft_plan
 from vv_dsp_tpu_torch.ops.framing import frames_strided, stft_num_frames
 from vv_dsp_tpu_torch.ops.window import get_window_np
 
@@ -104,7 +105,8 @@ def stft_spectrum(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
     nf = stft_num_frames(n, nfft, hop)
     bins = nfft // 2 + 1 if onesided else nfft
     out = torch.empty((c, nf, bins), dtype=torch.complex64, device=x.device)
-    tw, wk = _fft_tables(nfft, x.device)
+    tw = fft_plan.pass_twiddles(nfft // 2, x.device)
+    wk = _fft_tables(nfft, x.device)[1]
     err = _build.library().vv_stft_spectrum(
         _build.ptr(x), _build.ptr(window), _build.ptr(tw), _build.ptr(wk),
         _build.ptr(out), c, n, nf, nfft, hop, bins, x.device.index,

@@ -27,6 +27,7 @@ import torch
 
 from vv_dsp_tpu_torch import _build
 from vv_dsp_tpu_torch.ops import fft as _fft
+from vv_dsp_tpu_torch.ops import fft_plan
 from vv_dsp_tpu_torch.ops import istft_kernels as _ik
 from vv_dsp_tpu_torch.ops import stft_kernels as _sk
 from vv_dsp_tpu_torch.ops.framing import stft_num_frames
@@ -108,8 +109,8 @@ def stft_spectrum_stockham(x: torch.Tensor, nfft: int, hop: int,
     out = torch.empty((c, nf, bins), dtype=torch.complex64, device=x.device)
     err = _build.library().vv_stockham_spectrum(
         _build.ptr(x), _build.ptr(window),
-        _build.ptr(_twiddles(nfft, x.device)), _build.ptr(out), c, n, nf,
-        nfft, hop, bins, x.device.index, _build.stream_handle(x))
+        _build.ptr(fft_plan.pass_twiddles(nfft, x.device)), _build.ptr(out),
+        c, n, nf, nfft, hop, bins, x.device.index, _build.stream_handle(x))
     _build.check(err, "stft_spectrum_stockham")
     stft_spectrum_stockham.launches += 1
     return out

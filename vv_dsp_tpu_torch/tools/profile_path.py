@@ -7,12 +7,14 @@ STFT(1024, 256).process(x, rfft=False) on (16, 480000), SpectralGate() and
 the STFT 1024/256 roundtrip (process(x, rfft=True) -> reconstruct) on
 (16, 479232), and the full-nfft paths: STFT(128, 32).power,
 MFCCFrontend(128, 32, 26 mels, 13 MFCCs, 8 kHz) and SpectralGate(128, 32)
-on (16, 479232) and STFT(512, 8).process(x, rfft=False) on (16, 480000),
+on (16, 479232) and STFT(512, 8).process on (16, 480000), two- and
+one-sided,
 and the staged NorthStarChain(fused_head=False) and fir_apply_best at 16
 taps on (16, 479232), and the last three kernels' paths: stft_power_dft
 at 1024/256 on (16, 480000), the STFT 128/32 roundtrip on (16, 479232),
 and istft_stockham and stft_gate_packed at 1024/256 on the COLA-padded
-(16, 480768) input (the inverse of its one-sided spectrum), each
+(16, 480768) input (the inverse of its one-sided spectrum), and
+STFT(1024, 256).spectrogram on (16, 480000), each
 ``calls`` times back to back under torch.profiler. For each it
 prints, per call:
 
@@ -130,6 +132,8 @@ def main(argv=None) -> int:
     report("MFCCFrontend 128/32", lambda: front(xc), args.calls)
     report("SpectralGate 128/32", lambda: gate128(xc), args.calls)
     report("stft 512/8", lambda: dense.process(xs, rfft=False), args.calls)
+    report("stft 512/8 one-sided", lambda: dense.process(xs, rfft=True),
+           args.calls)
     staged = NorthStarChain(fused_head=False, device=dev)
     h16 = design_lowpass_np(16, 0.3)
     report("chain, staged head", lambda: staged(xc), args.calls)
@@ -152,6 +156,7 @@ def main(argv=None) -> int:
     periodic = ik.periodic_norm(w64, 256, xp.shape[1], dev)
     report("stft_gate_packed 1024/256", lambda: ik.stft_gate_packed(
         xp, 1024, 256, 0.1, win, periodic), args.calls)
+    report("spectrogram 1024/256", lambda: plan.spectrogram(xs), args.calls)
     return 0
 
 

@@ -4,7 +4,9 @@
 
 Phases, each fatal on failure:
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile the port's CUDA kernels from vv_dsp_tpu_torch/csrc;
+2. build: compile the port's CUDA kernels from vv_dsp_tpu_torch/csrc,
+   failing if ptxas spills in any instance of the two tensor-core kernels
+   (csrc/upfirdn.cu, csrc/dft_power.cu);
 3. kernels: each kernel of the path against its plain PyTorch version on
    the card, at the shapes the main path gives it (the MFCC kernel at the
    chain's and at MFCCFrontend's geometry), within its tolerance,
@@ -20,12 +22,19 @@ Phases, each fatal on failure:
    held at the ends of its range on 2 channels (256/64, 4096/1024), and
    each main-path row of the two prints kernel, torch.stft and bound ms,
    the bound's share and the registers ptxas gave the kernel (build.log).
+   The two tensor-core kernels print the same row (kernel and bound ms,
+   the bound's share, ptxas's figures): the banded upfirdn at each tier at
+   the chain head, each against its own tier's bound (f32 the lesser of
+   its float32 FMAs on the CUDA cores and its six bf16 products), and the
+   windowed-DFT power with its byte bound, the product form's floor (six
+   bf16 products at 989 TFLOP/s) and the rate its products ran at.
    The direct FIR at 16 taps and the per-phase
    resampler at 4/3 on (16, 479232), with the banded upfirdn kernel timed
    beside the resampler, then on 2 channels at taps 1, 7, 129, n < taps
    and ratios 2/1, 1/2, 3/4, 7/5. The windowed-DFT power at 1024/256 on
    (16, 480000), with the packed power kernel timed beside it, then on 2
-   channels at 2048/512, 1024/1024 and n < nfft; the full-nfft inverse at
+   channels at 2048/512, 1024/1024, n < nfft, 384/128, 640/128 and
+   1536/512; the full-nfft inverse at
    1024/256 on the COLA-padded input's (16, 1876, 513) one-sided spectrum
    (the packed inverse timed beside it), on a non-Hermitian (16, 1876,
    1024) spectrum with all bins inverted, and at 128/32 on (16, 14974,
@@ -170,6 +179,10 @@ def build_phase() -> list[str]:
     for line in log:
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    spills = tensor_core_spills(log)
+    if spills:
+        raise SystemExit(f"chip_smoke: tensor-core kernel instances spill: "
+                         f"{spills}")
     return log
 
 
@@ -211,11 +224,11 @@ def bound(nbytes: float, flops: float, flop_rate: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def ptxas_usage(log: list[str], kernel: str, n: int, onesided: bool) -> str:
-    """Registers, spill stores and static shared memory of one instance of
-    a spectrum kernel template <N, ONESIDED>, as build.log (nvcc -Xptxas
-    -v) gives them."""
-    tag, found, got = f"{kernel}ILi{n}ELb{int(onesided)}E", False, {}
+def ptxas_of(log: list[str], tag: str) -> dict:
+    """Registers, spill stores and static shared memory of the entry
+    function whose mangled name contains tag, as build.log (nvcc -Xptxas
+    -v) gives them; {} if there is none."""
+    found, got = False, {}
     for line in log:
         if "Compiling entry function" in line:
             if found:
@@ -228,11 +241,38 @@ def ptxas_usage(log: list[str], kernel: str, n: int, onesided: bool) -> str:
                 m = re.search(pat, line)
                 if m:
                     got[key] = int(m.group(1))
-    if not found:
+    return got if found else {}
+
+
+def usage_text(log: list[str], tag: str) -> str:
+    got = ptxas_of(log, tag)
+    if not got:
         return f"{tag}: not in build.log"
     return (f"{got.get('registers')} registers, "
             f"{got.get('spill stores')} bytes spill stores, "
             f"{got.get('static smem', 0)} bytes static shared memory")
+
+
+def ptxas_usage(log: list[str], kernel: str, n: int, onesided: bool) -> str:
+    """ptxas's figures of one instance of a spectrum kernel template
+    <N, ONESIDED>."""
+    return usage_text(log, f"{kernel}ILi{n}ELb{int(onesided)}E")
+
+
+def tensor_core_spills(log: list[str]) -> list[str]:
+    """Instances of the two tensor-core kernels (csrc/upfirdn.cu,
+    csrc/dft_power.cu) that spill, by mangled name."""
+    spills, name = [], None
+    for line in log:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and ("upfirdn_mma_kernel" in name
+                       or "dft_power_kernel" in name):
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and int(m.group(1)):
+                spills.append(name)
+    return spills
 
 
 def redesign_line(name, label, r, log, kernel, n, onesided, smem) -> None:
@@ -244,6 +284,31 @@ def redesign_line(name, label, r, log, kernel, n, onesided, smem) -> None:
           f"bound {r['bound_ms'] / r['ms']:.3f}; build.log: "
           f"{ptxas_usage(log, kernel, n, onesided)}; dynamic shared memory "
           f"{smem} bytes a block (the launcher's request)")
+
+
+def upfirdn_instance(up, down, taps_pp, offset, tier) -> tuple[str, int]:
+    """The csrc/upfirdn.cu instance <ALG, NT, MT> a launch runs, as its
+    mangled-name tag, and its dynamic shared memory (the launcher's rule:
+    MT = 2 where NT * parts <= 12 and the window fits)."""
+    from vv_dsp_tpu_torch import config
+    from vv_dsp_tpu_torch.ops import mma_plan as mp
+    p = mp.upfirdn_plan(up, down, taps_pp, offset, tier)
+    parts = mp.PARTS[tier]
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    mt = 2 if (p.n_tiles * parts <= 12 and mp.upfirdn_smem_bytes(
+        p, parts, 2) <= limit) else 1
+    tag = (f"upfirdn_mma_kernelILi{config.ALGORITHMS.index(tier)}"
+           f"ELi{p.n_tiles}ELi{mt}E")
+    return tag, mp.upfirdn_smem_bytes(p, parts, mt)
+
+
+def mma_line(name, label, ms, bound_ms, bound_by, log, tag, smem) -> None:
+    """A tensor-core kernel's row: kernel and bound ms, the bound's share
+    of the kernel time, and what ptxas gave the instance."""
+    print(f"  tensor cores {name} [{label}]: kernel {ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), share of the bound "
+          f"{bound_ms / ms:.3f}; build.log: {usage_text(log, tag)}; "
+          f"dynamic shared memory {smem} bytes a block")
 
 
 def fr_smem(n: int, packed: bool) -> int:
@@ -373,6 +438,19 @@ def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
         print(f"  dense-input tier gap, not a check: {name} kernel vs plain "
               f"{p_tier}: {rel_err(got, want)[1]:.3e} of scale")
 
+    # each tier's bound: its bf16 products (1, 3 or 6 a tap) at the tensor
+    # cores' rate; f32 also as float32 FMAs on the CUDA cores, the lesser
+    # of the two bounding it
+    c = xc.shape[0]
+    io = 4 * (xc.numel() + c * n_out + taps.numel())
+    macs = c * n_out * taps.shape[1]
+    tier_bounds = {
+        "f32": min((bound(io, 2 * macs, F32_FLOP_PER_S),
+                    bound(io, 6 * 2 * macs, BF16_FLOP_PER_S)),
+                   key=lambda b: b["bound_ms"]),
+        "bf16x3": bound(io, 3 * 2 * macs, BF16_FLOP_PER_S),
+        "bf16": bound(io, 2 * macs, BF16_FLOP_PER_S)}
+    tier_ms = {}
     for tier in ("f32", "bf16x3", "bf16"):
         fast = lambda: uf.upfirdn_banded(xc, taps, up, down, offset, n_out,
                                          tier)
@@ -381,17 +459,28 @@ def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
         got = fast()
         r = record("upfirdn_banded", tier, got, plain(), UPFIRDN_TOL, fast,
                    plain, failed)
+        tier_ms[tier] = r["ms"]
+        b = tier_bounds[tier]
+        mma_line("upfirdn_banded", f"chain head, {tier}", r["ms"],
+                 b["bound_ms"], b["bound_by"], log,
+                 *upfirdn_instance(up, down, taps.shape[1], offset, tier))
         if tier == "f32":
             tier_gap("upfirdn_banded f32", got,
                      uf.upfirdn_tall(xc, taps, up, down, offset, n_out,
                                      "bf16x3"), "bf16x3")
         if tier == chain.head_algorithm:
             results["upfirdn_banded"] = r
-    # bf16x3: three bf16 products per tap, at the tensor cores' bf16 rate
-    c = xc.shape[0]
-    results["upfirdn_banded"].update(bound(
-        4 * (xc.numel() + c * n_out + taps.numel()),
-        3 * 2 * c * n_out * taps.shape[1], BF16_FLOP_PER_S))
+    results["upfirdn_banded"].update(tier_bounds[chain.head_algorithm])
+    results["upfirdn_banded"].update(
+        {f"{t}_ms": v for t, v in tier_ms.items()})
+    results["upfirdn_banded"].update(
+        {f"{t}_bound_ms": b["bound_ms"] for t, b in tier_bounds.items()})
+    print("  upfirdn_banded at the chain head: "
+          + "; ".join(f"{t} {tier_ms[t]:.4f} ms against a "
+                      f"{tier_bounds[t]['bound_ms']:.4f} ms bound"
+                      for t in tier_ms)
+          + f" (the kernels line carries {chain.head_algorithm}, the "
+          f"chain's tier; most launches run f32)")
     results["upfirdn_banded"]["library_ms"] = None
     print("  upfirdn_banded library call: none (no single PyTorch call "
           "computes a polyphase upfirdn; conv1d would need the signal "
@@ -486,7 +575,7 @@ def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
     results.update(istft_phase(xc, win, failed))
     results.update(stockham_phase(xc, xs, front128, failed, log))
     results.update(filter_phase(xc, failed))
-    results["stft_power_dft"] = dft_power_phase(xs, win, failed)
+    results["stft_power_dft"] = dft_power_phase(xs, win, failed, log)
     results["istft_stockham"] = istft_stockham_phase(xc, win, failed)
     results["stft_gate_packed"] = gate_packed_phase(xc, win, failed)
     tier_probes((up, down, offset, n_out, taps), mfcc_args, failed)
@@ -835,10 +924,11 @@ def filter_phase(xc, failed: list) -> dict:
     return out
 
 
-def dft_power_phase(xs, win, failed: list) -> dict:
+def dft_power_phase(xs, win, failed: list, log: list[str]) -> dict:
     """stft_power_dft at 1024/256 on (16, 480000), with the packed power
-    kernel on the same input; then 2 channels at 2048/512, 1024/1024 and
-    n < nfft."""
+    kernel on the same input; then 2 channels at 2048/512, 1024/1024,
+    n < nfft, 384/128, 640/128 and 1536/512."""
+    from vv_dsp_tpu_torch.ops import mma_plan as mp
     from vv_dsp_tpu_torch.ops import stft_kernels as sk
 
     fast = lambda: sk.stft_power_dft(xs, NFFT, HOP)
@@ -853,17 +943,27 @@ def dft_power_phase(xs, win, failed: list) -> dict:
     # kernel's algorithm, read as its achieved rate
     r.update(bound(4 * (xs.numel() + got.numel()),
                    fft_flops(c * nf, NFFT), F32_FLOP_PER_S))
-    r["gemm_tflop_per_s"] = 2 * 2 * c * nf * NFFT * bins / r["ms"] / 1e9
+    # the product form's floor: six bf16 products of 2 * 2 * nfft
+    # operations a bin at the tensor cores' rate
+    gemm_flop = 2 * 2 * c * nf * NFFT * bins
+    r["product_floor_ms"] = 6 * gemm_flop / BF16_FLOP_PER_S * 1e3
+    r["tensor_tflop_per_s"] = 6 * gemm_flop / r["ms"] / 1e9
     r["library_ms"] = None
     print(f"  stft_power_dft: packed stft_power kernel on the same input "
           f"{r['packed_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}); the DFT product at "
-          f"{r['gemm_tflop_per_s']:.1f} TFLOP/s of float32; library call: "
-          f"none (torch.stft writes the complex spectrum; the power takes "
+          f"({r['bound_by']}); the product form's floor, six products of "
+          f"{gemm_flop / 1e9:.2f} GFLOP at 989 TFLOP/s, "
+          f"{r['product_floor_ms']:.4f} ms; its bf16 products ran at "
+          f"{r['tensor_tflop_per_s']:.1f} TFLOP/s; library call: none "
+          f"(torch.stft writes the complex spectrum; the power takes "
           f"another pass)")
+    mma_line("stft_power_dft", "1024/256", r["ms"], r["bound_ms"],
+             r["bound_by"], log, "dft_power_kernel",
+             mp.dft_smem_bytes(NFFT, HOP))
     x2 = xs[:2]
     for nfft, hop, xv in ((2048, 512, x2), (1024, 1024, x2),
-                          (2048, 512, x2[:, :1500].contiguous())):
+                          (2048, 512, x2[:, :1500].contiguous()),
+                          (384, 128, x2), (640, 128, x2), (1536, 512, x2)):
         fast = lambda: sk.stft_power_dft(xv, nfft, hop)
         plain = lambda: sk.stft_power_dft_plain(xv, nfft, hop)
         record("stft_power_dft", f"{nfft}/{hop}, 2 x {xv.shape[1]}", fast(),

@@ -14,7 +14,11 @@ half, at q = 1 to 128; the packed fused gate at threshold 0 and on the
 tone probe, with bit-identical reruns; the two register-resident spectrum
 kernels at every transform size, 128 to 2048 points, on part groups of
 frames, tails past the signal and a unit impulse, whose spectrum is known
-to 1e-6 absolute). Needs an NVIDIA GPU and nvcc;
+to 1e-6 absolute; the two tensor-core kernels at every tier and launch
+geometry, ragged and short signals, 1 and 65535 channels, the tier probe
+at 1024 taps, and the windowed-DFT power at q = 1 to 5 with fewer and
+more frames than the signal holds and an unaligned signal). Needs an
+NVIDIA GPU and nvcc;
 skips without them. Run on the card (this
 file imports neither jax nor the JAX package, so the suite's jax conftest
 is not needed):
@@ -970,3 +974,102 @@ def test_last_slice_entry_points_on_card_match_cpu(dev, gen):
     torch.cuda.synchronize()
     after = [f.launches for f in counted]
     assert [a - b for a, b in zip(after, counts)] == [2, 2, 1, 0, 0]
+
+
+# the two tensor-core kernels (csrc/mma_tiers.cuh): the banded upfirdn at
+# every tier and every geometry the port launches, and the windowed-DFT
+# power at q = nfft/hop = 1 to 5 (one to three sample tiles in flight) and
+# chunk counts nfft/32 that do and do not divide its five B buffers
+def _launch_geometry(name):
+    """(table (up, taps_pp), up, down, offset) of a launch of the port."""
+    if name == "chain":
+        h = NorthStarChain(device="cpu").fir_coeffs.astype(np.float64)
+        g, off = trs._fused_fir_resample_filter(tuple(h), 4, 3)
+        return tuf.polyphase_table_np(g, 4), 4, 3, off
+    if name == "fir1024":
+        return tuf.polyphase_table_np(_lowpass(1024), 1), 1, 1, 0
+    if name == "offset":
+        g = trs._resample_poly_filter(4, 3)
+        return tuf.polyphase_table_np(g, 4), 4, 3, 3 * len(g)
+    up, down = name
+    g = trs._resample_poly_filter(up, down)
+    return tuf.polyphase_table_np(g, up), up, down, (len(g) - 1) // 2
+
+
+@pytest.mark.parametrize("geom", ["chain", "fir1024", (2, 1), (1, 2), (4, 3),
+                                  (8, 7), (5, 7), (31, 1), "offset"])
+@pytest.mark.parametrize("algorithm", ALGORITHMS)
+def test_tensor_core_upfirdn_at_every_launch_geometry(dev, gen, geom,
+                                                      algorithm):
+    """A ragged n_out (past the last whole frame), n_out short of the
+    signal's, and a signal shorter than one frame of the plan."""
+    table, up, down, off = _launch_geometry(geom)
+    taps = torch.as_tensor(table, device=dev)
+    for n, n_out in ((20011, -(-20011 * up // down)), (20011, 777), (5, 9)):
+        x = torch.as_tensor(gen.standard_normal((3, n)), dtype=torch.float32,
+                            device=dev)
+        before = tuf.upfirdn_banded.launches
+        got = tuf.upfirdn_banded(x, taps, up, down, off, n_out, algorithm)
+        torch.cuda.synchronize()
+        assert tuf.upfirdn_banded.launches == before + 1
+        want = tuf.upfirdn_tall(x, taps, up, down, off, n_out, algorithm)
+        assert got.shape == (3, n_out)
+        if want.abs().max() == 0:     # every output reads past the signal
+            assert not got.any()
+        else:
+            assert _rel(got, want) < 1e-5, (n, n_out)
+
+
+@pytest.mark.parametrize("channels", [1, 65535])
+def test_tensor_core_upfirdn_channel_extremes(dev, gen, channels):
+    table, up, down, off = _launch_geometry((4, 3))
+    taps = torch.as_tensor(table, device=dev)
+    x = torch.as_tensor(gen.standard_normal((channels, 96)),
+                        dtype=torch.float32, device=dev)
+    got = tuf.upfirdn_banded(x, taps, up, down, off, 128, "f32")
+    want = tuf.upfirdn_tall(x, taps, up, down, off, 128, "f32")
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("algorithm", ALGORITHMS)
+def test_tensor_core_upfirdn_tier_probe_at_1024_taps(dev, gen, algorithm):
+    """The tier probe at the FIR's 1/1 geometry: one impulse per 1500
+    samples, more than 1024 taps, so every output is one product."""
+    taps = torch.as_tensor(tuf.polyphase_table_np(_lowpass(1024), 1),
+                           device=dev)
+    x = _impulses((2, 24000), 1500, 700, gen, dev)
+    got = tuf.upfirdn_banded(x, taps, 1, 1, 0, 24000, algorithm)
+    for other in ALGORITHMS:
+        err = _rel(got, tuf.upfirdn_tall(x, taps, 1, 1, 0, 24000, other))
+        assert (err < UPFIRDN_PROBE_TOL) == (other == algorithm), other
+
+
+@pytest.mark.parametrize("nfft,hop", [(1024, 256), (2048, 512), (384, 128),
+                                      (640, 128), (1536, 512),
+                                      (1024, 1024)])
+@pytest.mark.parametrize("channels,n", [(1, 700), (3, 30011)])
+def test_tensor_core_dft_power(dev, gen, nfft, hop, channels, n):
+    """The signal's frame count, fewer frames, and more than it holds."""
+    x = torch.as_tensor(gen.standard_normal((channels, n)),
+                        dtype=torch.float32, device=dev)
+    full = stft_num_frames(n, nfft, hop)
+    for nf in (None, max(1, full // 3), full + 130):
+        before = tsk.stft_power_dft.launches
+        got = tsk.stft_power_dft(x, nfft, hop, "hann", None, nf)
+        torch.cuda.synchronize()
+        assert tsk.stft_power_dft.launches == before + 1
+        want = tsk.stft_power_dft_plain(x, nfft, hop, "hann", None, nf)
+        assert got.shape == want.shape
+        assert _rel(got, want) < 1e-5, nf
+
+
+def test_tensor_core_dft_power_on_an_unaligned_signal(dev, gen):
+    """A signal that starts off a 16-byte boundary takes the 4-byte
+    copies."""
+    x = torch.as_tensor(gen.standard_normal((2, 9001)), dtype=torch.float32,
+                        device=dev)
+    xv = x.reshape(-1)[1:18001].reshape(2, 9000)
+    assert xv.data_ptr() % 16 and xv.is_contiguous()
+    got = tsk.stft_power_dft(xv, 1024, 256)
+    want = tsk.stft_power_dft_plain(xv, 1024, 256)
+    assert _rel(got, want) < 1e-5

@@ -7,9 +7,10 @@
   the host in numpy float64 and cast once.
 - Contractions that trade accuracy for speed name a dot-algorithm tier,
   ``"f32" | "bf16x3" | "bf16"``, with the meanings of
-  ``vv_dsp_tpu/ops/pallas_kernels.py::dot_alg``. The CUDA kernels implement
-  the tiers product by product (``csrc/common.cuh``); their plain versions
-  use ``tier_matmul``.
+  ``vv_dsp_tpu/ops/pallas_kernels.py::dot_alg``. The CUDA-core kernels
+  implement the tiers product by product (``csrc/common.cuh``), the
+  tensor-core kernels as sums of bf16 products of the operands' parts
+  (``csrc/mma_tiers.cuh``); their plain versions use ``tier_matmul``.
 
 TF32 is pinned off when this module is imported: PyTorch runs float32
 convolutions through cuDNN in TF32 by default, which keeps about three

@@ -1,13 +1,16 @@
 // Shared device helpers of the port's Hopper kernels.
 //
 // The dot-algorithm tiers keep the meaning they have in the JAX package
-// (vv_dsp_tpu/ops/pallas_kernels.py::dot_alg), evaluated one product at a
-// time on the CUDA cores:
+// (vv_dsp_tpu/ops/pallas_kernels.py::dot_alg). tier_fma evaluates them one
+// product at a time on the CUDA cores:
 //   ALG_F32    - plain float32 fused multiply-add;
 //   ALG_BF16X3 - both operands split into bf16 hi/lo parts (round to nearest
 //                even), hi*hi + hi*lo + lo*hi accumulated in float32, lo*lo
 //                dropped;
 //   ALG_BF16   - one bf16*bf16 product accumulated in float32.
+// The two tensor-core kernels (upfirdn.cu, dft_power.cu) evaluate them as
+// sums of bf16 products of the operands' parts (mma_tiers.cuh), where
+// ALG_F32 is the TPU's own six-pass form: six products of three parts.
 // A product of two bf16 values is exact in float32, so each tier rounds only
 // where the TPU's matrix unit rounds: at the operand split and in the sum.
 #pragma once

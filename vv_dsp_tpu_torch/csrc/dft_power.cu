@@ -1,122 +1,323 @@
 // Power spectrogram as a windowed-DFT product: |rfft(w * frame)|^2 of every
-// frame, the frames never formed.
+// frame, the frames never formed, on the tensor cores.
 //
 // dft_power_kernel replaces _stft_power_kernel of
 // vv_dsp_tpu/ops/pallas_kernels.py (launcher stft_power_pallas).
 //
 // Frame f of channel c is x[f*hop, f*hop + nfft), zero past n. With the
-// window folded into the r2c basis (B[j, k] = w[j] exp(-2 pi i j k / nfft),
-// built in float64 on the host and cast once), the spectrum is one product
-//   X[f, k] = sum_j A[f, j] B[j, k],  A[f, j] = x[f*hop + j],
-// and A is a view of the signal with row stride hop: the TPU kernel's q =
-// nfft/hop shifted (frames x hop) @ (hop x bins) products of the hop-blocked
-// signal, which it stages through VMEM, are the q hop-long stretches of the
-// depth here. The kernel is a float32 GEMM on the CUDA cores, written by
-// hand: a block computes a 64-frame x 64-bin tile of the re and im parts,
-// stepping through the depth 32 samples at a time; each step stages the
-// signal rows (A, transposed, its rows padded so the transposing stores hit
-// 32 distinct banks) and the basis rows (re and im) in shared memory, and
-// each thread keeps a 4 x 4 register tile of re and im sums, reading 4
-// frames and 4 + 4 basis values as float4s for 32 fused multiply-adds.
-// re^2 + im^2 is written once, at the end. Products are float32, which the
-// JAX kernel computes at its default precision (HIGHEST).
+// window folded into the r2c basis (built in float64 on the host and cast
+// once), the spectrum is one product
+//   X[f, :] = sum_j A[f, j] B[j, :],  A[f, j] = x[f*hop + j],
+// A a view of the signal with row stride hop: the TPU kernel's q =
+// nfft/hop shifted (frames x hop) @ (hop x bins) products of the
+// hop-blocked signal are the q hop-long stretches of the depth here. B
+// interleaves the basis's columns, B[j, 2k] = Re, B[j, 2k + 1] = Im, so a
+// thread's accumulator holds both parts of a bin in adjacent registers and
+// writes re^2 + im^2 from them. The product runs at the f32 tier of
+// mma_tiers.cuh: six bf16 products of three-part operands, the JAX
+// kernel's default HIGHEST.
 //
 // Bound. The function reads the signal and writes the power, 92 MB at
-// 1024/256 on 16 x 1873 frames (0.028 ms at 3.35 TB/s), and an FFT needs
-// far fewer operations than that moves, so device memory bounds it, as it
-// does the packed power kernel of stft.cu. This algorithm does 2 x 2 x nfft
-// operations a bin, O(nfft) where an FFT does O(log nfft): 62.97 GFLOP,
-// 0.94 ms at the card's 67 TFLOP/s float32 peak, a floor of the form, not
-// of the function. The form exists because it is one GEMM (the TPU's matrix
-// unit runs it at its full rate). The basis holds the bins padded to the
-// 64-bin tile with zero columns; their power is never written.
-#include "common.cuh"
+// 1024/256 on 16 x 1873 frames (0.028 ms at 3.35 TB/s): device memory
+// bounds it, as it does the packed power kernel of stft.cu. This form does
+// 2 x 2 x nfft operations a bin, O(nfft) where an FFT does O(log nfft):
+// 62.97 GFLOP a product, six products 378 GFLOP, 0.382 ms at the tensor
+// cores' 989 TFLOP/s, a floor of the form, not of the function. The form
+// exists because it is one GEMM (the TPU's matrix unit runs it at its full
+// rate); on the CUDA cores it ran at their float32 ceiling, so the product
+// moves to the tensor cores.
+//
+// Design: a block computes 128 frames x 96 interleaved columns (48 bins)
+// as two warpgroups of 64 x 96, each issuing wgmma.mma_async m64n96k16
+// with A from registers and B from shared memory (mma_tiers.cuh). It steps
+// through the depth 32 samples (a chunk) at a time, in the order that lets
+// one tile of signal serve q = nfft/hop chunks (see dft_power_kernel): the
+// tile (128 + q - 1 rows of 32 samples, one 16-byte cp.async a thread and
+// row where aligned) is copied in once, split once into its bf16 parts
+// (rows padded to 40 elements, so ldmatrix's 8 rows hit 8 distinct bank
+// groups), and read q times, so the signal crosses from L2 once per column
+// block and not q times. B's parts (built on the host in core-matrix
+// layout, 18 KB a chunk) arrive by three bulk copies (cp.async.bulk, one
+// thread, an mbarrier a buffer) three chunks ahead (cp.async of 16 bytes
+// a thread ran slower on an H100). A chunk's products are issued from one
+// of two sets of fragment registers while the previous chunk's still run.
+// The hi*hi sum restarts every 4 chunks and is added into a float32
+// total: the tensor cores round a running sum toward zero at each
+// product, a bias that grew with nfft (9e-6 of max power at 4096 points
+// over one running sum). The basis's columns past bin nfft/2 are zero and
+// their power is never written.
+#include "mma_tiers.cuh"
 
-constexpr int DP_THREADS = 256;
-constexpr int DP_BM = 64;            // frames a block
-constexpr int DP_BN = 64;            // bins a block
-constexpr int DP_BK = 32;            // depth a step (frame samples)
-constexpr int DP_TM = 4, DP_TN = 4;  // a thread's frames x bins
-constexpr int DP_APAD = DP_BM + 4;   // A row: 16-byte aligned, banks spread
+constexpr int DP_THREADS = 256;           // two warpgroups
+constexpr int DP_BM = 128;                // frames a block, 64 a warpgroup
+constexpr int DP_BN = 96;                 // interleaved columns a block
+constexpr int DP_KC = 32;                 // depth a chunk
+constexpr int DP_AHEAD = 3;               // chunks in flight ahead
+constexpr int DP_BBUFS = DP_AHEAD + 2;    // B chunks: + the one read, the
+                                          // one whose products may run
+constexpr int DP_FLUSH = 4;               // chunks a hi*hi partial sum
+constexpr int DP_ASTRIDE = DP_KC + 8;     // A row in shared memory
+constexpr int DP_B_ELEMS = DP_KC * DP_BN;        // one part of a B chunk
+constexpr int DP_ACC = DP_BN / 2;                // accumulator registers
 
-// x: (channels, n); bre, bim: (nfft, cols) windowed basis, zero past bin
-// nfft/2; out: (channels, nf, bins)
-__global__ void __launch_bounds__(DP_THREADS)
-dft_power_kernel(const float* __restrict__ x, const float* __restrict__ bre,
-                 const float* __restrict__ bim, float* __restrict__ out,
-                 long long n, int nf, int nfft, int hop, int bins, int cols) {
-  __shared__ __align__(16) float as[DP_BK][DP_APAD];
-  __shared__ __align__(16) float bs_re[DP_BK][DP_BN];
-  __shared__ __align__(16) float bs_im[DP_BK][DP_BN];
-  const int f_base = blockIdx.x * DP_BM, k_base = blockIdx.y * DP_BN;
-  const int c = blockIdx.z;
-  const float* xc = x + (long long)c * n;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float re[DP_TM][DP_TN] = {}, im[DP_TM][DP_TN] = {};
+// The shared memory of a launch with q = nfft / hop: two tiles of A's
+// parts and raw_bufs tiles of its samples, DP_BM + q - 1 rows each, and
+// DP_BBUFS B chunks.
+struct DpLayout {
+  int rows, raw_bufs, parts_elems, raw_floats;
+  size_t bytes;
+  __host__ __device__ explicit DpLayout(int q)
+      : rows(DP_BM + q - 1),
+        raw_bufs((DP_AHEAD + q - 1) / q),
+        parts_elems(rows * DP_ASTRIDE),
+        raw_floats(rows * DP_KC),
+        bytes((size_t)2 * (2 * 3 * parts_elems + DP_BBUFS * 3 * DP_B_ELEMS) +
+              (size_t)4 * raw_bufs * raw_floats) {}
+};
 
-  for (int j0 = 0; j0 < nfft; j0 += DP_BK) {
-    // A: a warp loads 8 depths x 4 frames at a time, 32-byte runs of x
-    for (int g = warp; g < (DP_BK / 8) * (DP_BM / 4); g += DP_THREADS / 32) {
-      const int kk = (g & 3) * 8 + (lane & 7);
-      const int f = (g >> 2) * 4 + (lane >> 3);
-      const long long i = (long long)(f_base + f) * hop + j0 + kk;
-      as[kk][f] = (f_base + f < nf && i < n) ? xc[i] : 0.f;
-    }
-    // B: 16 float4s of 64 bins a row, re and im
-    for (int t = threadIdx.x; t < DP_BK * DP_BN / 4; t += DP_THREADS) {
-      const int row = t >> 4, col = (t & 15) * 4;
-      const long long off = (long long)(j0 + row) * cols + k_base + col;
-      *reinterpret_cast<float4*>(&bs_re[row][col]) =
-          *reinterpret_cast<const float4*>(bre + off);
-      *reinterpret_cast<float4*>(&bs_im[row][col]) =
-          *reinterpret_cast<const float4*>(bim + off);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < DP_BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 br = *reinterpret_cast<const float4*>(&bs_re[kk][tx * 4]);
-      const float4 bi = *reinterpret_cast<const float4*>(&bs_im[kk][tx * 4]);
-      const float av[DP_TM] = {a.x, a.y, a.z, a.w};
-      const float rv[DP_TN] = {br.x, br.y, br.z, br.w};
-      const float iv[DP_TN] = {bi.x, bi.y, bi.z, bi.w};
-#pragma unroll
-      for (int u = 0; u < DP_TM; ++u)
-#pragma unroll
-        for (int v = 0; v < DP_TN; ++v) {
-          re[u][v] = fmaf(av[u], rv[v], re[u][v]);
-          im[u][v] = fmaf(av[u], iv[v], im[u][v]);
-        }
-    }
-    __syncthreads();
+// 16 bytes, of which the first `bytes` are copied and the rest zeroed
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+// 4 bytes, or zeros where ok is false
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+// x: (channels, n); bparts: (3, cols/DP_BN, nfft/DP_KC, DP_BN/8, DP_KC/8,
+// 8, 8) bf16 (ops/mma_plan.py dft_parts_np); out: (channels, nf, bins).
+// The depth runs in the order of chunk i = o q + r: samples o DP_KC ..
+// o DP_KC + 31 of hop block r of every frame, so frame f's samples of
+// chunk i are the samples of frame f + r at chunk o q: one tile of rows
+// (f_base + R) hop + o DP_KC serves the q chunks of super-chunk o, frame f
+// reading row f - f_base + r.
+__global__ void __launch_bounds__(DP_THREADS, 1)
+dft_power_kernel(const float* __restrict__ x,
+                 const __nv_bfloat16* __restrict__ bparts,
+                 float* __restrict__ out, long long n, int nf, int nfft,
+                 int hop, int bins, int cols) {
+  extern __shared__ __align__(128) __nv_bfloat16 dp_smem[];
+  const int q = nfft / hop, per_hop = hop / DP_KC;
+  const DpLayout lay(q);
+  // [2][3] A parts | [DP_BBUFS][3] B chunks | [raw_bufs] sample tiles
+  __nv_bfloat16* a_parts = dp_smem;
+  __nv_bfloat16* b_bufs = dp_smem + 2 * 3 * lay.parts_elems;
+  float* raw = reinterpret_cast<float*>(b_bufs + DP_BBUFS * 3 * DP_B_ELEMS);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int f_base = blockIdx.x * DP_BM, nt = blockIdx.y, c = blockIdx.z;
+  const int chunks = nfft / DP_KC;
+  // b_bar[k]: B buffer k's bulk copies have landed (one phase a use)
+  __shared__ __align__(8) uint64_t b_bar[DP_BBUFS];
+  if (tid == 0) {
+    for (int k = 0; k < DP_BBUFS; ++k)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+          smem_addr(&b_bar[k])));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+  const float* xc = x + (long long)c * n;
+  // a thread's 4 samples of a row are one 16-byte copy where aligned
+  const bool wide = ((uintptr_t)xc & 15) == 0 && (hop & 3) == 0;
+  const long long part_stride = (long long)(cols / DP_BN) * chunks *
+                                DP_B_ELEMS;
+  const __nv_bfloat16* bsrc = bparts + (long long)nt * chunks * DP_B_ELEMS;
+
+  // a thread's samples of a tile: rows tid/8 + 32 i, columns 4 (tid % 8)
+  // .. + 3; it copies them in (cp.async) and later splits them itself
+  const int a_row = tid >> 3, a_col = (tid & 7) * 4;
+  // the group of chunk i: its B parts and, at a super-chunk's first
+  // chunk, that super-chunk's samples
+  auto issue = [&](int i) {
+    if (i < chunks) {
+      const int o = i / q, r = i - o * q;
+      if (r == 0) {
+        float* t = raw + (o % lay.raw_bufs) * lay.raw_floats;
+        for (int row = a_row; row < lay.rows; row += DP_THREADS / 8) {
+          const long long s0 = (long long)(f_base + row) * hop +
+                               o * DP_KC + a_col;
+          float* dst = t + row * DP_KC + a_col;
+          if (wide) {
+            const long long left = n - s0;
+            const int bytes = left >= 4 ? 16 : left > 0 ? 4 * (int)left : 0;
+            cp_async16(dst, bytes ? xc + s0 : xc, bytes);
+          } else {
 #pragma unroll
-  for (int u = 0; u < DP_TM; ++u) {
-    const int f = f_base + ty * 4 + u;
+            for (int e = 0; e < 4; ++e)
+              cp_async4(dst + e, s0 + e < n ? xc + s0 + e : xc, s0 + e < n);
+          }
+        }
+      }
+      __nv_bfloat16* b = b_bufs + (i % DP_BBUFS) * 3 * DP_B_ELEMS;
+      const long long kc = (long long)r * per_hop + o;   // depth chunk
+      if (tid == 0) {
+        const uint32_t bar = smem_addr(&b_bar[i % DP_BBUFS]);
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                bar),
+            "r"(3 * DP_B_ELEMS * 2));
+        for (int p = 0; p < 3; ++p)
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+              "bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                  smem_addr(b + p * DP_B_ELEMS)),
+              "l"(bsrc + p * part_stride + kc * DP_B_ELEMS),
+              "r"(DP_B_ELEMS * 2), "r"(bar)
+              : "memory");
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // super-chunk o's samples, this thread's, into their bf16 parts
+  auto split = [&](int o) {
+    const float* t = raw + (o % lay.raw_bufs) * lay.raw_floats;
+    __nv_bfloat16* a = a_parts + (o & 1) * 3 * lay.parts_elems;
+    for (int row = a_row; row < lay.rows; row += DP_THREADS / 8) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          t + row * DP_KC + a_col);
+      uint32_t lo[3], hi[3];
+      split_parts<3>(v.x, v.y, lo);
+      split_parts<3>(v.z, v.w, hi);
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        *reinterpret_cast<uint2*>(a + p * lay.parts_elems +
+                                  row * DP_ASTRIDE + a_col) =
+            make_uint2(lo[p], hi[p]);
+    }
+  };
+
+  // hh: the hi*hi sum of DP_FLUSH chunks; total: those sums, added in
+  // float32 (rounded to nearest); corr: the other products
+  float hh[DP_ACC], corr[DP_ACC], total[DP_ACC];
+#pragma unroll
+  for (int i = 0; i < DP_ACC; ++i) hh[i] = corr[i] = total[i] = 0.f;
+  // warp w's 16 rows: frames 16 w + (lane & 15) of the block
+  const int a_off = a_lane_offset(lane, DP_ASTRIDE) + warp * 16 * DP_ASTRIDE;
+  // two sets of A fragments: chunk i's products read set i & 1
+  uint32_t af[2][DP_KC / 16][3][4];
+  auto run = [&](int set, int i) {
+    const int o = i / q, r = i - o * q;
+    const __nv_bfloat16* a = a_parts + (o & 1) * 3 * lay.parts_elems +
+                             r * DP_ASTRIDE;
+    const __nv_bfloat16* b = b_bufs + (i % DP_BBUFS) * 3 * DP_B_ELEMS;
+#pragma unroll
+    for (int ks = 0; ks < DP_KC / 16; ++ks)
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        ldmatrix_x4(af[set][ks][p],
+                    smem_addr(a + p * lay.parts_elems + a_off) + ks * 32);
+    if (i % DP_FLUSH == 0 && i > 0) {
+      wgmma_wait<0>();
+      fence_regs(hh);
+#pragma unroll
+      for (int k = 0; k < DP_ACC; ++k) total[k] += hh[k];
+    }
+    fence_regs(corr);
+    fence_regs(hh);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DP_KC / 16; ++ks) {
+      uint64_t bd[3];
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        bd[p] = wgmma_desc(smem_addr(b + p * DP_B_ELEMS) + ks * 256, 128,
+                           (DP_KC / 8) * 128);
+      tier_wgmma<ALG_F32>(hh, corr, af[set][ks], bd,
+                          ks > 0 || i % DP_FLUSH != 0);
+    }
+    wgmma_commit();
+  };
+
+  // group g holds chunk g's B and, where g = o q, super-chunk o's samples;
+  // super-chunk o is split once group o q has arrived, before chunk o q
+  for (int i = 0; i < DP_AHEAD; ++i) issue(i);
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(DP_AHEAD - 1));
+  split(0);
+  for (int i0 = 0; i0 < chunks; i0 += 2) {
+#pragma unroll
+    for (int set = 0; set < 2; ++set) {
+      const int i = i0 + set;
+      if (i >= chunks) break;
+      // groups up to i + 1 have arrived: chunk i's B, and the samples of
+      // super-chunk (i + 1) / q where i + 1 starts one
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(DP_AHEAD - 2));
+      {
+        const uint32_t bar = smem_addr(&b_bar[i % DP_BBUFS]);
+        const uint32_t phase = (i / DP_BBUFS) & 1;
+        uint32_t done = 0;
+        while (!done)
+          asm volatile(
+              "{\n.reg .pred p;\n"
+              "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+              "selp.u32 %0, 1, 0, p;\n}\n"
+              : "=r"(done)
+              : "r"(bar), "r"(phase)
+              : "memory");
+      }
+      __syncthreads();
+      // buffers of chunk i - 1, whose products completed (wait_group 1)
+      // before every thread reached the barrier, take chunk i + DP_AHEAD;
+      // a sample tile is reused ceil(DP_AHEAD / q) super-chunks later,
+      // after its split
+      issue(i + DP_AHEAD);
+      run(set, i);
+      // the next super-chunk's parts go to the other tile, last read by
+      // the chunks before this barrier
+      if ((i + 1) % q == 0 && i + 1 < chunks) split((i + 1) / q);
+      wgmma_wait<1>();
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(corr);
+  fence_regs(hh);
+#pragma unroll
+  for (int i = 0; i < DP_ACC; ++i) total[i] += hh[i];
+
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = f_base + warp * 16 + g + 8 * h;
     if (f >= nf) continue;
     float* o = out + ((long long)c * nf + f) * bins;
 #pragma unroll
-    for (int v = 0; v < DP_TN; ++v) {
-      const int k = k_base + tx * 4 + v;
-      if (k < bins) o[k] = re[u][v] * re[u][v] + im[u][v] * im[u][v];
+    for (int j = 0; j < DP_BN / 8; ++j) {
+      const int k = (nt * DP_BN + j * 8) / 2 + t;
+      const float re = total[4 * j + 2 * h] + corr[4 * j + 2 * h];
+      const float im = total[4 * j + 2 * h + 1] + corr[4 * j + 2 * h + 1];
+      if (k < bins) o[k] = re * re + im * im;
     }
   }
 }
 
-extern "C" int vv_dft_power(const float* x, const float* bre,
-                            const float* bim, float* out, int channels,
-                            long long n, int nf, int nfft, int hop, int bins,
-                            int cols, int device, void* stream) {
-  if (nfft < DP_BK || nfft % DP_BK || hop < 1 || nf < 1 || n < 1 ||
+extern "C" int vv_dft_power(const float* x, const void* bparts, float* out,
+                            int channels, long long n, int nf, int nfft,
+                            int hop, int bins, int cols, int device,
+                            void* stream) {
+  if (hop < DP_KC || hop % DP_KC || nfft % hop || nf < 1 || n < 1 ||
       channels < 1 || channels > 65535 || cols % DP_BN || bins < 1 ||
-      bins > cols)
+      2 * bins > cols)
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
+  const DpLayout lay(nfft / hop);
+  // a tile of q + 127 rows beyond what one block may hold is refused here
+  cudaError_t err = cudaFuncSetAttribute(
+      dft_power_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)lay.bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
   const dim3 grid((unsigned)((nf + DP_BM - 1) / DP_BM),
                   (unsigned)(cols / DP_BN), (unsigned)channels);
-  dft_power_kernel<<<grid, DP_THREADS, 0, (cudaStream_t)stream>>>(
-      x, bre, bim, out, n, nf, nfft, hop, bins, cols);
+  dft_power_kernel<<<grid, DP_THREADS, lay.bytes, (cudaStream_t)stream>>>(
+      x, static_cast<const __nv_bfloat16*>(bparts), out, n, nf, nfft, hop,
+      bins, cols);
   return (int)cudaGetLastError();
 }

@@ -1,171 +1,312 @@
 // Banded upfirdn: the fused FIR + polyphase-resample head of the north-star
-// chain.
+// chain, on the tensor cores.
 //
 // Replaces vv_dsp_tpu/ops/pallas_upfirdn.py::_kern (launcher
 // upfirdn_banded_pallas). Computes, for each channel c and output k,
 //   y[c, k] = sum_j x[c, j] * g[offset + k*down - j*up],   x = 0 outside [0, n)
 // in its polyphase form: with t = offset + k*down, a = t / up, p = t % up,
 //   y[c, k] = sum_i x[c, a - i] * taps[p, i],   taps[p, i] = g[p + i*up],
-// written in natural (c, n_out) order.
+// written in natural (c, n_out) order, at the dot-algorithm tier the
+// caller names (mma_tiers.cuh).
 //
 // Bound: at the chain's shape (16 x 638,976 outputs, 1,044 taps per phase)
-// the call is ~10.7 G multiply-adds, ~21 GFLOP in f32 and three times the
-// multiply-adds at bf16x3: compute, on the CUDA cores. Its memory traffic
-// (41 MB out, 31 MB in) is small beside that.
+// the call is ~10.7 G multiply-adds: 3 bf16 products each at bf16x3
+// (0.065 ms at the tensor cores' 989 TFLOP/s), 6 at f32 (0.130 ms), 1 at
+// bf16; operations bound it, its 72 MB of traffic far less. The TPU kernel
+// runs the band as a matrix product on its matrix unit; the CUDA cores
+// reached 13 TFLOP/s here, so the product moves to the tensor cores.
 //
-// Design: a block owns UF_BLOCK consecutive outputs of one channel and
-// stages in shared memory the input window they read (UF_BLOCK*down/up +
-// taps_pp samples, zero outside the signal) and the (up, taps_pp) tap
-// table, both already split into the tier's bf16 parts, so the inner loop
-// is shared-memory loads and FMAs only. Each thread carries UF_PER_THREAD
-// independent sums; when UF_THREADS*down is a multiple of up they share one
-// phase and so one tap load per step. The TPU kernel's lane-axis segment
-// layout, its pltpu.roll halos and its dense band matrix with zero fill do
-// not come across: the band is walked directly.
-#include "common.cuh"
+// Design: the function is one GEMM (ops/mma_plan.py): outputs in frames of
+// n_real = group * up, frame f reading input from c_lo + f * stride
+// (stride = group * down), times one band matrix B (k_pad x n_pad) whose
+// columns hold the phases' taps at their lags, the same for every frame.
+// A is then a Hankel view of the signal: a block stages its frames' input
+// window once, split into the tier's bf16 parts, and each lane's ldmatrix
+// row is a pointer into it, so no frame is copied. The host plan picks the
+// group so that stride is an odd multiple of 8 (16-byte aligned rows on
+// distinct bank groups) at the least zero fill. B's parts (built in
+// float64 on the host, cast once, in core-matrix layout) stay resident in
+// shared memory, loaded once by a persistent block that walks its row
+// tiles, holding the first 32 samples a thread of the next tile's window
+// in registers while it multiplies the current one; a frame wider than 64
+// outputs is cut into column blocks. A block is 4 warps, each
+// MT x NT tiles of 16 x 8 (MT = 2 where window and registers allow, else
+// 1), multiplied by mma.sync.m16n8k16. The warpgroup form (wgmma, as the
+// windowed-DFT power uses) ran no faster here on an H100: B's resident
+// parts hold the tile to 32 columns at the chain head, too narrow for a
+// 64 x N wgmma to beat four warps of mma.sync (even at f32, slower at
+// bf16x3). Outputs past n_out and columns past n_real are not stored; the
+// window is zero outside the signal. A B and window beyond one block's
+// shared memory are refused.
+#include "mma_tiers.cuh"
 
-constexpr int UF_THREADS = 128;
-constexpr int UF_PER_THREAD = 4;
-constexpr int UF_BLOCK = UF_THREADS * UF_PER_THREAD;
+constexpr int UF_WARPS = 4;
+constexpr int UF_THREADS = 32 * UF_WARPS;
+constexpr int UF_PF = 16;   // sample pairs a thread prefetches (4,096 a
+                            // block: the chain head's window is 4,120)
 
-// store v at tier ALG: hi part at hi[i]; bf16x3 also keeps the lo part
-template <int ALG>
-__device__ __forceinline__ void store_split(float v, float* hi, float* lo,
-                                            int i) {
-  if (ALG == ALG_F32) {
-    hi[i] = v;
-  } else if (ALG == ALG_BF16) {
-    hi[i] = bf16_round(v);
-  } else {
-    const float h = bf16_round(v);
-    hi[i] = h;
-    lo[i] = bf16_round(v - h);
+static int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// window samples of a block: the last frame's start plus k_pad
+static int uf_window(int bm, int stride, int k_pad) {
+  return round_up((bm - 1) * stride + k_pad, 8);
+}
+
+// Samples j >= first of the window of x from sample s0, win samples (zero
+// outside [0, n_in)), split into their P bf16 parts at ws[p * win + j]: a
+// function of its own (inlined, its 64-bit indices made ptxas spill in
+// the product loop)
+template <int P>
+__device__ __noinline__ void stage_window(const float* __restrict__ xc,
+                                          long long n_in, long long s0,
+                                          __nv_bfloat16* ws, int win,
+                                          int first) {
+  for (int j = first + 2 * threadIdx.x; j < win; j += 2 * UF_THREADS) {
+    const long long s = s0 + j;
+    const float v0 = (s >= 0 && s < n_in) ? xc[s] : 0.f;
+    const float v1 = (s + 1 >= 0 && s + 1 < n_in) ? xc[s + 1] : 0.f;
+    uint32_t parts[P];
+    split_parts<P>(v0, v1, parts);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      *reinterpret_cast<uint32_t*>(ws + p * win + j) = parts[p];
   }
 }
 
-template <int ALG, bool SAME_PHASE>
-__global__ void __launch_bounds__(UF_THREADS)
-upfirdn_kernel(const float* __restrict__ x, const float* __restrict__ taps,
-               float* __restrict__ y, long long n_in, long long n_out, int up,
-               int down, long long offset, int taps_pp, int win) {
-  constexpr int PARTS = ALG == ALG_BF16X3 ? 2 : 1;
-  extern __shared__ float smem[];
-  float* xs_hi = smem;
-  float* xs_lo = smem + win;  // used by bf16x3 only
-  float* hs_hi = smem + PARTS * win;
-  float* hs_lo = hs_hi + up * taps_pp;
+// (UF_THREADS, 1): left to its default, ptxas held the wide instances to
+// 128 registers and spilled
+template <int ALG, int NT, int MT>
+__global__ void __launch_bounds__(UF_THREADS, 1)
+upfirdn_mma_kernel(const float* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ bparts,
+                   float* __restrict__ y, int channels, long long n_in,
+                   long long n_out, int n_real, int n_pad, int stride,
+                   int k_pad, long long c_lo, int win, int row_tiles) {
+  constexpr int P = Tier<ALG>::PARTS;
+  constexpr int BM = 16 * MT * UF_WARPS;
+  extern __shared__ __align__(16) __nv_bfloat16 uf_smem[];
+  const int kg = k_pad / 8;
+  const int b_elems = NT * kg * 64;           // one part of the column slice
+  __nv_bfloat16* bs = uf_smem;                // [P][NT][kg][8][8]
+  __nv_bfloat16* ws = uf_smem + P * b_elems;  // [P][win]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cb = blockIdx.y;
 
-  const int c = blockIdx.y;
-  const long long k0 = (long long)blockIdx.x * UF_BLOCK;
-  // window slot 0 holds x[j0]: the oldest sample any output of the block
-  // reads
-  const long long j0 = (offset + k0 * down) / up - (taps_pp - 1);
-  const float* xc = x + (long long)c * n_in;
-  for (int j = threadIdx.x; j < win; j += UF_THREADS) {
-    const long long src = j0 + j;
-    const float v = (src >= 0 && src < n_in) ? xc[src] : 0.f;
-    store_split<ALG>(v, xs_hi, xs_lo, j);
-  }
-  for (int q = threadIdx.x; q < up * taps_pp; q += UF_THREADS)
-    store_split<ALG>(taps[q], hs_hi, hs_lo, q);
-  __syncthreads();
-
-  // output r of this thread is k0 + threadIdx.x + r*UF_THREADS; its newest
-  // sample sits at window slot base[r] and its taps start at row[r]
-  int base[UF_PER_THREAD], row[UF_PER_THREAD];
-  float acc[UF_PER_THREAD];
-#pragma unroll
-  for (int r = 0; r < UF_PER_THREAD; ++r) {
-    const long long k = k0 + threadIdx.x + r * UF_THREADS;
-    const long long t = offset + k * down;
-    const long long a = t / up;
-    base[r] = (int)(a - j0);
-    row[r] = (int)(t - a * up) * taps_pp;
-    acc[r] = 0.f;
-  }
-  // outputs past n_out read zero-padded window slots and are not stored
-
-#pragma unroll 4
-  for (int i = 0; i < taps_pp; ++i) {
-#pragma unroll
-    for (int r = 0; r < UF_PER_THREAD; ++r) {
-      const int hq = (SAME_PHASE ? row[0] : row[r]) + i;
-      const int xq = base[r] - i;
-      if (ALG == ALG_BF16X3) {
-        const float hh = hs_hi[hq], hl = hs_lo[hq];
-        const float xh = xs_hi[xq], xl = xs_lo[xq];
-        acc[r] = fmaf(hh, xh, acc[r]);
-        acc[r] = fmaf(hh, xl, acc[r]);
-        acc[r] = fmaf(hl, xh, acc[r]);
-      } else {
-        acc[r] = fmaf(hs_hi[hq], xs_hi[xq], acc[r]);
-      }
+  // B's column slice, once: part p's n-tiles cb*NT .. cb*NT + NT - 1
+  {
+    const int per_part = b_elems / 8;         // uint4s
+    for (int i = tid; i < P * per_part; i += UF_THREADS) {
+      const int p = i / per_part, r = i - p * per_part;
+      const uint4* src = reinterpret_cast<const uint4*>(
+          bparts + ((long long)p * (n_pad / 8) + cb * NT) * kg * 64);
+      reinterpret_cast<uint4*>(bs + p * b_elems)[r] = src[r];
     }
   }
 
-  float* yc = y + (long long)c * n_out;
+  // lane addresses of part p at depth 0: A at this warp's first row, B
+  uint32_t a_base[3], b_base[3];
 #pragma unroll
-  for (int r = 0; r < UF_PER_THREAD; ++r) {
-    const long long k = k0 + threadIdx.x + r * UF_THREADS;
-    if (k < n_out) yc[k] = acc[r];
+  for (int p = 0; p < 3; ++p) {
+    const int q = p < P ? p : 0;
+    a_base[p] = smem_addr(ws + q * win + a_lane_offset(lane, stride) +
+                          warp * 16 * MT * stride);
+    b_base[p] = smem_addr(bs + q * b_elems + b_lane_offset(lane, kg));
+  }
+  const uint32_t m_step = 16 * stride * 2, pair_step = 2 * kg * 64 * 2;
+  const long long frames = (n_out + n_real - 1) / n_real;
+
+  // a thread's first UF_PF sample pairs of a tile's window, loaded while
+  // the tile before it is multiplied
+  float pf[2 * UF_PF];
+  auto prefetch = [&](int tile) {
+    if (tile >= row_tiles * channels) return;
+    const int c = tile / row_tiles;
+    const float* xc = x + (long long)c * n_in;
+    const long long s0 =
+        c_lo + (long long)(tile - c * row_tiles) * BM * stride;
+#pragma unroll
+    for (int u = 0; u < UF_PF; ++u) {
+      const int j = 2 * (threadIdx.x + u * UF_THREADS);
+      const long long s = s0 + j;
+      pf[2 * u] = (j < win && s >= 0 && s < n_in) ? xc[s] : 0.f;
+      pf[2 * u + 1] = (j < win && s + 1 >= 0 && s + 1 < n_in) ? xc[s + 1]
+                                                            : 0.f;
+    }
+  };
+
+  prefetch(blockIdx.x);
+  for (int tile = blockIdx.x; tile < row_tiles * channels;
+       tile += gridDim.x) {
+    const int c = tile / row_tiles;
+    const long long f0 = (long long)(tile - c * row_tiles) * BM;
+    __syncthreads();  // the previous tile's window is no longer read
+#pragma unroll
+    for (int u = 0; u < UF_PF; ++u) {
+      const int j = 2 * (threadIdx.x + u * UF_THREADS);
+      if (j < win) {
+        uint32_t parts[P];
+        split_parts<P>(pf[2 * u], pf[2 * u + 1], parts);
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          *reinterpret_cast<uint32_t*>(ws + p * win + j) = parts[p];
+      }
+    }
+    if (win > 2 * UF_PF * UF_THREADS)
+      stage_window<P>(x + (long long)c * n_in, n_in, c_lo + f0 * stride, ws,
+                      win, 2 * UF_PF * UF_THREADS);
+    __syncthreads();
+    prefetch(tile + gridDim.x);
+    if (f0 + warp * 16 * MT >= frames) continue;
+
+    WarpAcc<MT, NT> acc;
+    acc.zero();
+    for (int ks = 0; ks < k_pad / 16; ++ks) {
+      uint32_t a_s[3], b_s[3];
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        a_s[p] = a_base[p] + ks * 32;
+        b_s[p] = b_base[p] + ks * 256;
+      }
+      tier_step<ALG, MT, NT>(acc, a_s, b_s, m_step, pair_step);
+    }
+
+    // a thread's two adjacent columns are one 8-byte store where every
+    // output pair is aligned (n_out and n_real even)
+    float* yc = y + (long long)c * n_out;
+    const bool pairs = (n_out & 1) == 0 && (n_real & 1) == 0;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long f = f0 + warp * 16 * MT + m * 16 + g + h * 8;
+          const int col = (cb * NT + n) * 8 + 2 * t;
+          const long long k = f * n_real + col;
+          const float v0 = acc.sum(m, n, 2 * h), v1 = acc.sum(m, n, 2 * h + 1);
+          if (pairs && col < n_real && k + 1 < n_out) {
+            *reinterpret_cast<float2*>(yc + k) = make_float2(v0, v1);
+          } else {
+            if (col < n_real && k < n_out) yc[k] = v0;
+            if (col + 1 < n_real && k + 1 < n_out) yc[k + 1] = v1;
+          }
+        }
   }
 }
 
-// Shared memory the launch needs: the input window and the tap table, in
-// the tier's parts.
-static size_t upfirdn_smem(int up, int down, int taps_pp, int algorithm,
-                           int* win) {
-  *win = (UF_BLOCK - 1) * down / up + taps_pp + 1;
-  const int parts = algorithm == ALG_BF16X3 ? 2 : 1;
-  return (size_t)parts * ((size_t)*win + (size_t)up * taps_pp) * sizeof(float);
-}
-
-template <int ALG, bool SAME_PHASE>
-static cudaError_t launch_upfirdn(const float* x, const float* taps, float* y,
-                                  int channels, long long n_in,
-                                  long long n_out, int up, int down,
-                                  long long offset, int taps_pp,
-                                  cudaStream_t stream) {
-  int win = 0;
-  const size_t smem = upfirdn_smem(up, down, taps_pp, ALG, &win);
-  auto kern = upfirdn_kernel<ALG, SAME_PHASE>;
-  // a window and table beyond what one block may hold is refused here
+template <int ALG, int NT, int MT>
+static cudaError_t launch_mma(const float* x, const __nv_bfloat16* bparts,
+                              float* y, int channels, long long n_in,
+                              long long n_out, int n_real, int n_pad,
+                              int stride, int k_pad, long long c_lo,
+                              int device, cudaStream_t s) {
+  constexpr int P = Tier<ALG>::PARTS;
+  constexpr int BM = 16 * MT * UF_WARPS;
+  const int win = uf_window(BM, stride, k_pad);
+  const size_t smem = (size_t)2 * P * ((size_t)NT * k_pad * 8 + win);
+  auto kern = upfirdn_mma_kernel<ALG, NT, MT>;
+  // a B slice and window beyond what one block may hold is refused here
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next launch does not report it
     return err;
   }
-  const dim3 grid((unsigned)((n_out + UF_BLOCK - 1) / UF_BLOCK),
-                  (unsigned)channels);
-  kern<<<grid, UF_THREADS, smem, stream>>>(x, taps, y, n_in, n_out, up, down,
-                                           offset, taps_pp, win);
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, UF_THREADS,
+                                                smem);
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int col_blocks = n_pad / (8 * NT);
+  const long long frames = (n_out + n_real - 1) / n_real;
+  const int row_tiles = (int)((frames + BM - 1) / BM);
+  const long long want = (long long)row_tiles * channels;
+  const long long room = std::max(1LL, (long long)sms * per_sm / col_blocks);
+  const dim3 grid((unsigned)std::min(want, room), (unsigned)col_blocks);
+  kern<<<grid, UF_THREADS, smem, s>>>(x, bparts, y, channels, n_in, n_out,
+                                      n_real, n_pad, stride, k_pad, c_lo,
+                                      win, row_tiles);
   return cudaGetLastError();
 }
 
-extern "C" int vv_upfirdn(const float* x, const float* taps, float* y,
+// MT = 2 m-tiles a warp where their window fits beside B and their
+// accumulators and fragments fit the registers (NT * parts <= 12), else 1
+template <int ALG, int NT>
+static cudaError_t launch_nt(const float* x, const __nv_bfloat16* bparts,
+                             float* y, int channels, long long n_in,
+                             long long n_out, int n_real, int n_pad,
+                             int stride, int k_pad, long long c_lo,
+                             int device, cudaStream_t s) {
+  constexpr int P = Tier<ALG>::PARTS;
+  int limit = 0;
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         device);
+  const size_t two = (size_t)2 * P *
+                     ((size_t)NT * k_pad * 8 + uf_window(128, stride, k_pad));
+  if constexpr (NT * P <= 12) {
+    if (two <= (size_t)limit)
+      return launch_mma<ALG, NT, 2>(x, bparts, y, channels, n_in, n_out,
+                                    n_real, n_pad, stride, k_pad, c_lo,
+                                    device, s);
+  }
+  return launch_mma<ALG, NT, 1>(x, bparts, y, channels, n_in, n_out, n_real,
+                                n_pad, stride, k_pad, c_lo, device, s);
+}
+
+template <int ALG>
+static cudaError_t launch_alg(int nt, const float* x,
+                              const __nv_bfloat16* bparts, float* y,
+                              int channels, long long n_in, long long n_out,
+                              int n_real, int n_pad, int stride, int k_pad,
+                              long long c_lo, int device, cudaStream_t s) {
+#define VV_UF_NT(NT)                                                          \
+  case NT:                                                                    \
+    return launch_nt<ALG, NT>(x, bparts, y, channels, n_in, n_out, n_real,    \
+                              n_pad, stride, k_pad, c_lo, device, s)
+  switch (nt) {
+    VV_UF_NT(1); VV_UF_NT(2); VV_UF_NT(3); VV_UF_NT(4);
+    VV_UF_NT(5); VV_UF_NT(6); VV_UF_NT(7); VV_UF_NT(8);
+    default: return cudaErrorInvalidValue;
+  }
+#undef VV_UF_NT
+}
+
+// x: (channels, n_in) float32; bparts: the tier's parts of B, (parts,
+// n_pad/8, k_pad/8, 8, 8) bf16 (ops/mma_plan.py band_parts); y: (channels,
+// n_out). n_tiles: n8 tiles a block; n_pad / (8 n_tiles) column blocks.
+extern "C" int vv_upfirdn(const float* x, const void* bparts, float* y,
                           int channels, long long n_in, long long n_out,
                           int up, int down, long long offset, int taps_pp,
-                          int algorithm, int device, void* stream) {
+                          int n_real, int n_tiles, int n_pad, int stride,
+                          int k_pad, long long c_lo, int algorithm,
+                          int device, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (up < 1 || down < 1 || offset < 0 || taps_pp < 1)
     return (int)cudaErrorInvalidValue;
+  if (n_tiles < 1 || n_tiles > 8 || n_pad % (8 * n_tiles) ||
+      n_real > n_pad || n_real != n_real / up * up ||
+      stride != n_real / up * down || stride % 8 || k_pad < 16 ||
+      k_pad % 16 || channels < 1 || channels > 65535 || n_in < 0)
+    return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const bool same = (UF_THREADS * down) % up == 0;
-#define VV_UPFIRDN(ALG)                                                     \
-  return same ? launch_upfirdn<ALG, true>(x, taps, y, channels, n_in, n_out, \
-                                          up, down, offset, taps_pp, s)     \
-              : launch_upfirdn<ALG, false>(x, taps, y, channels, n_in,      \
-                                           n_out, up, down, offset,         \
-                                           taps_pp, s)
+  const auto* b = static_cast<const __nv_bfloat16*>(bparts);
   switch (algorithm) {
-    case ALG_F32: VV_UPFIRDN(ALG_F32);
-    case ALG_BF16X3: VV_UPFIRDN(ALG_BF16X3);
-    case ALG_BF16: VV_UPFIRDN(ALG_BF16);
+    case ALG_F32:
+      return (int)launch_alg<ALG_F32>(n_tiles, x, b, y, channels, n_in,
+                                      n_out, n_real, n_pad, stride, k_pad,
+                                      c_lo, device, s);
+    case ALG_BF16X3:
+      return (int)launch_alg<ALG_BF16X3>(n_tiles, x, b, y, channels, n_in,
+                                         n_out, n_real, n_pad, stride, k_pad,
+                                         c_lo, device, s);
+    case ALG_BF16:
+      return (int)launch_alg<ALG_BF16>(n_tiles, x, b, y, channels, n_in,
+                                       n_out, n_real, n_pad, stride, k_pad,
+                                       c_lo, device, s);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef VV_UPFIRDN
 }
 
 extern "C" const char* vv_error_string(int err) {

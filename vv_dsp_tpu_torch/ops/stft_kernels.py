@@ -24,7 +24,7 @@ import torch
 
 from vv_dsp_tpu_torch import _build, config
 from vv_dsp_tpu_torch.ops import fft as _fft
-from vv_dsp_tpu_torch.ops import fft_plan
+from vv_dsp_tpu_torch.ops import fft_plan, mma_plan
 from vv_dsp_tpu_torch.ops.framing import frames_strided, stft_num_frames
 from vv_dsp_tpu_torch.ops.window import get_window_np
 
@@ -256,8 +256,8 @@ def power_parts(x: torch.Tensor, nfft: int, hop: int, bre: torch.Tensor,
 def _dft_basis_on(nfft: int, window: str, param, dtype: torch.dtype,
                   device: torch.device, cols: int):
     """The windowed basis parts as (nfft, cols) tensors on `device`, zero
-    past column nfft//2: the plain version's operands (cols = bins) and the
-    kernel's (cols a multiple of its 64-bin tile)."""
+    past column nfft//2: the plain version's operands (cols = bins). The
+    kernel's operand is ``_dft_parts_on``, built from the same basis."""
     name = str(dtype).removeprefix("torch.")
     parts = []
     for b in _windowed_rfft_basis(nfft, window, param, name):
@@ -288,7 +288,14 @@ def stft_power_dft_plain(x: torch.Tensor, nfft: int, hop: int,
     return re * re + im * im
 
 
-DFT_TILE_BINS = 64   # csrc/dft_power.cu's bin tile
+@functools.lru_cache(maxsize=16)
+def _dft_parts_on(nfft: int, window: str, param, device: torch.device):
+    """The kernel's B: the float32 windowed basis's three bf16 parts,
+    columns interleaved (re, im) and tiled (``mma_plan.dft_parts_np``), as
+    a bf16 tensor on `device`."""
+    bre, bim = _windowed_rfft_basis(nfft, window, param, "float32")
+    return torch.as_tensor(mma_plan.dft_parts_np(bre, bim),
+                           device=device).to(torch.bfloat16).contiguous()
 
 
 def stft_power_dft(x: torch.Tensor, nfft: int, hop: int,
@@ -300,8 +307,9 @@ def stft_power_dft(x: torch.Tensor, nfft: int, hop: int,
     float32, n_frames the STFT's frame count unless given. Needs hop | nfft
     and 128 | hop, on every device. On a CUDA tensor one kernel
     (``csrc/dft_power.cu``) multiplies the frames, never formed, by the
-    windowed r2c basis and squares in registers; on a CPU tensor it runs
-    the plain version."""
+    windowed r2c basis on the tensor cores at the f32 tier (its operands'
+    three bf16 parts, six products) and squares in registers; on a CPU
+    tensor it runs the plain version."""
     _check_dft_geometry(nfft, hop)
     if x.device.type == "cpu":
         return stft_power_dft_plain(x, nfft, hop, window, window_param,
@@ -319,14 +327,12 @@ def stft_power_dft(x: torch.Tensor, nfft: int, hop: int,
     if n_frames < 1:
         raise ValueError(f"n_frames must be positive, got {n_frames}")
     bins = nfft // 2 + 1
-    cols = -(-bins // DFT_TILE_BINS) * DFT_TILE_BINS
-    bre, bim = _dft_basis_on(nfft, window, window_param, torch.float32,
-                             x.device, cols)
+    bparts = _dft_parts_on(nfft, window, window_param, x.device)
     out = torch.empty((c, n_frames, bins), dtype=torch.float32,
                       device=x.device)
     err = _build.library().vv_dft_power(
-        _build.ptr(x), _build.ptr(bre), _build.ptr(bim), _build.ptr(out), c,
-        n, n_frames, nfft, hop, bins, cols, x.device.index,
+        _build.ptr(x), _build.ptr(bparts), _build.ptr(out), c, n, n_frames,
+        nfft, hop, bins, mma_plan.dft_cols(nfft), x.device.index,
         _build.stream_handle(x))
     _build.check(err, "stft_power_dft")
     stft_power_dft.launches += 1

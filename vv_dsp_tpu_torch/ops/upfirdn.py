@@ -7,11 +7,12 @@ with x zero outside [0, n) (the ``_upfirdn_gather`` semantics). Both
 versions take the filter as its polyphase table ``taps[p, i] = g[p + i*up]``
 (``polyphase_table_np``), a float32 tensor on the signal's device.
 
-``upfirdn_banded`` runs the CUDA kernel (``csrc/upfirdn.cu``) on a CUDA
-tensor and the plain version ``upfirdn_tall`` on a CPU tensor. The plain
-version is the tall-frames matmul of ``vv_dsp_tpu/ops/resample.py::
-_upfirdn_tall``: frames of ``group*down`` input samples times one block-banded
-(width, group*up) matrix, at the same dot-algorithm tier.
+``upfirdn_banded`` runs the tensor-core kernel (``csrc/upfirdn.cu``, its
+plan in ``ops/mma_plan.py``) on a CUDA tensor and the plain version
+``upfirdn_tall`` on a CPU tensor. The plain version is the tall-frames
+matmul of ``vv_dsp_tpu/ops/resample.py::_upfirdn_tall``: frames of
+``group*down`` input samples times one block-banded (width, group*up)
+matrix, at the same dot-algorithm tier.
 
 ``_geometry``, ``pick_b_out`` and ``banded_supported`` are numpy copies of
 the JAX kernel's segment rule (``vv_dsp_tpu/ops/pallas_upfirdn.py:40-75``).
@@ -28,10 +29,12 @@ import numpy as np
 import torch
 
 from vv_dsp_tpu_torch import _build, config
+from vv_dsp_tpu_torch.ops import mma_plan
 
 _W_VMEM_CAP = 6 * 1024 * 1024   # the TPU kernel's resident weight budget
 _EXT_ROWS_CAP = 4096            # its ext scratch rows (k_w) cap
 _B_IN_CAP = 2048                # its DMA window rows cap
+_EINVAL = 1                     # cudaErrorInvalidValue
 
 
 def _round_up(x: int, m: int) -> int:
@@ -144,9 +147,11 @@ def upfirdn_banded(x: torch.Tensor, taps: torch.Tensor, up: int, down: int,
                    offset: int, n_out: int,
                    algorithm: str | None = None) -> torch.Tensor:
     """(c, n) float32 -> (c, n_out) float32. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel, or raises. The kernel entry
-    refuses a geometry it cannot run (up, down or taps_pp < 1, offset < 0,
-    or an input window and tap table beyond one block's shared memory)."""
+    version; a CUDA tensor launches the tensor-core kernel, or raises. The
+    host plan (``ops/mma_plan.py``) gives the kernel its frame group and
+    B's bf16 parts, cached per table; the kernel entry refuses a geometry
+    it cannot run (up, down or taps_pp < 1, offset < 0, or a band matrix
+    and input window beyond one block's shared memory)."""
     algorithm = config.dot_algorithm(algorithm)
     if x.device.type == "cpu":
         return upfirdn_tall(x, taps, up, down, offset, n_out, algorithm)
@@ -163,10 +168,15 @@ def upfirdn_banded(x: torch.Tensor, taps: torch.Tensor, up: int, down: int,
     y = torch.empty((c, n_out), dtype=torch.float32, device=x.device)
     if n_out == 0:
         return y
+    if up < 1 or down < 1 or offset < 0 or taps_pp < 1:
+        _build.check(_EINVAL, "upfirdn_banded")
+    p = mma_plan.upfirdn_plan(up, down, taps_pp, offset, algorithm)
+    bparts = mma_plan.band_parts(taps, p, algorithm)
     err = _build.library().vv_upfirdn(
-        _build.ptr(x), _build.ptr(taps), _build.ptr(y), c, n_in, n_out, up,
-        down, offset, taps_pp, config.ALGORITHMS.index(algorithm),
-        x.device.index, _build.stream_handle(x))
+        _build.ptr(x), _build.ptr(bparts), _build.ptr(y), c, n_in, n_out,
+        up, down, offset, taps_pp, p.n_real, p.n_tiles, p.n_pad, p.stride,
+        p.k_pad, p.c_lo, config.ALGORITHMS.index(algorithm), x.device.index,
+        _build.stream_handle(x))
     _build.check(err, "upfirdn_banded")
     upfirdn_banded.launches += 1
     return y

@@ -28,13 +28,16 @@ Phases, each fatal on failure:
    its float32 FMAs on the CUDA cores and its six bf16 products), and the
    windowed-DFT power with its byte bound, the product form's floor (six
    bf16 products at 989 TFLOP/s) and the rate its products ran at.
+   On 2 channels the upfirdn also takes the layouts the chain head does
+   not: the fused head at 8/7 (B's slice in column blocks), 16,384 taps
+   (B streamed in depth chunks) and 1/1000 (A's rows copied).
    The direct FIR at 16 taps and the per-phase
    resampler at 4/3 on (16, 479232), with the banded upfirdn kernel timed
    beside the resampler, then on 2 channels at taps 1, 7, 129, n < taps
    and ratios 2/1, 1/2, 3/4, 7/5. The windowed-DFT power at 1024/256 on
    (16, 480000), with the packed power kernel timed beside it, then on 2
-   channels at 2048/512, 1024/1024, n < nfft, 384/128, 640/128 and
-   1536/512; the full-nfft inverse at
+   channels at 2048/512, 1024/1024, n < nfft, 384/128, 640/128, 1536/512
+   and 4096/128; the full-nfft inverse at
    1024/256 on the COLA-padded input's (16, 1876, 513) one-sided spectrum
    (the packed inverse timed beside it), on a non-Hermitian (16, 1876,
    1024) spectrum with all bins inverted, and at 128/32 on (16, 14974,
@@ -287,19 +290,15 @@ def redesign_line(name, label, r, log, kernel, n, onesided, smem) -> None:
 
 
 def upfirdn_instance(up, down, taps_pp, offset, tier) -> tuple[str, int]:
-    """The csrc/upfirdn.cu instance <ALG, NT, MT> a launch runs, as its
-    mangled-name tag, and its dynamic shared memory (the launcher's rule:
-    MT = 2 where NT * parts <= 12 and the window fits)."""
+    """The csrc/upfirdn.cu instance <ALG, NT, MT, FLUSH> a launch runs, as
+    its mangled-name tag, and its dynamic shared memory: the host plan's
+    (ops/mma_plan.py upfirdn_plan), which the launcher follows."""
     from vv_dsp_tpu_torch import config
     from vv_dsp_tpu_torch.ops import mma_plan as mp
     p = mp.upfirdn_plan(up, down, taps_pp, offset, tier)
-    parts = mp.PARTS[tier]
-    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    mt = 2 if (p.n_tiles * parts <= 12 and mp.upfirdn_smem_bytes(
-        p, parts, 2) <= limit) else 1
     tag = (f"upfirdn_mma_kernelILi{config.ALGORITHMS.index(tier)}"
-           f"ELi{p.n_tiles}ELi{mt}E")
-    return tag, mp.upfirdn_smem_bytes(p, parts, mt)
+           f"ELi{p.n_tiles}ELi{p.m_tiles}ELb{int(p.flush > 0)}E")
+    return tag, p.smem
 
 
 def mma_line(name, label, ms, bound_ms, bound_by, log, tag, smem) -> None:
@@ -421,9 +420,11 @@ def record(name, label, got, want, tol, fast, plain, failed: list,
 def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
     """Each kernel against its plain version at the main path's shapes
     (the MFCC kernel at the chain's and at MFCCFrontend's geometry)."""
+    from vv_dsp_tpu_torch.ops import mma_plan as mp
     from vv_dsp_tpu_torch.ops import resample as rs
     from vv_dsp_tpu_torch.ops import stft_kernels as sk
     from vv_dsp_tpu_torch.ops import upfirdn as uf
+    from vv_dsp_tpu_torch.ops.fir import design_lowpass_np
     from vv_dsp_tpu_torch.ops.stft import STFT
 
     gcd = np.gcd(chain.up, chain.down)
@@ -485,6 +486,27 @@ def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
     print("  upfirdn_banded library call: none (no single PyTorch call "
           "computes a polyphase upfirdn; conv1d would need the signal "
           "zero-stuffed first)")
+    # the layouts the chain head does not take, on 2 x 48000: B's slice cut
+    # into column blocks (the fused head at 8/7), streamed in depth chunks
+    # (16,384 taps) and A's rows copied (1/1000); the plain version in
+    # frames of 8 where its own would hold a taps_pp-squared matrix
+    x2 = xc[:2, :48000].contiguous()
+    g87, off87 = rs._fused_fir_resample_filter(tuple(h), 8, 7)
+    for label, g, u, d, off, tier, group in (
+            ("fused head 8/7", g87, 8, 7, off87, "bf16x3", None),
+            ("16384 taps 1/1", design_lowpass_np(16384, 0.3), 1, 1, 0,
+             "f32", 8),
+            ("21 taps 1/1000", design_lowpass_np(21, 0.0009), 1, 1000, 10,
+             "f32", None)):
+        tab = uf.polyphase_table(g, u, xc.device)
+        n2 = -(-x2.shape[1] * u // d)
+        fast = lambda: uf.upfirdn_banded(x2, tab, u, d, off, n2, tier)
+        plain = lambda: uf.upfirdn_tall(x2, tab, u, d, off, n2, tier, group)
+        p = mp.upfirdn_plan(u, d, tab.shape[1], off, tier)
+        record("upfirdn_banded", f"{label}, {tier}, 2 x 48000: "
+               f"{p.col_blocks} column blocks, {p.k_pad // p.k_chunk} "
+               f"depth chunks, A pitch {p.a_pitch}, flush {p.flush}",
+               fast(), plain(), UPFIRDN_TOL, fast, plain, failed)
     y = uf.upfirdn_banded(xc, taps, up, down, offset, n_out, "f32")
     mfcc_args = (chain.nfft, chain.hop, chain.window, chain.mel_fb,
                  chain.mel_bands, chain.dct_lift, 1e-10)
@@ -927,7 +949,7 @@ def filter_phase(xc, failed: list) -> dict:
 def dft_power_phase(xs, win, failed: list, log: list[str]) -> dict:
     """stft_power_dft at 1024/256 on (16, 480000), with the packed power
     kernel on the same input; then 2 channels at 2048/512, 1024/1024,
-    n < nfft, 384/128, 640/128 and 1536/512."""
+    n < nfft, 384/128, 640/128, 1536/512 and 4096/128 (depth 4,096)."""
     from vv_dsp_tpu_torch.ops import mma_plan as mp
     from vv_dsp_tpu_torch.ops import stft_kernels as sk
 
@@ -957,13 +979,15 @@ def dft_power_phase(xs, win, failed: list, log: list[str]) -> dict:
           f"{r['tensor_tflop_per_s']:.1f} TFLOP/s; library call: none "
           f"(torch.stft writes the complex spectrum; the power takes "
           f"another pass)")
+    plan = mp.dft_plan(NFFT, HOP)
     mma_line("stft_power_dft", "1024/256", r["ms"], r["bound_ms"],
-             r["bound_by"], log, "dft_power_kernel",
-             mp.dft_smem_bytes(NFFT, HOP))
+             r["bound_by"], log,
+             f"dft_power_kernelILb{int(plan.tiles > 1)}E", plan.smem)
     x2 = xs[:2]
     for nfft, hop, xv in ((2048, 512, x2), (1024, 1024, x2),
                           (2048, 512, x2[:, :1500].contiguous()),
-                          (384, 128, x2), (640, 128, x2), (1536, 512, x2)):
+                          (384, 128, x2), (640, 128, x2), (1536, 512, x2),
+                          (4096, 128, x2)):
         fast = lambda: sk.stft_power_dft(xv, nfft, hop)
         plain = lambda: sk.stft_power_dft_plain(xv, nfft, hop)
         record("stft_power_dft", f"{nfft}/{hop}, 2 x {xv.shape[1]}", fast(),

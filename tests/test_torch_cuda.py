@@ -15,9 +15,12 @@ tone probe, with bit-identical reruns; the two register-resident spectrum
 kernels at every transform size, 128 to 2048 points, on part groups of
 frames, tails past the signal and a unit impulse, whose spectrum is known
 to 1e-6 absolute; the two tensor-core kernels at every tier and launch
-geometry, ragged and short signals, 1 and 65535 channels, the tier probe
-at 1024 taps, and the windowed-DFT power at q = 1 to 5 with fewer and
-more frames than the signal holds and an unaligned signal). Needs an
+geometry, the chain's fused heads at 8/7, 5/7 and 2,048 FIR taps, a
+16,384-tap FIR (B streamed in depth chunks) and 1/1000 (A's rows
+copied), ragged and short signals, 1 and 65535 channels, the tier probe
+at 1024 taps, and the windowed-DFT power at q = 1 to 129 (from q = 104
+split over two sample tiles) and depths to 16,512, with fewer and more
+frames than the signal holds and an unaligned signal). Needs an
 NVIDIA GPU and nvcc;
 skips without them. Run on the card (this
 file imports neither jax nor the JAX package, so the suite's jax conftest
@@ -343,11 +346,22 @@ def test_unsupported_geometry_raises_on_card(dev, gen):
         tmel.mfcc_stft(x, 8192, 2048, 80, 20, 64000.0)
     with pytest.raises(TypeError):
         STFT(1024, 256).process(x.to(torch.complex64))
-    long_h = np.full(40_000, 1 / 40_000)   # (4, 40020) taps: no block holds it
-    with pytest.raises(RuntimeError):
-        trs.fir_resample_fused(long_h, x, 4, 3)
-    # the refused launch leaves no error behind for the next one
     h = NorthStarChain(device=dev).fir_coeffs
+    g, off = trs._fused_fir_resample_filter(tuple(h), 4, 3)
+    taps = tuf.polyphase_table(g, 4, dev)
+    with pytest.raises(RuntimeError):             # the entry's refusal
+        tuf.upfirdn_banded(x, taps, 4, 3, -1, 40000)
+    # a head no block can hold whole (4 x 40,020 taps) streams its band in
+    # depth chunks: it launches, and matches the plain version
+    long_h = np.full(40_000, 1 / 40_000)
+    before = tuf.upfirdn_banded.launches
+    got = trs.fir_resample_fused(long_h, x, 4, 3, "f32")
+    assert tuf.upfirdn_banded.launches == before + 1
+    g, off = trs._fused_fir_resample_filter(tuple(long_h), 4, 3)
+    want = tuf.upfirdn_tall(x, tuf.polyphase_table(g, 4, dev), 4, 3, off,
+                            40000, "f32", group=8)
+    assert _rel(got[:, :39000], want[:, :39000]) < 1e-5
+    # the refused call leaves no error behind for the next one
     assert trs.fir_resample_fused(h, x, 4, 3).shape == (2, 40000)
 
 
@@ -991,13 +1005,27 @@ def _launch_geometry(name):
     if name == "offset":
         g = trs._resample_poly_filter(4, 3)
         return tuf.polyphase_table_np(g, 4), 4, 3, 3 * len(g)
+    if name in ("head_8_7", "head_5_7", "head_2048"):
+        up, down, taps = {"head_8_7": (8, 7, 1024), "head_5_7": (5, 7, 1024),
+                          "head_2048": (4, 3, 2048)}[name]
+        chain = NorthStarChain(up=up, down=down, fir_taps=taps, device="cpu")
+        h = chain.fir_coeffs.astype(np.float64)
+        g, off = trs._fused_fir_resample_filter(tuple(h), up, down)
+        return tuf.polyphase_table_np(g, up), up, down, off
+    if name == "fir16384":       # B streamed in depth chunks
+        return tuf.polyphase_table_np(_lowpass(16384), 1), 1, 1, 0
+    if name == "decimate1000":   # A's rows copied: no window fits
+        g = design_lowpass_np(21, 0.0009)
+        return tuf.polyphase_table_np(g, 1), 1, 1000, 10
     up, down = name
     g = trs._resample_poly_filter(up, down)
     return tuf.polyphase_table_np(g, up), up, down, (len(g) - 1) // 2
 
 
 @pytest.mark.parametrize("geom", ["chain", "fir1024", (2, 1), (1, 2), (4, 3),
-                                  (8, 7), (5, 7), (31, 1), "offset"])
+                                  (8, 7), (5, 7), (31, 1), "offset",
+                                  "head_8_7", "head_5_7", "head_2048",
+                                  "fir16384", "decimate1000"])
 @pytest.mark.parametrize("algorithm", ALGORITHMS)
 def test_tensor_core_upfirdn_at_every_launch_geometry(dev, gen, geom,
                                                       algorithm):
@@ -1005,6 +1033,8 @@ def test_tensor_core_upfirdn_at_every_launch_geometry(dev, gen, geom,
     signal's, and a signal shorter than one frame of the plan."""
     table, up, down, off = _launch_geometry(geom)
     taps = torch.as_tensor(table, device=dev)
+    # the plain version's own frames would hold a matrix of taps_pp squared
+    group = 8 if table.shape[1] > 4096 else None
     for n, n_out in ((20011, -(-20011 * up // down)), (20011, 777), (5, 9)):
         x = torch.as_tensor(gen.standard_normal((3, n)), dtype=torch.float32,
                             device=dev)
@@ -1012,12 +1042,32 @@ def test_tensor_core_upfirdn_at_every_launch_geometry(dev, gen, geom,
         got = tuf.upfirdn_banded(x, taps, up, down, off, n_out, algorithm)
         torch.cuda.synchronize()
         assert tuf.upfirdn_banded.launches == before + 1
-        want = tuf.upfirdn_tall(x, taps, up, down, off, n_out, algorithm)
+        want = tuf.upfirdn_tall(x, taps, up, down, off, n_out, algorithm,
+                                group)
         assert got.shape == (3, n_out)
         if want.abs().max() == 0:     # every output reads past the signal
             assert not got.any()
         else:
             assert _rel(got, want) < 1e-5, (n, n_out)
+
+
+@pytest.mark.parametrize("up,down,fir_taps", [(8, 7, 1024), (5, 7, 1024),
+                                              (4, 3, 2048)])
+@pytest.mark.parametrize("head_algorithm", ALGORITHMS)
+def test_fused_heads_on_card_match_cpu(dev, gen, up, down, fir_taps,
+                                       head_algorithm):
+    """NorthStarChain at the other ratios and filter lengths it takes,
+    whose fused heads (1,044-2,068 taps a phase) need B's slice cut into
+    column blocks: one upfirdn launch, the chain's 5e-5 against the CPU."""
+    x = torch.as_tensor(gen.standard_normal((2, 24000)), dtype=torch.float32)
+    kw = dict(up=up, down=down, fir_taps=fir_taps,
+              head_algorithm=head_algorithm)
+    want = NorthStarChain(device="cpu", **kw)(x)
+    before = tuf.upfirdn_banded.launches
+    got = NorthStarChain(device=dev, **kw)(x.to(dev))
+    torch.cuda.synchronize()
+    assert tuf.upfirdn_banded.launches == before + 1
+    assert _rel(got, want) < 5e-5
 
 
 @pytest.mark.parametrize("channels", [1, 65535])
@@ -1046,10 +1096,14 @@ def test_tensor_core_upfirdn_tier_probe_at_1024_taps(dev, gen, algorithm):
 
 @pytest.mark.parametrize("nfft,hop", [(1024, 256), (2048, 512), (384, 128),
                                       (640, 128), (1536, 512),
-                                      (1024, 1024)])
+                                      (1024, 1024), (4096, 128),
+                                      (13312, 128), (16512, 128)])
 @pytest.mark.parametrize("channels,n", [(1, 700), (3, 30011)])
 def test_tensor_core_dft_power(dev, gen, nfft, hop, channels, n):
-    """The signal's frame count, fewer frames, and more than it holds."""
+    """The signal's frame count, fewer frames, and more than it holds; at
+    depths to 16,512 (the hi*hi sum restarted 129 times), and from q =
+    nfft/hop = 104 on, where the q chunks are split over two tiles (65 and
+    64 at q = 129)."""
     x = torch.as_tensor(gen.standard_normal((channels, n)),
                         dtype=torch.float32, device=dev)
     full = stft_num_frames(n, nfft, hop)

@@ -91,7 +91,7 @@ def library() -> ctypes.CDLL:
     P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
     lib.vv_upfirdn.argtypes = [P, P, P, I, L, L, I, I, L, I, I, I, I, I, I,
-                               L, I, I, P]
+                               I, I, I, I, I, I, L, I, I, P]
     lib.vv_stft_spectrum.argtypes = [P, P, P, P, P, I, L, I, I, I, I, I, P]
     lib.vv_stft_mfcc.argtypes = [P, P, P, P, P, P, P, P, P, I, L, I, I, I, I,
                                  I, F, I, I, I, P]
@@ -104,7 +104,7 @@ def library() -> ctypes.CDLL:
     lib.vv_stockham_gate.argtypes = [P, P, P, P, P, I, L, I, I, I, F, I, P]
     lib.vv_fir_direct.argtypes = [P, P, P, I, L, I, I, P]
     lib.vv_poly.argtypes = [P, P, P, I, L, L, I, I, I, I, I, P]
-    lib.vv_dft_power.argtypes = [P, P, P, I, L, I, I, I, I, I, I, P]
+    lib.vv_dft_power.argtypes = [P, P, P, I, L, I, I, I, I, I, I, I, I, P]
     lib.vv_istft_stockham.argtypes = [P, P, P, P, P, I, I, I, I, I, L, I, P]
     lib.vv_stft_gate_packed.argtypes = [P, P, P, P, P, P, I, L, I, I, I, F,
                                         I, P]

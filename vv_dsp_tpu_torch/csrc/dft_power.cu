@@ -31,12 +31,14 @@
 // as two warpgroups of 64 x 96, each issuing wgmma.mma_async m64n96k16
 // with A from registers and B from shared memory (mma_tiers.cuh). It steps
 // through the depth 32 samples (a chunk) at a time, in the order that lets
-// one tile of signal serve q = nfft/hop chunks (see dft_power_kernel): the
-// tile (128 + q - 1 rows of 32 samples, one 16-byte cp.async a thread and
-// row where aligned) is copied in once, split once into its bf16 parts
-// (rows padded to 40 elements, so ldmatrix's 8 rows hit 8 distinct bank
-// groups), and read q times, so the signal crosses from L2 once per column
-// block and not q times. B's parts (built on the host in core-matrix
+// one tile of signal serve up to q = nfft/hop chunks (see
+// dft_power_kernel): the tile (128 + q - 1 rows of 32 samples, one 16-byte
+// cp.async a thread and row where aligned) is copied in once, split once
+// into its bf16 parts (rows padded to 40 elements, so ldmatrix's 8 rows
+// hit 8 distinct bank groups), and read q times, so the signal crosses
+// from L2 once per column block and not q times. Where q is too large for
+// such a tile to fit a block (q >= 104), the host plan splits the q
+// chunks over the fewest tiles that fit (ops/mma_plan.py dft_plan). B's parts (built on the host in core-matrix
 // layout, 18 KB a chunk) arrive by three bulk copies (cp.async.bulk, one
 // thread, an mbarrier a buffer) three chunks ahead (cp.async of 16 bytes
 // a thread ran slower on an H100). A chunk's products are issued from one
@@ -60,15 +62,17 @@ constexpr int DP_ASTRIDE = DP_KC + 8;     // A row in shared memory
 constexpr int DP_B_ELEMS = DP_KC * DP_BN;        // one part of a B chunk
 constexpr int DP_ACC = DP_BN / 2;                // accumulator registers
 
-// The shared memory of a launch with q = nfft / hop: two tiles of A's
-// parts and raw_bufs tiles of its samples, DP_BM + q - 1 rows each, and
-// DP_BBUFS B chunks.
+// The shared memory of a launch with q = nfft / hop chunks served by
+// `tiles` sample tiles, each serving q / tiles of them (rounded up or
+// down): two tiles of A's parts and raw_bufs tiles of its samples (as many
+// as may be in flight DP_AHEAD chunks ahead), rows each, and DP_BBUFS B
+// chunks.
 struct DpLayout {
   int rows, raw_bufs, parts_elems, raw_floats;
   size_t bytes;
-  __host__ __device__ explicit DpLayout(int q)
-      : rows(DP_BM + q - 1),
-        raw_bufs((DP_AHEAD + q - 1) / q),
+  __host__ __device__ DpLayout(int q, int tiles)
+      : rows(DP_BM + (q + tiles - 1) / tiles - 1),
+        raw_bufs((DP_AHEAD + q / tiles - 1) / (q / tiles)),
         parts_elems(rows * DP_ASTRIDE),
         raw_floats(rows * DP_KC),
         bytes((size_t)2 * (2 * 3 * parts_elems + DP_BBUFS * 3 * DP_B_ELEMS) +
@@ -91,21 +95,46 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(ok ? 4 : 0));
 }
 
+// Chunk i of the depth order -> o, r, its sample tile and that tile's
+// first r (ops/mma_plan.py dft_chunk_tile): the q chunks of stretch o are
+// split over `tiles` tiles, the first q % tiles of them one chunk longer
+// (MULTI), or all served by tile o.
+template <bool MULTI>
+struct DpChunk {
+  int o, r, tile, r0;
+  __device__ DpChunk(int i, int q, int tiles) {
+    o = i / q;
+    r = i - o * q;
+    if (!MULTI) {
+      tile = o;
+      r0 = 0;
+      return;
+    }
+    const int base = q / tiles, extra = q - base * tiles;
+    const int t = r < extra * (base + 1)
+                      ? r / (base + 1)
+                      : extra + (r - extra * (base + 1)) / base;
+    tile = o * tiles + t;
+    r0 = t * base + min(t, extra);
+  }
+};
+
 // x: (channels, n); bparts: (3, cols/DP_BN, nfft/DP_KC, DP_BN/8, DP_KC/8,
 // 8, 8) bf16 (ops/mma_plan.py dft_parts_np); out: (channels, nf, bins).
 // The depth runs in the order of chunk i = o q + r: samples o DP_KC ..
 // o DP_KC + 31 of hop block r of every frame, so frame f's samples of
 // chunk i are the samples of frame f + r at chunk o q: one tile of rows
-// (f_base + R) hop + o DP_KC serves the q chunks of super-chunk o, frame f
-// reading row f - f_base + r.
+// (f_base + r0 + R) hop + o DP_KC serves a run of chunks r0 <= r of
+// stretch o, frame f reading row f - f_base + r - r0.
+template <bool MULTI>
 __global__ void __launch_bounds__(DP_THREADS, 1)
 dft_power_kernel(const float* __restrict__ x,
                  const __nv_bfloat16* __restrict__ bparts,
                  float* __restrict__ out, long long n, int nf, int nfft,
-                 int hop, int bins, int cols) {
+                 int hop, int bins, int cols, int tiles) {
   extern __shared__ __align__(128) __nv_bfloat16 dp_smem[];
   const int q = nfft / hop, per_hop = hop / DP_KC;
-  const DpLayout lay(q);
+  const DpLayout lay(q, MULTI ? tiles : 1);
   // [2][3] A parts | [DP_BBUFS][3] B chunks | [raw_bufs] sample tiles
   __nv_bfloat16* a_parts = dp_smem;
   __nv_bfloat16* b_bufs = dp_smem + 2 * 3 * lay.parts_elems;
@@ -132,15 +161,16 @@ dft_power_kernel(const float* __restrict__ x,
   // a thread's samples of a tile: rows tid/8 + 32 i, columns 4 (tid % 8)
   // .. + 3; it copies them in (cp.async) and later splits them itself
   const int a_row = tid >> 3, a_col = (tid & 7) * 4;
-  // the group of chunk i: its B parts and, at a super-chunk's first
-  // chunk, that super-chunk's samples
+  // the group of chunk i: its B parts and, at a tile's first chunk, that
+  // tile's samples
   auto issue = [&](int i) {
     if (i < chunks) {
-      const int o = i / q, r = i - o * q;
-      if (r == 0) {
-        float* t = raw + (o % lay.raw_bufs) * lay.raw_floats;
+      const DpChunk<MULTI> k(i, q, tiles);
+      const int o = k.o, r = k.r;
+      if (r == k.r0) {
+        float* t = raw + (k.tile % lay.raw_bufs) * lay.raw_floats;
         for (int row = a_row; row < lay.rows; row += DP_THREADS / 8) {
-          const long long s0 = (long long)(f_base + row) * hop +
+          const long long s0 = (long long)(f_base + k.r0 + row) * hop +
                                o * DP_KC + a_col;
           float* dst = t + row * DP_KC + a_col;
           if (wide) {
@@ -174,10 +204,10 @@ dft_power_kernel(const float* __restrict__ x,
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
-  // super-chunk o's samples, this thread's, into their bf16 parts
-  auto split = [&](int o) {
-    const float* t = raw + (o % lay.raw_bufs) * lay.raw_floats;
-    __nv_bfloat16* a = a_parts + (o & 1) * 3 * lay.parts_elems;
+  // tile `tile`'s samples, this thread's, into their bf16 parts
+  auto split = [&](int tile) {
+    const float* t = raw + (tile % lay.raw_bufs) * lay.raw_floats;
+    __nv_bfloat16* a = a_parts + (tile & 1) * 3 * lay.parts_elems;
     for (int row = a_row; row < lay.rows; row += DP_THREADS / 8) {
       const float4 v = *reinterpret_cast<const float4*>(
           t + row * DP_KC + a_col);
@@ -202,9 +232,9 @@ dft_power_kernel(const float* __restrict__ x,
   // two sets of A fragments: chunk i's products read set i & 1
   uint32_t af[2][DP_KC / 16][3][4];
   auto run = [&](int set, int i) {
-    const int o = i / q, r = i - o * q;
-    const __nv_bfloat16* a = a_parts + (o & 1) * 3 * lay.parts_elems +
-                             r * DP_ASTRIDE;
+    const DpChunk<MULTI> k(i, q, tiles);
+    const __nv_bfloat16* a = a_parts + (k.tile & 1) * 3 * lay.parts_elems +
+                             (k.r - k.r0) * DP_ASTRIDE;
     const __nv_bfloat16* b = b_bufs + (i % DP_BBUFS) * 3 * DP_B_ELEMS;
 #pragma unroll
     for (int ks = 0; ks < DP_KC / 16; ++ks)
@@ -234,8 +264,8 @@ dft_power_kernel(const float* __restrict__ x,
     wgmma_commit();
   };
 
-  // group g holds chunk g's B and, where g = o q, super-chunk o's samples;
-  // super-chunk o is split once group o q has arrived, before chunk o q
+  // group g holds chunk g's B and, where g starts a tile, that tile's
+  // samples; the tile is split once group g has arrived, before chunk g
   for (int i = 0; i < DP_AHEAD; ++i) issue(i);
   asm volatile("cp.async.wait_group %0;\n" ::"n"(DP_AHEAD - 1));
   split(0);
@@ -245,7 +275,7 @@ dft_power_kernel(const float* __restrict__ x,
       const int i = i0 + set;
       if (i >= chunks) break;
       // groups up to i + 1 have arrived: chunk i's B, and the samples of
-      // super-chunk (i + 1) / q where i + 1 starts one
+      // the tile chunk i + 1 starts, if it starts one
       asm volatile("cp.async.wait_group %0;\n" ::"n"(DP_AHEAD - 2));
       {
         const uint32_t bar = smem_addr(&b_bar[i % DP_BBUFS]);
@@ -263,13 +293,15 @@ dft_power_kernel(const float* __restrict__ x,
       __syncthreads();
       // buffers of chunk i - 1, whose products completed (wait_group 1)
       // before every thread reached the barrier, take chunk i + DP_AHEAD;
-      // a sample tile is reused ceil(DP_AHEAD / q) super-chunks later,
-      // after its split
+      // a sample buffer is reused raw_bufs tiles later, after its split
       issue(i + DP_AHEAD);
       run(set, i);
-      // the next super-chunk's parts go to the other tile, last read by
+      // the next tile's parts go to the other parts buffer, last read by
       // the chunks before this barrier
-      if ((i + 1) % q == 0 && i + 1 < chunks) split((i + 1) / q);
+      if (i + 1 < chunks) {
+        const DpChunk<MULTI> k(i + 1, q, tiles);
+        if (k.r == k.r0) split(k.tile);
+      }
       wgmma_wait<1>();
     }
   }
@@ -295,29 +327,35 @@ dft_power_kernel(const float* __restrict__ x,
   }
 }
 
+// tiles: the sample tiles a stretch's q = nfft / hop chunks are split over,
+// smem: the layout's shared memory, both from ops/mma_plan.py dft_plan
 extern "C" int vv_dft_power(const float* x, const void* bparts, float* out,
                             int channels, long long n, int nf, int nfft,
-                            int hop, int bins, int cols, int device,
-                            void* stream) {
+                            int hop, int bins, int cols, int tiles, int smem,
+                            int device, void* stream) {
   if (hop < DP_KC || hop % DP_KC || nfft % hop || nf < 1 || n < 1 ||
       channels < 1 || channels > 65535 || cols % DP_BN || bins < 1 ||
-      2 * bins > cols)
+      2 * bins > cols || tiles < 1 || tiles > nfft / hop)
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const DpLayout lay(nfft / hop);
-  // a tile of q + 127 rows beyond what one block may hold is refused here
+  const DpLayout lay(nfft / hop, tiles);
+  // the plan's count must be this layout's, or what it reports is not
+  // what runs
+  if (lay.bytes != (size_t)smem) return (int)cudaErrorInvalidValue;
+  // one tile serves a stretch's q chunks (q <= 103), or several
+  auto kern = tiles == 1 ? dft_power_kernel<false> : dft_power_kernel<true>;
+  // a layout beyond what one block may hold is refused here
   cudaError_t err = cudaFuncSetAttribute(
-      dft_power_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)lay.bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
   }
   const dim3 grid((unsigned)((nf + DP_BM - 1) / DP_BM),
                   (unsigned)(cols / DP_BN), (unsigned)channels);
-  dft_power_kernel<<<grid, DP_THREADS, lay.bytes, (cudaStream_t)stream>>>(
+  kern<<<grid, DP_THREADS, lay.bytes, (cudaStream_t)stream>>>(
       x, static_cast<const __nv_bfloat16*>(bparts), out, n, nf, nfft, hop,
-      bins, cols);
+      bins, cols, tiles);
   return (int)cudaGetLastError();
 }

@@ -99,22 +99,38 @@ __device__ __forceinline__ int b_lane_offset(int lane, int kg_count) {
 }
 
 // A warp's accumulators: MT x NT tiles of 16 x 8, the main (hi*hi) and the
-// correction products apart.
+// correction products apart, and the total of the main sums flushed so far
+// (flush: the tensor cores round a running sum toward zero at each
+// product, a bias that grows with the depth, so the main sum restarts every
+// few steps and is added into the total in float32, rounded to nearest).
 template <int MT, int NT>
 struct WarpAcc {
   float main[MT][NT][4];
   float corr[MT][NT][4];
+  float total[MT][NT][4];
   __device__ __forceinline__ void zero() {
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) main[m][n][e] = corr[m][n][e] = 0.f;
+        for (int e = 0; e < 4; ++e)
+          main[m][n][e] = corr[m][n][e] = total[m][n][e] = 0.f;
+  }
+  __device__ __forceinline__ void flush() {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          total[m][n][e] += main[m][n][e];
+          main[m][n][e] = 0.f;
+        }
   }
   // the tier's sum of element e of tile (m, n)
   __device__ __forceinline__ float sum(int m, int n, int e) const {
-    return main[m][n][e] + corr[m][n][e];
+    return (total[m][n][e] + main[m][n][e]) + corr[m][n][e];
   }
 };
 

@@ -33,11 +33,16 @@ k = f * n_real + n reads its newest sample at anchor_n + f * stride
     B[j, n] = taps[p_n, anchor_n - c_lo - j]  (0 where that is no tap),
 
 with c_lo = anchor_0 - (taps_pp - 1) and j < k_pad (``upfirdn_tall``'s
-block-banded matrix, with the group chosen for the tensor cores).
+block-banded matrix, with the group chosen for the tensor cores). The
+plan also fixes the kernel's whole layout (``upfirdn_plan``): column
+blocks, 16-row tiles a warp, depth chunks where B cannot stay resident,
+and A's pitch in shared memory; the kernel only dispatches on it.
 
 windowed-DFT power. A[f, j] = x[f * hop + j], j < nfft; B interleaves the
 windowed r2c basis's columns, B[j, 2k] = Re, B[j, 2k + 1] = Im, so a
 thread holds both parts of a bin in adjacent accumulator registers.
+``dft_plan`` splits the q = nfft / hop chunks a staged sample tile serves
+over as few tiles as fit a block.
 """
 
 from __future__ import annotations
@@ -59,6 +64,8 @@ PRODUCTS = {
 SMEM_BYTES = 232448          # shared memory one Hopper block may hold
 MAX_N_TILES = 8              # csrc/upfirdn.cu instantiates 1..8 n8 tiles
 UF_WARPS = 4                 # csrc/upfirdn.cu's warps a block (16 rows each)
+UF_FLUSH_DEPTH = 2048        # deeper bands restart the hi*hi sum ...
+UF_FLUSH_STEPS = 64          # ... every 64 16-deep steps
 DP_BM, DP_BN, DP_KC = 128, 96, 32    # csrc/dft_power.cu's block tile
 DP_AHEAD, DP_BBUFS = 3, 5            # its chunks in flight, B buffers
 
@@ -111,62 +118,158 @@ class UpfirdnPlan(NamedTuple):
     col_blocks: int   # blocks across the columns
     n_pad: int        # 8 * n_tiles * col_blocks >= n_real
     stride: int       # input samples between frames, group * down
-    k_pad: int        # depth, a multiple of 16
+    k_pad: int        # depth, a multiple of k_chunk
+    k_chunk: int      # depth a pass; k_pad where B stays resident
+    m_tiles: int      # 16-row tiles a warp
+    flush: int        # 16-deep steps a hi*hi sum; 0: one over the depth
+    a_pitch: int      # elements between A's rows in shared memory
+    win: int          # elements of one part of A in shared memory
+    smem: int         # dynamic shared memory of a block, bytes
     c_lo: int         # sample of A[0, 0]
 
 
-def _upfirdn_geometry(up, down, taps_pp, offset, group) -> UpfirdnPlan:
+def _upfirdn_geometry(up, down, taps_pp, offset, group):
+    """(n_real, stride, k16, c_lo) of frames of `group` phases' cycles:
+    k16 the band's depth rounded up to 16."""
     n_real = group * up
     t = offset + np.arange(n_real, dtype=np.int64) * down
     anchor = t // up
     c_lo = int(anchor[0]) - (taps_pp - 1)
     k = int(anchor[-1]) - c_lo + 1
-    n8 = -(-n_real // 8)
-    col_blocks = -(-n8 // MAX_N_TILES)
-    n_tiles = -(-n8 // col_blocks)
-    return UpfirdnPlan(up, down, offset, taps_pp, group, n_real, n_tiles,
-                       col_blocks, 8 * n_tiles * col_blocks, group * down,
-                       _round_up(k, 16), c_lo)
+    return n_real, group * down, _round_up(k, 16), c_lo
 
 
-def upfirdn_smem_bytes(p: UpfirdnPlan, parts: int, m_tiles: int) -> int:
-    """csrc/upfirdn.cu's shared memory: a block's column slice of B's
-    parts, resident, and the signal window of its 16 * m_tiles * UF_WARPS
-    frames, in parts."""
+def _a_layout(stride: int, k_chunk: int, m_tiles: int,
+              hankel: bool) -> tuple[int, int]:
+    """(a_pitch, win) of A in shared memory: a Hankel window of the
+    block's 16 * m_tiles * UF_WARPS frames (a_pitch = stride, rows
+    overlapping), or each row copied (a_pitch = k_chunk + 8, an odd number
+    of 16-byte units, so ldmatrix's 8 rows hit 8 distinct bank groups)."""
+    pitch = stride if hankel else k_chunk + 8
     bm = 16 * m_tiles * UF_WARPS
-    win = _round_up((bm - 1) * p.stride + p.k_pad, 8)
-    return 2 * parts * (p.k_pad * 8 * p.n_tiles + win)
+    return pitch, _round_up((bm - 1) * pitch + k_chunk, 8)
+
+
+def upfirdn_smem_bytes(parts: int, n_tiles: int, k_chunk: int,
+                       win: int) -> int:
+    """csrc/upfirdn.cu's shared memory: a block's column slice of a depth
+    chunk of B's parts and its A, both in parts."""
+    return 2 * parts * (n_tiles * k_chunk * 8 + win)
+
+
+def _column_splits(n8: int):
+    """(n_tiles, col_blocks) with the frame's n8 tiles balanced over the
+    blocks, widest first."""
+    for n_tiles in range(min(n8, MAX_N_TILES), 0, -1):
+        col_blocks = -(-n8 // n_tiles)
+        if -(-n8 // col_blocks) == n_tiles:
+            yield n_tiles, col_blocks
+
+
+def _largest_k_chunk(parts, n_tiles, stride, m_tiles, hankel, k16):
+    """The deepest chunk (a multiple of 16, at most k16) whose layout fits
+    a block, or 0."""
+    bm, room = 16 * m_tiles * UF_WARPS, SMEM_BYTES // (2 * parts)
+    if hankel:
+        k_chunk = (room - (bm - 1) * stride) // (8 * n_tiles + 1)
+    else:
+        k_chunk = (room - 8 * (bm - 1)) // (8 * n_tiles + bm)
+    k_chunk = min(k16, k_chunk // 16 * 16)
+    while k_chunk >= 16:
+        win = _a_layout(stride, k_chunk, m_tiles, hankel)[1]
+        if upfirdn_smem_bytes(parts, n_tiles, k_chunk, win) <= SMEM_BYTES:
+            return k_chunk
+        k_chunk -= 16
+    return 0
 
 
 @functools.lru_cache(maxsize=64)
 def upfirdn_plan(up: int, down: int, taps_pp: int, offset: int,
                  algorithm: str) -> UpfirdnPlan:
-    """The frame group for the tensor cores. A's rows must start on 16-byte
-    boundaries for ldmatrix, so stride = group * down is a multiple of 8;
-    an odd multiple keeps the 8 rows of an ldmatrix on 8 distinct bank
-    groups. A frame wider than 8 n8 tiles is split across blocks of
-    columns (only the least group is then tried). Among the groups, the
-    one with the fewest
-    multiply-adds an output (k_pad * n_pad / n_real, zero fill included,
-    times 1 + 1/(2 n_tiles) for the A loads a narrow tile repeats, and 1.5
-    for a stride that conflicts) whose B and window fit a block; where none
-    fits, the one needing the least shared memory (the kernel refuses it)."""
+    """The kernel's tile geometry for one launch.
+
+    Frames: A's rows must start on 16-byte boundaries for ldmatrix, so
+    stride = group * down is a multiple of 8; an odd multiple keeps the 8
+    rows of an ldmatrix on 8 distinct bank groups. Groups are tried up to
+    64 outputs a frame (only the least where a frame is wider).
+
+    B resident: where a block can hold its column slice of B whole (at
+    any split of the frame's n8 tiles over blocks of columns; A as a
+    Hankel window, else as copied rows), the layout with the fewest
+    multiply-adds an output wins (k_pad * n_pad / n_real, zero fill
+    included, times 1 + 1/(2 n_tiles) for the A loads a narrow tile
+    repeats, 1.5 for a Hankel stride that conflicts); m_tiles is 2 where
+    the accumulators and fragments fit the registers (n_tiles * parts <=
+    12), the sum needs no flush and the layout fits, else 1.
+
+    B streamed: where no block holds it, the depth runs in chunks, each
+    with its slice of B and its A staged anew: the least group, the widest
+    split, A as a window before copied rows, m_tiles 1, the first
+    whose chunk is 256 deep (or the whole depth), else the deepest chunk;
+    then the chunks are balanced over the depth.
+
+    Flush: the tensor cores round a running float32 sum toward zero at
+    each product, a bias that grows with the depth (one sum over 16,384
+    taps erred by 2.4e-5 of scale on an H100); a band deeper than
+    UF_FLUSH_DEPTH restarts its hi*hi sum every UF_FLUSH_STEPS steps, at
+    m_tiles 1 (the kernel's instance with the total)."""
     parts = PARTS[algorithm]
-    step = 8 // np.gcd(down, 8)
-    best, smallest = None, None
-    group = step
+    step = 8 // int(np.gcd(down, 8))
+    geos, group = [], step
     while group == step or group * up <= 8 * MAX_N_TILES:
-        p = _upfirdn_geometry(up, down, taps_pp, offset, group)
+        geos.append((group,) + _upfirdn_geometry(up, down, taps_pp, offset,
+                                                 group))
         group += step
-        cost = p.k_pad * p.n_pad / p.n_real * (1 + 0.5 / p.n_tiles)
-        if (p.stride // 8) % 2 == 0:
-            cost *= 1.5
-        need = upfirdn_smem_bytes(p, parts, 1)
-        if smallest is None or need < smallest[0]:
-            smallest = (need, p)
-        if need <= SMEM_BYTES and (best is None or cost < best[0]):
-            best = (cost, p)
-    return (best or smallest)[1]
+
+    def layout(geo, n_tiles, col_blocks, k_chunk, hankel, k_pad=None):
+        group, n_real, stride, k16, c_lo = geo
+        k_pad = k_pad or k16
+        flush = UF_FLUSH_STEPS if k_pad > UF_FLUSH_DEPTH else 0
+        for m_tiles in (2, 1):
+            if m_tiles == 2 and (n_tiles * parts > 12 or flush):
+                continue
+            pitch, win = _a_layout(stride, k_chunk, m_tiles, hankel)
+            smem = upfirdn_smem_bytes(parts, n_tiles, k_chunk, win)
+            if smem <= SMEM_BYTES:
+                return UpfirdnPlan(
+                    up, down, offset, taps_pp, group, n_real, n_tiles,
+                    col_blocks, 8 * n_tiles * col_blocks, stride, k_pad,
+                    k_chunk, m_tiles, flush, pitch, win, smem, c_lo)
+        return None
+
+    for hankel in (True, False):
+        best = None
+        for geo in geos:
+            n_real, stride, k16 = geo[1:4]
+            for n_tiles, col_blocks in _column_splits(-(-n_real // 8)):
+                p = layout(geo, n_tiles, col_blocks, k16, hankel)
+                if p is None:
+                    continue
+                cost = k16 * p.n_pad / n_real * (1 + 0.5 / n_tiles)
+                if hankel and (stride // 8) % 2 == 0:
+                    cost *= 1.5
+                if best is None or cost < best[0]:
+                    best = (cost, p)
+        if best is not None:
+            return best[1]
+
+    geo = geos[0]
+    stride, k16 = geo[2], geo[3]
+    options = [(n_tiles, col_blocks, hankel, 1)
+               for n_tiles, col_blocks in _column_splits(-(-geo[1] // 8))
+               for hankel in (True, False)]
+    depths = [_largest_k_chunk(parts, n_tiles, stride, m_tiles, hankel, k16)
+              for n_tiles, _, hankel, m_tiles in options]
+    pick = next((i for i, d in enumerate(depths) if d >= min(256, k16)),
+                int(np.argmax(depths)))
+    if depths[pick] == 0:
+        raise ValueError(f"upfirdn_plan: no layout of {up}/{down} with "
+                         f"{taps_pp} taps a phase fits a block")
+    n_tiles, col_blocks, hankel, _ = options[pick]
+    chunks = -(-k16 // depths[pick])
+    k_chunk = _round_up(-(-k16 // chunks), 16)
+    return layout(geo, n_tiles, col_blocks, k_chunk, hankel,
+                  k_pad=chunks * k_chunk)
 
 
 def band_matrix_np(table: np.ndarray, p: UpfirdnPlan) -> np.ndarray:
@@ -243,21 +346,14 @@ def dft_tiles_np(b: np.ndarray) -> np.ndarray:
     the kernel's (K chunk, column tile) blocks, each contiguous in
     core-matrix layout."""
     nfft, cols = b.shape
-    t = b.reshape(nfft // DP_KC, DP_KC, cols // DP_BN, DP_BN)
-    return np.ascontiguousarray(np.stack([
-        np.stack([core_layout_np(t[kc, :, nt]) for kc in range(t.shape[0])])
-        for nt in range(t.shape[2])]))
+    t = b.reshape(nfft // DP_KC, DP_KC // 8, 8, cols // DP_BN, DP_BN // 8, 8)
+    return np.ascontiguousarray(t.transpose(3, 0, 4, 1, 5, 2))
 
 
 def from_dft_tiles_np(t: np.ndarray) -> np.ndarray:
     """Inverse of dft_tiles_np."""
     n_t, k_c = t.shape[:2]
-    b = np.zeros((k_c * DP_KC, n_t * DP_BN), dtype=t.dtype)
-    for nt in range(n_t):
-        for kc in range(k_c):
-            b[kc * DP_KC:(kc + 1) * DP_KC, nt * DP_BN:(nt + 1) * DP_BN] = (
-                from_core_layout_np(t[nt, kc]))
-    return b
+    return t.transpose(1, 3, 5, 0, 2, 4).reshape(k_c * DP_KC, n_t * DP_BN)
 
 
 def dft_parts_np(bre: np.ndarray, bim: np.ndarray) -> np.ndarray:
@@ -267,15 +363,49 @@ def dft_parts_np(bre: np.ndarray, bim: np.ndarray) -> np.ndarray:
     return np.stack([dft_tiles_np(q) for q in split_parts_np(b, 3)])
 
 
-def dft_smem_bytes(nfft: int, hop: int) -> int:
+class DftPlan(NamedTuple):
+    q: int            # nfft / hop
+    tiles: int        # sample tiles serving one 32-sample depth stretch
+    rows: int         # rows of a tile: DP_BM + ceil(q / tiles) - 1
+    raw_bufs: int     # tiles of raw samples in flight
+    smem: int         # dynamic shared memory of a block, bytes
+
+
+def _dft_layout(q: int, tiles: int) -> DftPlan:
     """csrc/dft_power.cu's shared memory (DpLayout): two tiles of A's three
-    parts and ceil(DP_AHEAD / q) of its samples, DP_BM + q - 1 rows each
-    (q = nfft / hop), and DP_BBUFS chunks of B's three parts."""
-    q = nfft // hop
-    rows = DP_BM + q - 1
-    raw_bufs = -(-DP_AHEAD // q)
-    return (2 * (2 * 3 * rows * (DP_KC + 8) + DP_BBUFS * 3 * DP_KC * DP_BN)
+    parts and raw_bufs tiles of its samples, `rows` rows each, and DP_BBUFS
+    chunks of B's three parts. Tile t of the q chunks serves a run of
+    ceil(q / tiles) or floor(q / tiles) of them; raw_bufs = ceil(DP_AHEAD /
+    floor(q / tiles)) tiles may be in flight at once."""
+    rows = DP_BM + -(-q // tiles) - 1
+    raw_bufs = -(-DP_AHEAD // (q // tiles))
+    smem = (2 * (2 * 3 * rows * (DP_KC + 8) + DP_BBUFS * 3 * DP_KC * DP_BN)
             + 4 * raw_bufs * rows * DP_KC)
+    return DftPlan(q, tiles, rows, raw_bufs, smem)
+
+
+@functools.lru_cache(maxsize=64)
+def dft_plan(nfft: int, hop: int) -> DftPlan:
+    """The fewest sample tiles (the most reuse of a staged tile) whose
+    layout fits a block; q tiles of one chunk each always fit."""
+    q = nfft // hop
+    tiles = 1
+    while _dft_layout(q, tiles).smem > SMEM_BYTES:
+        tiles += 1
+    return _dft_layout(q, tiles)
+
+
+def dft_chunk_tile(p: DftPlan, i: int) -> tuple[int, int, int]:
+    """Chunk i of the kernel's depth order -> (o, r, tile, r0): stretch o
+    of 32 samples of hop block r, read from sample tile `tile` (its first
+    chunk r0), as csrc/dft_power.cu's chunk_tile computes it."""
+    o, r = divmod(i, p.q)
+    base, extra = divmod(p.q, p.tiles)
+    if r < extra * (base + 1):
+        t = r // (base + 1)
+    else:
+        t = extra + (r - extra * (base + 1)) // base
+    return o, r, o * p.tiles + t, t * base + min(t, extra)
 
 
 def dft_frame_index(nfft: int, hop: int, frames: int) -> np.ndarray:

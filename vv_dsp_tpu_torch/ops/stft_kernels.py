@@ -327,13 +327,14 @@ def stft_power_dft(x: torch.Tensor, nfft: int, hop: int,
     if n_frames < 1:
         raise ValueError(f"n_frames must be positive, got {n_frames}")
     bins = nfft // 2 + 1
+    plan = mma_plan.dft_plan(nfft, hop)
     bparts = _dft_parts_on(nfft, window, window_param, x.device)
     out = torch.empty((c, n_frames, bins), dtype=torch.float32,
                       device=x.device)
     err = _build.library().vv_dft_power(
         _build.ptr(x), _build.ptr(bparts), _build.ptr(out), c, n, n_frames,
-        nfft, hop, bins, mma_plan.dft_cols(nfft), x.device.index,
-        _build.stream_handle(x))
+        nfft, hop, bins, mma_plan.dft_cols(nfft), plan.tiles, plan.smem,
+        x.device.index, _build.stream_handle(x))
     _build.check(err, "stft_power_dft")
     stft_power_dft.launches += 1
     return out

@@ -148,10 +148,10 @@ def upfirdn_banded(x: torch.Tensor, taps: torch.Tensor, up: int, down: int,
                    algorithm: str | None = None) -> torch.Tensor:
     """(c, n) float32 -> (c, n_out) float32. A CPU tensor takes the plain
     version; a CUDA tensor launches the tensor-core kernel, or raises. The
-    host plan (``ops/mma_plan.py``) gives the kernel its frame group and
-    B's bf16 parts, cached per table; the kernel entry refuses a geometry
-    it cannot run (up, down or taps_pp < 1, offset < 0, or a band matrix
-    and input window beyond one block's shared memory)."""
+    host plan (``ops/mma_plan.py``) gives the kernel its frame group, its
+    tile layout (B resident, or streamed in depth chunks for long filters)
+    and B's bf16 parts, cached per table; the kernel entry refuses a
+    geometry it cannot run (up, down or taps_pp < 1, offset < 0)."""
     algorithm = config.dot_algorithm(algorithm)
     if x.device.type == "cpu":
         return upfirdn_tall(x, taps, up, down, offset, n_out, algorithm)
@@ -175,7 +175,8 @@ def upfirdn_banded(x: torch.Tensor, taps: torch.Tensor, up: int, down: int,
     err = _build.library().vv_upfirdn(
         _build.ptr(x), _build.ptr(bparts), _build.ptr(y), c, n_in, n_out,
         up, down, offset, taps_pp, p.n_real, p.n_tiles, p.n_pad, p.stride,
-        p.k_pad, p.c_lo, config.ALGORITHMS.index(algorithm), x.device.index,
+        p.k_pad, p.k_chunk, p.m_tiles, p.a_pitch, p.win, p.flush, p.smem,
+        p.c_lo, config.ALGORITHMS.index(algorithm), x.device.index,
         _build.stream_handle(x))
     _build.check(err, "upfirdn_banded")
     upfirdn_banded.launches += 1

@@ -6,7 +6,8 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile the port's CUDA kernels from vv_dsp_tpu_torch/csrc,
    failing if ptxas spills in any instance of the two tensor-core kernels
-   (csrc/upfirdn.cu, csrc/dft_power.cu);
+   (csrc/upfirdn.cu, csrc/dft_power.cu), of the packed MFCC kernel
+   (csrc/stft.cu) or of the full-nfft inverse (csrc/stockham.cu);
 3. kernels: each kernel of the path against its plain PyTorch version on
    the card, at the shapes the main path gives it (the MFCC kernel at the
    chain's and at MFCCFrontend's geometry), within its tolerance,
@@ -21,7 +22,11 @@ Phases, each fatal on failure:
    the register-resident FFT of csrc/fft_reg.cuh: the packed one is also
    held at the ends of its range on 2 channels (256/64, 4096/1024), and
    each main-path row of the two prints kernel, torch.stft and bound ms,
-   the bound's share and the registers ptxas gave the kernel (build.log).
+   the bound's share and the registers ptxas gave the kernel (build.log);
+   so does each main-path row of the MFCC kernel and of the full-nfft
+   inverse, which run the same transform (a redesign line: kernel and
+   bound ms, the bound's share, ptxas's figures, the plan's dynamic shared
+   memory).
    The two tensor-core kernels print the same row (kernel and bound ms,
    the bound's share, ptxas's figures): the banded upfirdn at each tier at
    the chain head, each against its own tier's bound (f32 the lesser of
@@ -182,10 +187,9 @@ def build_phase() -> list[str]:
     for line in log:
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
-    spills = tensor_core_spills(log)
+    spills = checked_spills(log)
     if spills:
-        raise SystemExit(f"chip_smoke: tensor-core kernel instances spill: "
-                         f"{spills}")
+        raise SystemExit(f"chip_smoke: kernel instances spill: {spills}")
     return log
 
 
@@ -262,16 +266,21 @@ def ptxas_usage(log: list[str], kernel: str, n: int, onesided: bool) -> str:
     return usage_text(log, f"{kernel}ILi{n}ELb{int(onesided)}E")
 
 
-def tensor_core_spills(log: list[str]) -> list[str]:
-    """Instances of the two tensor-core kernels (csrc/upfirdn.cu,
-    csrc/dft_power.cu) that spill, by mangled name."""
+# kernels whose instances may not spill: the two tensor-core kernels
+# (csrc/upfirdn.cu, csrc/dft_power.cu), the packed MFCC kernel and the
+# full-nfft inverse (csrc/stft.cu, csrc/stockham.cu)
+NO_SPILL = ("upfirdn_mma_kernel", "dft_power_kernel", "stft_mfcc_kernel",
+            "istft_stockham_kernel")
+
+
+def checked_spills(log: list[str]) -> list[str]:
+    """Instances of the NO_SPILL kernels that spill, by mangled name."""
     spills, name = [], None
     for line in log:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-        elif name and ("upfirdn_mma_kernel" in name
-                       or "dft_power_kernel" in name):
+        elif name and any(k in name for k in NO_SPILL):
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and int(m.group(1)):
                 spills.append(name)
@@ -301,13 +310,32 @@ def upfirdn_instance(up, down, taps_pp, offset, tier) -> tuple[str, int]:
     return tag, p.smem
 
 
-def mma_line(name, label, ms, bound_ms, bound_by, log, tag, smem) -> None:
-    """A tensor-core kernel's row: kernel and bound ms, the bound's share
-    of the kernel time, and what ptxas gave the instance."""
-    print(f"  tensor cores {name} [{label}]: kernel {ms:.4f} ms, bound "
+def mma_line(name, label, ms, bound_ms, bound_by, log, tag, smem,
+             kind="tensor cores") -> None:
+    """A redesigned kernel's row (the tensor-core kernels', and with kind
+    "redesign" the MFCC kernel's and the full-nfft inverse's): kernel and
+    bound ms, the bound's share of the kernel time, and what ptxas gave the
+    instance."""
+    print(f"  {kind} {name} [{label}]: kernel {ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}), share of the bound "
           f"{bound_ms / ms:.3f}; build.log: {usage_text(log, tag)}; "
           f"dynamic shared memory {smem} bytes a block")
+
+
+def mfcc_instance(mfcc_args, tier) -> tuple[str, int]:
+    """The csrc/stft.cu instance <M, ALG, FUSE_DCT> an stft_mfcc launch
+    with the DCT runs, as its mangled-name tag, and its dynamic shared
+    memory: the host plan's (ops/fft_plan.py mfcc_plan), which the
+    launcher checks."""
+    from vv_dsp_tpu_torch import config
+    from vv_dsp_tpu_torch.ops import fft_plan
+    from vv_dsp_tpu_torch.ops import stft_kernels as sk
+    nfft, _, _, mel_fb, bands, dct = mfcc_args[:6]
+    weights, _ = sk._mel_tables(mel_fb, bands)
+    plan = fft_plan.mfcc_plan(nfft, mel_fb.shape[0], dct.shape[0],
+                              weights.numel(), True)
+    return (f"stft_mfcc_kernelILi{nfft // 2}ELi"
+            f"{config.ALGORITHMS.index(tier)}ELb1E", plan.smem)
 
 
 def fr_smem(n: int, packed: bool) -> int:
@@ -517,6 +545,10 @@ def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
         got = fast()
         r = record("stft_mfcc", tier, got, plain(), MFCC_TOL, fast, plain,
                    failed)
+        b = mel_bound(y, got, chain)
+        mma_line("stft_mfcc", f"chain, {tier}", r["ms"], b["bound_ms"],
+                 b["bound_by"], log, *mfcc_instance(mfcc_args, tier),
+                 kind="redesign")
         if tier == "f32":
             tier_gap("stft_mfcc f32", got,
                      sk.stft_mfcc_plain(y, *plain_args, "bf16x3"), "bf16x3")
@@ -538,8 +570,9 @@ def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
     r = record("stft_mfcc", "MFCCFrontend f32", got, plain(), MFCC_TOL,
                fast, plain, failed)
     r.update(mel_bound(xc, got, front))
-    print(f"  stft_mfcc [MFCCFrontend f32] bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']})")
+    mma_line("stft_mfcc", "MFCCFrontend f32", r["ms"], r["bound_ms"],
+             r["bound_by"], log, *mfcc_instance(front_args, "f32"),
+             kind="redesign")
     results["stft_mfcc"].update({f"frontend_{k}": v for k, v in r.items()})
 
     win = STFT(NFFT, HOP).win(xs.device)
@@ -598,7 +631,7 @@ def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
     results.update(stockham_phase(xc, xs, front128, failed, log))
     results.update(filter_phase(xc, failed))
     results["stft_power_dft"] = dft_power_phase(xs, win, failed, log)
-    results["istft_stockham"] = istft_stockham_phase(xc, win, failed)
+    results["istft_stockham"] = istft_stockham_phase(xc, win, failed, log)
     results["stft_gate_packed"] = gate_packed_phase(xc, win, failed)
     tier_probes((up, down, offset, n_out, taps), mfcc_args, failed)
     torch.cuda.synchronize()
@@ -995,12 +1028,15 @@ def dft_power_phase(xs, win, failed: list, log: list[str]) -> dict:
     return r
 
 
-def istft_stockham_phase(xc, win, failed: list) -> dict:
+def istft_stockham_phase(xc, win, failed: list, log: list[str]) -> dict:
     """istft_stockham at 1024/256 on the one-sided spectrum of the
     COLA-padded (16, 479232) input, (16, 1876, 513), with the packed
     inverse kernel on the same spectrum; on a non-Hermitian (16, 1876,
     1024) spectrum with rfft=False (all bins inverted); and at 128/32 on
-    the one-sided (16, 14974, 65) spectrum of the input."""
+    the one-sided (16, 14974, 65) spectrum of the input. Each row's
+    redesign line gives the <N, RFFT> instance's ptxas figures and the
+    plan's shared memory."""
+    from vv_dsp_tpu_torch.ops import fft_plan
     from vv_dsp_tpu_torch.ops import istft_kernels as ik
     from vv_dsp_tpu_torch.ops import stft_kernels as sk
     from vv_dsp_tpu_torch.ops import stockham_kernels as stk
@@ -1044,8 +1080,10 @@ def istft_stockham_phase(xc, win, failed: list) -> dict:
                         + 4 * (got.numel() + n_out),
                         fft_flops(c * spec.shape[1], nfft)
                         + c * spec.shape[1] * 2 * nfft, F32_FLOP_PER_S))
-        print(f"  istft_stockham [{label}] bound {rr['bound_ms']:.4f} ms "
-              f"({rr['bound_by']})")
+        mma_line("istft_stockham", label, rr["ms"], rr["bound_ms"],
+                 rr["bound_by"], log,
+                 f"istft_stockham_kernelILi{nfft}ELb{int(rfft)}E",
+                 fft_plan.istft_smem(nfft, hop), kind="redesign")
         if r is None:
             r = rr
             r["packed_ms"] = cuda_ms(lambda: ik.istft(spec, nfft, hop, n_out,

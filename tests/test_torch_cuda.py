@@ -211,6 +211,35 @@ def test_spectrum_kernels_on_an_impulse(dev, kind, nfft, hop, at):
         assert np.abs(got - want[:bins]).max() < 1e-6
 
 
+def _check_mfcc(x, nfft, hop, win, fb, bands, dct, algorithm):
+    """The MFCC kernel against its plain version at one tier: mel energies
+    within 5e-5 of scale plus 2u of each value; f32 MFCCs within 5e-4
+    absolute or 5e-6 of scale; the kernel's log and DCT within float32
+    summation of the plain DCT step on its own mel energies. Returns the
+    MFCCs."""
+    n_mels, n_mfcc = dct.shape[1], dct.shape[0]
+    u = {"f32": 0.0, "bf16x3": 2.0 ** -15, "bf16": 2.0 ** -7}[algorithm]
+    mel = tsk.stft_mfcc(x, nfft, hop, win, fb, bands, None, 1e-10, algorithm)
+    mel_want = tsk.stft_mfcc_plain(x, nfft, hop, win, fb, None, 1e-10,
+                                   algorithm)
+    nf = mel_want.shape[1]
+    assert mel.shape == (x.shape[0], nf, n_mels)
+    assert ((mel - mel_want).abs() <= 5e-5 * mel_want.abs().max()
+            + 2 * u * mel_want.abs()).all()
+    got = tsk.stft_mfcc(x, nfft, hop, win, fb, bands, dct, 1e-10, algorithm)
+    assert got.shape == (x.shape[0], nf, n_mfcc)
+    if algorithm == "f32":
+        want = tsk.stft_mfcc_plain(x, nfft, hop, win, fb, dct, 1e-10, "f32")
+        err = (got - want).abs().max().item()
+        assert err < max(5e-4, 5e-6 * want.abs().max().item())
+    log_mel = torch.log(mel + 1e-10)
+    step = config.tier_matmul(log_mel, dct.T, algorithm)
+    k = n_mels * (3 if algorithm == "bf16x3" else 1)
+    bound = 2 * k * 2.0 ** -24 * (log_mel.abs() @ dct.abs().T)
+    assert ((got - step).abs() <= bound).all()
+    return got
+
+
 @pytest.mark.parametrize("nfft,hop,n_mels,n_mfcc,sr,lifter", [
     (2048, 512, 80, 20, 64000.0, 0.0), (512, 128, 26, 13, 16000.0, 22.0),
     (4096, 1000, 64, 30, 48000.0, 0.0)])
@@ -222,25 +251,57 @@ def test_mfcc_kernel_matches_plain(dev, gen, nfft, hop, n_mels, n_mfcc, sr,
     win, fb, bands, dct = tmel._mfcc_constants(nfft, n_mels, n_mfcc, sr, 0.0,
                                                sr / 2, lifter, "htk", "hann",
                                                None, dev)
-    u = {"f32": 0.0, "bf16x3": 2.0 ** -15, "bf16": 2.0 ** -7}[algorithm]
-    mel = tsk.stft_mfcc(x, nfft, hop, win, fb, bands, None, 1e-10, algorithm)
-    mel_want = tsk.stft_mfcc_plain(x, nfft, hop, win, fb, None, 1e-10,
-                                   algorithm)
-    nf = mel_want.shape[1]
-    assert mel.shape == (2, nf, n_mels)
-    assert ((mel - mel_want).abs() <= 5e-5 * mel_want.abs().max()
-            + 2 * u * mel_want.abs()).all()
-    got = tsk.stft_mfcc(x, nfft, hop, win, fb, bands, dct, 1e-10, algorithm)
-    assert got.shape == (2, nf, n_mfcc)
-    if algorithm == "f32":
-        want = tsk.stft_mfcc_plain(x, nfft, hop, win, fb, dct, 1e-10, "f32")
-        err = (got - want).abs().max().item()
-        assert err < max(5e-4, 5e-6 * want.abs().max().item())
-    log_mel = torch.log(mel + 1e-10)
-    step = config.tier_matmul(log_mel, dct.T, algorithm)
-    k = n_mels * (3 if algorithm == "bf16x3" else 1)
-    bound = 2 * k * 2.0 ** -24 * (log_mel.abs() @ dct.abs().T)
-    assert ((got - step).abs() <= bound).all()
+    _check_mfcc(x, nfft, hop, win, fb, bands, dct, algorithm)
+
+
+def _mfcc_setup(nfft, n_mels, n_mfcc, sr, dev):
+    return tmel._mfcc_constants(nfft, n_mels, n_mfcc, sr, 0.0, sr / 2, 0.0,
+                                "htk", "hann", None, dev)
+
+
+@pytest.mark.parametrize("nfft,n_mels,n_mfcc,sr", [
+    (256, 24, 12, 8000.0), (512, 40, 20, 16000.0), (1024, 26, 13, 16000.0),
+    (2048, 80, 20, 64000.0), (4096, 64, 30, 48000.0)])
+@pytest.mark.parametrize("algorithm", ALGORITHMS)
+def test_mfcc_kernel_at_every_transform_size(dev, gen, nfft, n_mels, n_mfcc,
+                                             sr, algorithm):
+    """Every packed transform size (m = 128 to 2048 points) at each tier:
+    a hop that divides neither nfft nor n, fewer frames than a block's
+    group of 4096/nfft (one frame at 4096), one frame (n < nfft), one
+    channel and three; and the same bits on a second run."""
+    win, fb, bands, dct = _mfcc_setup(nfft, n_mels, n_mfcc, sr, dev)
+    hop = nfft // 4 + 3
+    for c, n in ((1, nfft - 7), (3, 2 * hop + nfft + 5), (2, 20 * hop + 1)):
+        x = torch.as_tensor(gen.standard_normal((c, n)),
+                            dtype=torch.float32, device=dev)
+        got = _check_mfcc(x, nfft, hop, win, fb, bands, dct, algorithm)
+        again = tsk.stft_mfcc(x, nfft, hop, win, fb, bands, dct, 1e-10,
+                              algorithm)
+        assert torch.equal(got, again)
+
+
+def test_mfcc_kernel_launches_at_several_layout_sizes(dev, gen):
+    """One process, one kernel instance (2048 points, f32, fused DCT) at
+    three shared-memory sizes, the largest second: each launch within
+    fr_launch's attribute and block count for its size."""
+    x = torch.as_tensor(gen.standard_normal((2, 30001)), dtype=torch.float32,
+                        device=dev)
+    for n_mels, n_mfcc in ((40, 13), (128, 64), (80, 20)):
+        win, fb, bands, dct = _mfcc_setup(2048, n_mels, n_mfcc, 64000.0, dev)
+        _check_mfcc(x, 2048, 512, win, fb, bands, dct, "f32")
+
+
+def test_mfcc_kernel_reads_tables_from_device_memory(dev, gen):
+    """A DCT too large to stage (128 x 128 at 4096 points): the plan reads
+    the filterbank and the DCT from device memory, at every tier."""
+    from vv_dsp_tpu_torch.ops import fft_plan
+    win, fb, bands, dct = _mfcc_setup(4096, 128, 128, 48000.0, dev)
+    weights, _ = tsk._mel_tables(fb, bands)
+    assert not fft_plan.mfcc_plan(4096, 128, 128, weights.numel(), True).staged
+    x = torch.as_tensor(gen.standard_normal((2, 24001)), dtype=torch.float32,
+                        device=dev)
+    for algorithm in ALGORITHMS:
+        _check_mfcc(x, 4096, 1024, win, fb, bands, dct, algorithm)
 
 
 def test_chain_on_card_matches_cpu(dev, gen):
@@ -878,6 +939,40 @@ def test_istft_stockham_kernel_matches_plain(dev, gen, nfft, hop, rfft):
         assert _rel(got * norm, want * norm) < 5e-6, out_len
         if out_len > cover:
             assert (got[:, cover:] == 0).all()
+
+
+@pytest.mark.parametrize("nfft", [128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("rfft", [False, True])
+def test_istft_stockham_at_every_transform_size(dev, gen, nfft, rfft):
+    """Every transform size in both forms, at the smallest hop the lattice
+    takes, nfft/4 and hop = nfft; an even and an odd frame count and one
+    frame; output_len at, short of and beyond the cover; the same bits on
+    a second run."""
+    bins = nfft // 2 + 1 if rfft else nfft
+    win = None
+    for hop in (max(8, nfft // 128), nfft // 4, nfft):
+        assert tstk.stockham_supported(nfft, hop)
+        win = STFT(nfft, hop).win(dev)
+        for nf in (1, 6, 11):
+            spec = torch.complex(*(torch.as_tensor(
+                gen.standard_normal((2, nf, bins)), dtype=torch.float32)
+                for _ in range(2))).to(dev)
+            cover = (nf - 1) * hop + nfft
+            for out_len in (cover, max(cover - hop - 5, nfft // 2),
+                            cover + nfft + 3):
+                norm = tik.ola_norm(get_window_np("hann", nfft), hop, nf,
+                                    out_len, dev)
+                got = tstk.istft_stockham(spec, nfft, hop, out_len, win,
+                                          norm, rfft)
+                again = tstk.istft_stockham(spec, nfft, hop, out_len, win,
+                                            norm, rfft)
+                want = tstk.istft_stockham_plain(spec, nfft, hop, out_len,
+                                                 win, norm, rfft)
+                assert torch.equal(got, again)
+                assert _rel(got * norm, want * norm) < 5e-6, (hop, nf,
+                                                               out_len)
+                if out_len > cover:
+                    assert (got[:, cover:] == 0).all()
 
 
 def test_istft_stockham_refuses_what_it_does_not_take(dev):

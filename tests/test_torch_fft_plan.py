@@ -1,12 +1,12 @@
 """The host side of the register-resident FFT (``csrc/fft_reg.cuh``): its
-radix plan and per-pass twiddle table, for every N the two spectrum
-kernels reach (128 to 2048).
+radix plan and per-pass twiddle table, for every N its kernels reach (128 to
+2048), and the packed MFCC kernel's plan: its compact filterbank, replayed
+with the kernel's lane sums against the dense products, and its
+shared-memory layout at the ends of its lattice.
 
 The kernel's passes are replayed in float64 numpy with the kernel's own
-index maps (thread j of a frame holds points j + s N/8, s < 8; butterfly
-jv = j + u N/8 of a radix-R pass takes register u + r 8/R; its output r
-goes to (jv div Ns) Ns R + (jv mod Ns) + r Ns) and the float64 table the
-kernel's float32 one is cast from: the result must be ``np.fft.fft`` to
+index maps (``torch_fft_replay``) and the float64 table the kernel's
+float32 one is cast from: the result must be ``np.fft.fft`` to
 1e-12 of max |X|. The shared-memory swizzle of each exchange is checked to
 be a bijection free of bank conflicts for the reads and writes of every
 pass, as the kernel makes them.
@@ -15,47 +15,11 @@ pass, as the kernel makes them.
 import numpy as np
 import pytest
 
+from torch_fft_replay import replay_fft
 from vv_dsp_tpu_torch.ops import fft_plan
 
 SIZES = [128, 256, 512, 1024, 2048]
 THREADS = 256           # the kernel's block: 2048 / N frames of N / 8 threads
-
-
-def _dft(v, radix):
-    """The radix-point DFT over axis 0, as the kernel's butterflies take it
-    (natural order in and out)."""
-    k = np.arange(radix)
-    return np.exp(-2j * np.pi * np.outer(k, k) / radix) @ v
-
-
-def _replay(x, n):
-    """The kernel's passes on one frame x (n points), in float64: the
-    registers v[j, s] between passes and the buffer the passes exchange
-    through. Returns the last pass's buffer, which must be natural order."""
-    t = n // 8
-    tw = fft_plan.pass_twiddles_np(n, np.float64)
-    tw = tw[:, 0] + 1j * tw[:, 1]
-    offs = fft_plan.pass_offsets(n)
-    j = np.arange(t)
-    v = x[j[:, None] + np.arange(8)[None, :] * t]        # (t, 8)
-    for p, (radix, ns) in enumerate(zip(fft_plan.radix_plan(n),
-                                        fft_plan.pass_strides(n))):
-        buf = np.full(n, np.nan, complex)
-        per = 8 // radix
-        for u in range(per):
-            jv = j + u * t
-            regs = u + np.arange(radix) * per
-            inp = v[:, regs].T.copy()                    # (radix, t)
-            if ns > 1:
-                k = jv % ns
-                for r in range(1, radix):
-                    inp[r] *= tw[offs[p] + (r - 1) * ns + k]
-            out = _dft(inp, radix)
-            for r in range(radix):
-                buf[(jv // ns) * ns * radix + jv % ns + r * ns] = out[r]
-        assert not np.isnan(buf).any()
-        v = buf[j[:, None] + np.arange(8)[None, :] * t]
-    return buf
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -77,7 +41,7 @@ def test_plan_covers_n(n):
 def test_replayed_passes_are_the_fft(n):
     rng = np.random.default_rng(n)
     x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
-    got, want = _replay(x, n), np.fft.fft(x)
+    got, want = replay_fft(x, n), np.fft.fft(x)
     assert np.abs(got - want).max() < 1e-12 * np.abs(want).max()
 
 
@@ -135,3 +99,100 @@ def test_plan_refuses_sizes_off_the_lattice():
     for n in (64, 96, 4096):
         with pytest.raises(ValueError):
             fft_plan.radix_plan(n)
+
+
+# ---- the packed MFCC kernel's host plan (csrc/stft.cu stft_mfcc_kernel) ---
+
+MEL_LANES = 4   # threads summing one band or coefficient (csrc/stft.cu)
+
+
+def _lane_sum(terms):
+    """One frame's sum of an item as the kernel takes it: lane l adds terms
+    l, l + MEL_LANES, ... in order, then the lanes' xor shuffle tree."""
+    part = [sum(terms[lane::MEL_LANES]) for lane in range(MEL_LANES)]
+    s = MEL_LANES // 2
+    while s:
+        part = [part[lane] + part[lane ^ s] for lane in range(MEL_LANES)]
+        s //= 2
+    return part[0]
+
+
+def _mel_replay(power, weights, index, n_mels):
+    """The kernel's mel sums over the compact filterbank, in float64."""
+    off, lo = index[:n_mels + 1], index[n_mels + 1:]
+    return np.array([[_lane_sum(weights[off[b]:off[b + 1]]
+                                * row[lo[b]:lo[b] + off[b + 1] - off[b]])
+                      for b in range(n_mels)] for row in power])
+
+
+def _filterbank(name):
+    """(mel_fb float32 numpy, band edges, dct rows) of a geometry the MFCC
+    kernel runs."""
+    from vv_dsp_tpu_torch.models import MFCCFrontend, NorthStarChain
+    from vv_dsp_tpu_torch.ops import mel as tmel
+    from vv_dsp_tpu_torch.ops import stft_kernels as tsk
+    if name in ("chain", "frontend"):
+        mod = (NorthStarChain if name == "chain" else MFCCFrontend)(
+            device="cpu")
+        return (mod.mel_fb.numpy(), mod.mel_bands.numpy(),
+                mod.dct_lift.numpy().astype(np.float64))
+    fb = tmel.mel_filterbank_np(4096, 64, 48000.0, 0.0, 24000.0, "htk")
+    if name == "zero band":
+        fb = fb.copy()
+        fb[5] = 0.0
+    fb = fb.astype(np.float32)
+    return fb, tsk.band_edges_np(fb), tmel.mfcc_dct_np(64, 30)
+
+
+@pytest.mark.parametrize("name", ["chain", "frontend", "4096 64 mels",
+                                  "zero band"])
+def test_compact_filterbank_contraction_is_the_dense_product(name):
+    """The chain's, MFCCFrontend()'s and a 4096-point 64-mel filterbank,
+    and one with an all-zero band (an empty range): the compact form holds
+    exactly the nonzero weights, and the kernel's lane sums over it, then
+    over the DCT rows, are the dense products to 1e-12."""
+    fb, bands, dct = _filterbank(name)
+    weights, index = fft_plan.compact_filterbank_np(fb, bands)
+    n_mels = fb.shape[0]
+    assert weights.dtype == np.float32 and index.dtype == np.int32
+    assert index.shape == (2 * n_mels + 1,) and index[0] == 0
+    assert weights.size == index[n_mels] == np.count_nonzero(fb)
+    if name == "zero band":
+        assert index[5] == index[6]
+    power = np.random.default_rng(n_mels).uniform(0, 2, (3, fb.shape[1]))
+    got = _mel_replay(power, weights.astype(np.float64), index, n_mels)
+    want = power @ fb.astype(np.float64).T
+    assert np.abs(got - want).max() < 1e-12 * np.abs(want).max()
+    log_mel = np.log(want + 1e-10)
+    got = np.array([[_lane_sum(d * row) for d in dct] for row in log_mel])
+    want = log_mel @ dct.T
+    assert np.abs(got - want).max() < 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("nfft,n_mels,n_mfcc,nnz,fuse,staged", [
+    (256, 24, 12, 236, True, True),        # the lattice's small end
+    (2048, 80, 20, 1997, True, True),      # the chain
+    (1024, 26, 13, 970, True, True),       # MFCCFrontend()
+    (4096, 64, 30, 3979, True, True),      # the large end
+    (4096, 128, 128, 4095, True, False),   # the DCT outgrows the budget
+    (4096, 128, 128, 4095, False, True),   # mel energies: no DCT
+    (256, 2500, 13, 258, True, False)])    # 16 frames of 2500 log-mels
+def test_mfcc_plan_layout(nfft, n_mels, n_mfcc, nnz, fuse, staged):
+    plan = fft_plan.mfcc_plan(nfft, n_mels, n_mfcc, nnz, fuse)
+    m = nfft // 2
+    rows = 2048 // m * n_mels if fuse else 0
+    tables = nnz + (n_mfcc * n_mels if fuse else 0)
+    fixed = 8 * (len(fft_plan.pass_twiddles_np(m)) + m + 1 + 4096)
+    assert plan.staged == staged
+    assert plan.smem == fixed + 4 * (rows + 2 * n_mels + 1
+                                     + (tables if staged else 0))
+    assert plan.smem <= (fft_plan.MFCC_SMEM_BUDGET if staged
+                         else fft_plan.SMEM_BYTES)
+    assert 2 * (fft_plan.MFCC_SMEM_BUDGET + 1024) <= 233472
+    if (nfft, n_mels) == (2048, 80):        # three chain blocks an SM
+        assert 3 * (plan.smem + 1024) <= 233472
+
+
+def test_mfcc_plan_refuses_what_no_block_holds():
+    with pytest.raises(ValueError):
+        fft_plan.mfcc_plan(256, 4000, 13, 258, True)

@@ -93,8 +93,8 @@ def library() -> ctypes.CDLL:
     lib.vv_upfirdn.argtypes = [P, P, P, I, L, L, I, I, L, I, I, I, I, I, I,
                                I, I, I, I, I, I, L, I, I, P]
     lib.vv_stft_spectrum.argtypes = [P, P, P, P, P, I, L, I, I, I, I, I, P]
-    lib.vv_stft_mfcc.argtypes = [P, P, P, P, P, P, P, P, P, I, L, I, I, I, I,
-                                 I, F, I, I, I, P]
+    lib.vv_stft_mfcc.argtypes = [P, P, P, P, P, P, P, P, I, L, I, I, I, I,
+                                 I, I, F, I, I, I, L, I, P]
     lib.vv_stft_power.argtypes = [P, P, P, P, P, I, L, I, I, I, I, P]
     lib.vv_istft.argtypes = [P, P, P, P, P, P, I, I, I, I, L, I, F, I, P]
     lib.vv_stockham_spectrum.argtypes = [P, P, P, P, I, L, I, I, I, I, I, P]
@@ -105,7 +105,8 @@ def library() -> ctypes.CDLL:
     lib.vv_fir_direct.argtypes = [P, P, P, I, L, I, I, P]
     lib.vv_poly.argtypes = [P, P, P, I, L, L, I, I, I, I, I, P]
     lib.vv_dft_power.argtypes = [P, P, P, I, L, I, I, I, I, I, I, I, I, P]
-    lib.vv_istft_stockham.argtypes = [P, P, P, P, P, I, I, I, I, I, L, I, P]
+    lib.vv_istft_stockham.argtypes = [P, P, P, P, P, I, I, I, I, I, L, L, I,
+                                      P]
     lib.vv_stft_gate_packed.argtypes = [P, P, P, P, P, P, I, L, I, I, I, F,
                                         I, P]
     for fn in (lib.vv_upfirdn, lib.vv_stft_spectrum, lib.vv_stft_mfcc,

@@ -2,7 +2,8 @@
 //
 // The dot-algorithm tiers keep the meaning they have in the JAX package
 // (vv_dsp_tpu/ops/pallas_kernels.py::dot_alg). tier_fma evaluates them one
-// product at a time on the CUDA cores:
+// product at a time on the CUDA cores, on operands split once
+// (TierOperand):
 //   ALG_F32    - plain float32 fused multiply-add;
 //   ALG_BF16X3 - both operands split into bf16 hi/lo parts (round to nearest
 //                even), hi*hi + hi*lo + lo*hi accumulated in float32, lo*lo
@@ -26,16 +27,40 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// acc + w * x at tier ALG (operands split on the fly)
+// An operand split for tier ALG: hi = bf16(v) and, at bf16x3, lo =
+// bf16(v - hi); at f32 hi = v. Split once, an operand serves every product
+// it takes part in. pack() keeps the parts in one 32-bit word (at bf16x3
+// the two bf16 values side by side, else hi), so a split row takes the
+// room of a float row.
 template <int ALG>
-__device__ __forceinline__ float tier_fma(float w, float x, float acc) {
-  if (ALG == ALG_F32) return fmaf(w, x, acc);
-  if (ALG == ALG_BF16) return fmaf(bf16_round(w), bf16_round(x), acc);
-  const float wh = bf16_round(w), wl = bf16_round(w - wh);
-  const float xh = bf16_round(x), xl = bf16_round(x - xh);
-  acc = fmaf(wh, xh, acc);
-  acc = fmaf(wh, xl, acc);
-  return fmaf(wl, xh, acc);
+struct TierOperand {
+  float hi, lo;
+  __device__ __forceinline__ static TierOperand split(float v) {
+    const float h = ALG == ALG_F32 ? v : bf16_round(v);
+    return {h, ALG == ALG_BF16X3 ? bf16_round(v - h) : 0.f};
+  }
+  __device__ __forceinline__ float pack() const {
+    if (ALG != ALG_BF16X3) return hi;
+    return __uint_as_float((__float_as_uint(hi) & 0xffff0000u) |
+                           (__float_as_uint(lo) >> 16));
+  }
+  __device__ __forceinline__ static TierOperand unpack(float w) {
+    if (ALG != ALG_BF16X3) return {w, 0.f};
+    const unsigned u = __float_as_uint(w);
+    return {__uint_as_float(u & 0xffff0000u), __uint_as_float(u << 16)};
+  }
+};
+
+// acc + w * x at tier ALG: hi*hi, then at bf16x3 hi*lo and lo*hi
+template <int ALG>
+__device__ __forceinline__ float tier_fma(TierOperand<ALG> w,
+                                          TierOperand<ALG> x, float acc) {
+  acc = fmaf(w.hi, x.hi, acc);
+  if (ALG == ALG_BF16X3) {
+    acc = fmaf(w.hi, x.lo, acc);
+    acc = fmaf(w.lo, x.hi, acc);
+  }
+  return acc;
 }
 
 __device__ __forceinline__ float power2(float2 v) {
@@ -61,21 +86,30 @@ inline int owned_segments(int nfft, int hop) {
 // Overlap-add of the overlap-add kernels: add sample(b, i) * win[i], sample
 // i < nfft of inverse frame b < nb, into strip[lo, hi), frame b starting at
 // strip position off + b*hop, frames in ascending order for each sample, so
-// every block sums a sample the same way. Ends at a barrier. sample says
-// where a kernel's inverse frames keep their samples.
+// every block sums a sample the same way. A sample visits only the frames
+// that cover it (b from the first with d - b hop < nfft to the last with
+// b hop <= d, d its distance from frame 0's start), found by shifts: hop is
+// a power of two (it divides the power-of-two nfft; every launcher checks).
+// Ends at a barrier. sample says where a kernel's inverse frames keep their
+// samples.
 template <class Sample>
 __device__ __forceinline__ void ola_strip(Sample sample, float* strip, int nb,
                                           long long off, int strip_len,
                                           int nfft, int hop,
                                           const float* __restrict__ win) {
-  const int lo = (int)max(off, 0LL);
-  const int hi = (int)min(off + (long long)(nb - 1) * hop + nfft,
-                          (long long)strip_len);
-  for (int t = lo + threadIdx.x; t < hi; t += blockDim.x) {
+  // |off| < nfft + strip_len: the frames start at most q - 1 hops before
+  // the strip, and none after its end
+  const int o = (int)off;
+  const int hi = min(o + (nb - 1) * hop + nfft, strip_len);
+  const int lh = __ffs(hop) - 1;
+  for (int t = max(o, 0) + threadIdx.x; t < hi; t += blockDim.x) {
+    const int d = t - o;
     float acc = strip[t];
-    for (int b = 0; b < nb; ++b) {
-      const long long i = t - off - (long long)b * hop;
-      if (i >= 0 && i < nfft) acc += sample(b, (int)i) * win[i];
+    const int last = min(d >> lh, nb - 1);
+    // (d - nfft) >> lh floors, also below 0 (an arithmetic shift)
+    for (int b = max(((d - nfft) >> lh) + 1, 0); b <= last; ++b) {
+      const int i = d - (b << lh);
+      acc += sample(b, i) * win[i];
     }
     strip[t] = acc;
   }

@@ -1,5 +1,8 @@
 // Register-resident forward FFT shared by the two spectrum kernels
-// (stft.cu stft_spectrum_kernel, stockham.cu stockham_spectrum_kernel).
+// (stft.cu stft_spectrum_kernel, stockham.cu stockham_spectrum_kernel), the
+// packed MFCC kernel (stft.cu stft_mfcc_kernel) and the full-nfft inverse
+// (stockham.cu istft_stockham_kernel, which runs it on conjugated input:
+// N ifft(Z) = conj(fft(conj Z))).
 //
 // The N-point complex transform (N a power of two in [128, 2048]) of each
 // frame runs on N/8 threads, each holding 8 points in registers, as
@@ -23,7 +26,8 @@
 // pass after the first (whose stride is 1), staged in shared memory once
 // per block; a block then walks over frame groups (a persistent grid), so
 // the table and the window are loaded once per block, not once per frame.
-// A block is FR_THREADS threads over FR_POINTS / N frames.
+// A block is FR_THREADS threads over FR_POINTS / N transforms. The host
+// side (ops/fft_plan.py) also lays out each kernel's shared memory.
 #pragma once
 
 #include "common.cuh"
@@ -195,17 +199,35 @@ __device__ __forceinline__ void fr_stage(float2* dst,
 
 // Launch a persistent fr kernel: one block of FR_THREADS per slot the card
 // holds at this shared-memory size (at most `groups`), each walking over
-// frame groups. The per-SM block count is read once per kernel and device.
+// frame groups. An instance may be launched at several shared-memory sizes
+// (the MFCC kernel's grows with its tables, the inverse's strip with hop):
+// the kernel's maximum dynamic shared memory is raised to the largest size
+// requested so far on the device, never lowered, and the block count is
+// kept per (device, size), the last FR_SIZES sizes of the instance.
+constexpr int FR_SIZES = 16;
+
 template <auto Kernel, class... Args>
 cudaError_t fr_launch(size_t smem, long long groups, int device,
                       cudaStream_t stream, Args... args) {
   if (groups <= 0) return cudaSuccess;
-  static int slots[64] = {0};
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-  if (slots[device] == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
+  static size_t attr[64] = {0};
+  static size_t sizes[64][FR_SIZES] = {};
+  static int slots[64][FR_SIZES] = {};
+  static int next[64] = {0};
+  cudaError_t e;
+  if (smem > attr[device]) {
+    e = cudaFuncSetAttribute(
         Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // clear it, so the next launch does not report it
+      return e;
+    }
+    attr[device] = smem;
+  }
+  int i = 0;
+  while (i < FR_SIZES && !(slots[device][i] && sizes[device][i] == smem)) ++i;
+  if (i == FR_SIZES) {
     int per_sm = 0, sms = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
                                                       FR_THREADS, smem);
@@ -213,9 +235,12 @@ cudaError_t fr_launch(size_t smem, long long groups, int device,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (e != cudaSuccess) return e;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    slots[device] = per_sm * sms;
+    i = next[device];
+    next[device] = (i + 1) % FR_SIZES;
+    sizes[device][i] = smem;
+    slots[device][i] = per_sm * sms;
   }
-  const int grid = (int)std::min<long long>(groups, slots[device]);
+  const int grid = (int)std::min<long long>(groups, slots[device][i]);
   Kernel<<<grid, FR_THREADS, smem, stream>>>(args...);
   return cudaGetLastError();
 }

@@ -107,8 +107,9 @@ stft_gate_packed_kernel(const float* __restrict__ x,
   }
 }
 
-// The geometries the launcher takes: power-of-two nfft in [8, 4096], hop in
-// [1, nfft); the Python wrapper narrows this to the JAX package's lattice.
+// The geometries the launcher takes: power-of-two nfft in [8, 4096], hop a
+// divisor of nfft below it; the Python wrapper narrows this to the JAX
+// package's lattice.
 extern "C" int vv_stft_gate_packed(const float* x, const float* win,
                                    const void* tw, const void* wk,
                                    const float* norm, float* out,
@@ -116,7 +117,8 @@ extern "C" int vv_stft_gate_packed(const float* x, const float* win,
                                    int nfft, int hop, float thresh2,
                                    int device, void* stream) {
   if (nfft < 8 || nfft > 4096 || (nfft & (nfft - 1)) || hop < 1 ||
-      hop >= nfft || nf < 1 || n < 1 || channels < 1 || channels > 65535)
+      hop >= nfft || nfft % hop || nf < 1 || n < 1 || channels < 1 ||
+      channels > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;

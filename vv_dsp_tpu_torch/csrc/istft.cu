@@ -109,7 +109,7 @@ extern "C" int vv_istft(const void* spec, const float* win, const void* tw,
                         int channels, int nf, int nfft, int hop,
                         long long output_len, int gate, float thresh2,
                         int device, void* stream) {
-  if (nfft < 4 || (nfft & (nfft - 1)) || hop < 1 || hop > nfft || nf < 1 ||
+  if (nfft < 4 || (nfft & (nfft - 1)) || hop < 1 || nfft % hop || nf < 1 ||
       output_len < 1)
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);

@@ -71,16 +71,20 @@ __device__ __forceinline__ void packed_fft(float2* z, int nb, int m,
   }
 }
 
+// X[k] of a 2m-point real frame from a = Z[k mod m], b = Z[(m - k) mod m]
+// of its packed spectrum and w = wk[k]; X[m - k] takes the same pair
+// swapped, with wk[m - k]
+__device__ __forceinline__ float2 unpack_pair(float2 a, float2 b, float2 w) {
+  const float er = 0.5f * (a.x + b.x), ei = 0.5f * (a.y - b.y);
+  const float o_r = 0.5f * (a.y + b.y), o_i = 0.5f * (b.x - a.x);
+  return make_float2(er + (w.x * o_r - w.y * o_i),
+                     ei + (w.x * o_i + w.y * o_r));
+}
+
 // X[k], 0 <= k <= m, of the 2m-point real frame whose packed spectrum is z
 __device__ __forceinline__ float2 unpack_bin(
     const float2* z, const float2* __restrict__ wk, int k, int m) {
-  const float2 a = z[k & (m - 1)];
-  const float2 b = z[(m - k) & (m - 1)];
-  const float er = 0.5f * (a.x + b.x), ei = 0.5f * (a.y - b.y);
-  const float o_r = 0.5f * (a.y + b.y), o_i = 0.5f * (b.x - a.x);
-  const float2 w = wk[k];
-  return make_float2(er + (w.x * o_r - w.y * o_i),
-                     ei + (w.x * o_i + w.y * o_r));
+  return unpack_pair(z[k & (m - 1)], z[(m - k) & (m - 1)], wk[k]);
 }
 
 // Z[j] * scale of the repack, from a = X[j] and r = X[m - j], 0 <= j < m.

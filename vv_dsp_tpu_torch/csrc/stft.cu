@@ -17,9 +17,9 @@
 // Frame f covers x[f*hop, f*hop + nfft), zero past the signal. Its
 // nfft-point real FFT is a packed-real transform: an m = nfft/2 point
 // complex FFT of the even/odd packed, windowed frame, then the Hermitian
-// unpack of bins 0..m (packed.cuh). The spectrum kernel runs the m-point
-// transform register-resident (fft_reg.cuh), 2048/m frames a block on a
-// persistent grid; the power and MFCC kernels run packed.cuh's radix-2
+// unpack of bins 0..m (packed.cuh). The spectrum and MFCC kernels run the
+// m-point transform register-resident (fft_reg.cuh), 2048/m frames a block
+// on a persistent grid; the power kernel runs packed.cuh's radix-2
 // transform in shared memory, one (channel, frame) a block.
 //
 // Bounds. The spectrum kernel writes 8 bytes per bin: 245 MB at the
@@ -34,12 +34,20 @@
 // writes re^2 + im^2 of bins 0..m in natural order, so the TPU kernel's
 // storage-order permutation epilogue has no counterpart.
 // The MFCC kernel reads the signal and writes 20 floats a frame; the
-// frames, the spectrum and the power never leave shared memory, which is
-// what the TPU kernel exists for. Its ~1.2 GFLOP at the chain's shape are
-// small, so it is bound by latency: ~10 barrier-separated FFT stages per
-// frame. The TPU kernel's DFT-64 matrix tail, its bit-reversed row-to-bin
-// storage order and its VMEM tile picks do not come across: the butterflies
-// run to the end and bins come out in natural order.
+// frames, the spectrum and the power never leave registers and shared
+// memory, which is what the TPU kernel exists for. Its ~1.3 GFLOP at the
+// chain's shape bound it by operations (0.02 ms at the float32 peak), and
+// latency keeps it from the bound: for each group of frames the
+// transform, the powers, the mel sums and the DCT end at barriers. So the
+// transform is register-resident over FB frames a block, the window, the
+// twiddles, the compact filterbank (its nonzero weights, ~8 KB where the
+// chain's dense one holds 328 KB) and the DCT rows are read from device
+// memory once a block (the last two where they fit), and MEL_LANES threads
+// sum a band for all the group's frames, each operand split for the tier
+// once. The TPU
+// kernel's DFT-64 matrix tail, its bit-reversed row-to-bin storage order
+// and its VMEM tile picks do not come across: the butterflies run to the
+// end and bins come out in natural order.
 //
 // Tiers: the MFCC kernel applies the dot-algorithm tier (common.cuh) to
 // the mel projection and the DCT, the two contractions the TPU kernel runs
@@ -62,18 +70,55 @@ __device__ __forceinline__ void packed_frame_fft(
   packed_fft(z, 1, m, log2m, tw);
 }
 
+// Thread j's packed points z[p] = (w[2p] x[2p], w[2p+1] x[2p+1]), p = j +
+// s M/8, of frame f of row xc (n samples; zero past the signal and for
+// f >= nf), with its window pairs w[s] = (win[2p], win[2p+1]): one 8-byte
+// load a point where the frame lies inside the signal at an even float
+// offset, else two bounds-checked scalar loads, so any hop works.
+template <int M>
+__device__ __forceinline__ void packed_frame_regs(
+    float2 (&v)[8], const float* __restrict__ xc, long long n, int f, int nf,
+    int hop, int j, const float2 (&w)[8]) {
+  constexpr int T = M / 8;
+  // samples of frame f left in the signal (none past the last frame)
+  const long long left = f < nf ? n - (long long)f * hop : 0;
+  const float* xf = xc + (f < nf ? (long long)f * hop : 0);
+  if (left >= 2 * M && (reinterpret_cast<uintptr_t>(xf) & 7) == 0) {
+    const float2* x2 = reinterpret_cast<const float2*>(xf);
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const float2 t = __ldg(x2 + j + s * T);
+      v[s] = make_float2(t.x * w[s].x, t.y * w[s].y);
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int i = 2 * (j + s * T);
+      const float e = i < left ? __ldg(xf + i) : 0.f;
+      const float o = i + 1 < left ? __ldg(xf + i + 1) : 0.f;
+      v[s] = make_float2(e * w[s].x, o * w[s].y);
+    }
+  }
+}
+
+// Thread j's window pairs of packed_frame_regs, read once a block
+template <int M>
+__device__ __forceinline__ void packed_window_regs(
+    float2 (&w)[8], const float* __restrict__ win, int j) {
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+    w[s] = reinterpret_cast<const float2*>(win)[j + s * (M / 8)];
+}
+
 // out: (channels, nf, BINS) interleaved complex; BINS = 2M (two-sided,
 // X[2M-k] = conj X[k]) or M + 1 (one-sided). The register-resident M-point
-// transform of fft_reg.cuh on the packed frame: thread j loads packed
-// points z[p] = (w[2p] x[2p], w[2p+1] x[2p+1]) of its frame, p = j + s M/8,
-// straight into registers (one 8-byte load a point where the frame lies
-// inside the signal at an even float offset, else two bounds-checked
-// scalar loads, so any hop works); its 16 window values stay in registers
-// for the whole grid walk. The spectrum Z of FB = 2048/M frames ends in
-// shared memory in natural order; bins 0..M are unpacked from it
-// (unpack_bin, with wk staged in shared memory) and the FB rows, contiguous
-// in out, written as one coalesced run (the division by BINS is by a
-// constant), the mirror bins as conjugates.
+// transform of fft_reg.cuh on the packed frame: thread j loads its packed
+// points straight into registers (packed_frame_regs); its 16 window values
+// stay in registers for the whole grid walk. The spectrum Z of FB = 2048/M
+// frames ends in shared memory in natural order; bins 0..M are unpacked
+// from it (unpack_bin, with wk staged in shared memory) and the FB rows,
+// contiguous in out, written as one coalesced run (the division by BINS is
+// by a constant), the mirror bins as conjugates.
 template <int M, bool ONESIDED>
 __global__ void __launch_bounds__(FR_THREADS, 4)
 stft_spectrum_kernel(const float* __restrict__ x,
@@ -93,34 +138,13 @@ stft_spectrum_kernel(const float* __restrict__ x,
   fr_stage(wks, wk, M + 1);
   const int fb = threadIdx.x / T, j = threadIdx.x % T;
   float2 w[8];
-#pragma unroll
-  for (int s = 0; s < 8; ++s)
-    w[s] = reinterpret_cast<const float2*>(win)[j + s * T];
+  packed_window_regs<M>(w, win, j);
   __syncthreads();
   for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
     const int c = (int)(g / groups_per_row);
     const int f0 = (int)(g - (long long)c * groups_per_row) * FB;
-    const int f = f0 + fb;
-    // samples of frame f left in the signal (none past the last frame)
-    const long long left = f < nf ? n - (long long)f * hop : 0;
-    const float* xf = x + (long long)c * n + (f < nf ? (long long)f * hop : 0);
     float2 v[8];
-    if (left >= NFFT && (reinterpret_cast<uintptr_t>(xf) & 7) == 0) {
-      const float2* x2 = reinterpret_cast<const float2*>(xf);
-#pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const float2 t = __ldg(x2 + j + s * T);
-        v[s] = make_float2(t.x * w[s].x, t.y * w[s].y);
-      }
-    } else {
-#pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const int i = 2 * (j + s * T);
-        const float e = i < left ? __ldg(xf + i) : 0.f;
-        const float o = i + 1 < left ? __ldg(xf + i + 1) : 0.f;
-        v[s] = make_float2(e * w[s].x, o * w[s].y);
-      }
-    }
+    packed_frame_regs<M>(v, x + (long long)c * n, n, f0 + fb, nf, hop, j, w);
     fr_fft<M>(v, j, tws, a + fb * M, b + fb * M);
     const float2* z = fr_result<M>(a, b);
     const int nb = min(FB, nf - f0);
@@ -167,59 +191,215 @@ stft_power_kernel(const float* __restrict__ x, const float* __restrict__ win,
   }
 }
 
-// out: (channels, nf, n_mfcc) MFCCs when FUSE_DCT, else (channels, nf,
-// n_mels) mel energies. fb: (n_mels, m+1) dense filterbank whose row b is
-// zero outside bins [band_lo[b], band_hi[b]); dct: (n_mfcc, n_mels), the
-// liftered DCT-II rows.
-template <int ALG, bool FUSE_DCT>
-__global__ void __launch_bounds__(STFT_THREADS)
-stft_mfcc_kernel(const float* __restrict__ x, const float* __restrict__ win,
-                 const float2* __restrict__ tw,
-                 const float2* __restrict__ wk, const float* __restrict__ fb,
-                 const int* __restrict__ band_lo,
-                 const int* __restrict__ band_hi,
-                 const float* __restrict__ dct, float* __restrict__ out,
-                 long long n, int nf, int nfft, int hop, int n_mels,
-                 int n_mfcc, float log_eps) {
-  extern __shared__ float2 z[];
-  const int m = nfft / 2, log2m = __ffs(m) - 1;
-  float* pw = reinterpret_cast<float*>(z + m);  // m + 1 powers
-  float* mel = pw + m + 1;                      // n_mels log-mel values
-  const int f = blockIdx.x, c = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int WARPS = STFT_THREADS / 32;
+// Threads that sum one band of the mel projection or one coefficient of
+// the DCT, for all of a group's frames at once, each taking every
+// MEL_LANES-th term, then a shuffle tree: a band of 2-100 bins keeps at
+// most 25 weights on one thread, each split once for the group's frames,
+// and a warp's 32 / MEL_LANES items end together.
+constexpr int MEL_LANES = 4;
+constexpr int MEL_ITEMS = FR_THREADS / MEL_LANES;  // items a block takes at once
 
-  packed_frame_fft(x + (long long)c * n, n, f, hop, win, tw, z, m, log2m);
-  for (int k = threadIdx.x; k <= m; k += STFT_THREADS) {
-    const float2 v = unpack_bin(z, wk, k, m);
-    pw[k] = v.x * v.x + v.y * v.y;
-  }
-  __syncthreads();
+__device__ __forceinline__ float lane_group_sum(float v) {
+#pragma unroll
+  for (int s = MEL_LANES / 2; s > 0; s >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, s);
+  return v;
+}
 
-  const long long row = (long long)c * nf + f;
-  for (int b = warp; b < n_mels; b += WARPS) {
-    const float* fr = fb + (long long)b * (m + 1);
-    float acc = 0.f;
-    for (int k = band_lo[b] + lane; k < band_hi[b]; k += 32)
-      acc = tier_fma<ALG>(fr[k], pw[k], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      if (FUSE_DCT)
-        mel[b] = logf(acc + log_eps);
-      else
-        out[row * n_mels + b] = acc;
+// The mel sums and the DCT of a group's FB frames, from pw (FB rows of
+// BINS powers, packed split operands): each band's sum over its compact
+// weights for all FB frames at once, logged into mel (FB rows of n_mels
+// packed split operands) or, without the DCT, written out for the nb
+// frames kept; a barrier; each coefficient's sum over the log-mel row.
+// weight(i) and coef(i) give the compact filterbank's weight i and the DCT
+// rows' element i as split operands; ifb: the filterbank's index.
+template <int M, int ALG, bool FUSE_DCT, class Weight, class Coef>
+__device__ __forceinline__ void mel_dct(Weight weight, Coef coef,
+                                        const int* ifb, const float* pw,
+                                        float* mel, float* out,
+                                        long long row0, int nb, int n_mels,
+                                        int n_mfcc, float log_eps) {
+  // frames a thread sums at once: at most 8 accumulators (16 frames at
+  // M = 128 take two passes), so no instance spills
+  constexpr int FB = FR_POINTS / M, BINS = M + 1, QC = FB < 8 ? FB : 8;
+  using Op = TierOperand<ALG>;
+  const int lane = threadIdx.x % MEL_LANES, item = threadIdx.x / MEL_LANES;
+  const int bands_end = (n_mels + MEL_ITEMS - 1) / MEL_ITEMS * MEL_ITEMS;
+  for (int band = item; band < bands_end; band += MEL_ITEMS) {
+#pragma unroll
+    for (int q0 = 0; q0 < FB; q0 += QC) {
+      float acc[QC];
+#pragma unroll
+      for (int q = 0; q < QC; ++q) acc[q] = 0.f;
+      if (band < n_mels) {
+        const int o = ifb[band], len = ifb[band + 1] - o;
+        const float* pb = pw + q0 * BINS + ifb[n_mels + 1 + band];
+        for (int t = lane; t < len; t += MEL_LANES) {
+          const Op w = weight(o + t);
+#pragma unroll
+          for (int q = 0; q < QC; ++q)
+            acc[q] = tier_fma(w, Op::unpack(pb[q * BINS + t]), acc[q]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < QC; ++q) {
+        const float sum = lane_group_sum(acc[q]);
+        if (lane == 0 && band < n_mels) {
+          if (FUSE_DCT)
+            mel[(q0 + q) * n_mels + band] =
+                Op::split(logf(sum + log_eps)).pack();
+          else if (q0 + q < nb)
+            out[(row0 + q0 + q) * n_mels + band] = sum;
+        }
+      }
     }
   }
-  if (!FUSE_DCT) return;
+  // the powers are read and the log-mel rows written before the next
+  // group's transform writes the exchange buffers or the DCT reads them
   __syncthreads();
-  for (int q = warp; q < n_mfcc; q += WARPS) {
-    const float* dr = dct + (long long)q * n_mels;
-    float acc = 0.f;
-    for (int b = lane; b < n_mels; b += 32)
-      acc = tier_fma<ALG>(dr[b], mel[b], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) out[row * n_mfcc + q] = acc;
+  if (!FUSE_DCT) return;
+  const int coefs_end = (n_mfcc + MEL_ITEMS - 1) / MEL_ITEMS * MEL_ITEMS;
+  for (int k = item; k < coefs_end; k += MEL_ITEMS) {
+#pragma unroll
+    for (int q0 = 0; q0 < FB; q0 += QC) {
+      float acc[QC];
+#pragma unroll
+      for (int q = 0; q < QC; ++q) acc[q] = 0.f;
+      if (k < n_mfcc) {
+        for (int t = lane; t < n_mels; t += MEL_LANES) {
+          const Op d = coef(k * n_mels + t);
+#pragma unroll
+          for (int q = 0; q < QC; ++q)
+            acc[q] = tier_fma(d, Op::unpack(mel[(q0 + q) * n_mels + t]),
+                              acc[q]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < QC; ++q) {
+        const float sum = lane_group_sum(acc[q]);
+        if (lane == 0 && k < n_mfcc && q0 + q < nb)
+          out[(row0 + q0 + q) * n_mfcc + k] = sum;
+      }
+    }
   }
+}
+
+// out: (channels, nf, n_mfcc) MFCCs when FUSE_DCT, else (channels, nf,
+// n_mels) mel energies. The filterbank in its compact form (the host's
+// ops/fft_plan.py compact_filterbank_np): band b's weights fbw[off_b ..
+// off_b+1) apply to bins lo_b ..., fbi = [off_0 .. off_n_mels, lo_0 ..
+// lo_n_mels-1]; nnz = off_n_mels. dct: (n_mfcc, n_mels), the liftered
+// DCT-II rows. fbi is staged in shared memory once a block; with `staged`
+// (the host plan's choice, fft_plan.mfcc_plan) so are fbw and dct, split
+// for the tier once, else they are read from device memory and split at
+// each use.
+//
+// The frame walk is stft_spectrum_kernel's: FB = 2048/M frames a group,
+// the twiddles and wk staged once a block, the window in registers, the
+// packed frame loaded straight into registers, fr_fft<M>. Then, each
+// stage ending at a barrier: the powers of bins 0..M of the FB frames,
+// split for the tier once, into the exchange buffer the transform left
+// free; mel_dct. Every thread reaches every barrier: frames past nf run on
+// zeros and write no output.
+template <int M, int ALG, bool FUSE_DCT>
+__global__ void __launch_bounds__(FR_THREADS, 3)
+stft_mfcc_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                 const float2* __restrict__ tw,
+                 const float2* __restrict__ wk,
+                 const float* __restrict__ fbw, const int* __restrict__ fbi,
+                 const float* __restrict__ dct, float* __restrict__ out,
+                 long long n, int nf, int hop, int n_mels, int n_mfcc,
+                 int nnz, float log_eps, bool staged, int groups_per_row,
+                 long long groups) {
+  constexpr int T = M / 8, FB = FR_POINTS / M, BINS = M + 1;
+  using Op = TierOperand<ALG>;
+  extern __shared__ float2 sm[];
+  float2* tws = sm;
+  float2* wks = tws + fr_table_size(M);
+  float2* a = wks + M + 1;
+  float2* b = a + FR_POINTS;
+  float* mel = reinterpret_cast<float*>(b + FR_POINTS);  // FB rows (FUSE_DCT)
+  int* s_i = reinterpret_cast<int*>(mel + (FUSE_DCT ? FB * n_mels : 0));
+  float* s_w = reinterpret_cast<float*>(s_i + 2 * n_mels + 1);  // staged
+  float* s_d = s_w + nnz;                                         // staged
+  fr_stage(tws, tw, fr_table_size(M));
+  fr_stage(wks, wk, M + 1);
+  for (int i = threadIdx.x; i < 2 * n_mels + 1; i += FR_THREADS)
+    s_i[i] = fbi[i];
+  if (staged) {
+    for (int i = threadIdx.x; i < nnz; i += FR_THREADS)
+      s_w[i] = Op::split(fbw[i]).pack();
+    if (FUSE_DCT)
+      for (int i = threadIdx.x; i < n_mfcc * n_mels; i += FR_THREADS)
+        s_d[i] = Op::split(dct[i]).pack();
+  }
+  const int fb = threadIdx.x / T, j = threadIdx.x % T;
+  float2 w[8];
+  packed_window_regs<M>(w, win, j);
+  __syncthreads();
+  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+    const int c = (int)(g / groups_per_row);
+    const int f0 = (int)(g - (long long)c * groups_per_row) * FB;
+    float2 v[8];
+    packed_frame_regs<M>(v, x + (long long)c * n, n, f0 + fb, nf, hop, j, w);
+    fr_fft<M>(v, j, tws, a + fb * M, b + fb * M);
+    const float2* z = fr_result<M>(a, b);
+    float* pw = reinterpret_cast<float*>(fr_result<M>(b, a));  // FB rows
+    // bins k and M - k from one pair of reads
+    for (int idx = threadIdx.x; idx < FB * (M / 2 + 1); idx += FR_THREADS) {
+      const int q = idx / (M / 2 + 1), k = idx - q * (M / 2 + 1);
+      const float2 zk = z[q * M + k], zr = z[q * M + ((M - k) & (M - 1))];
+      const float2 u = unpack_pair(zk, zr, wks[k]);
+      const float2 v = unpack_pair(zr, zk, wks[M - k]);
+      pw[q * BINS + k] = Op::split(u.x * u.x + u.y * u.y).pack();
+      pw[q * BINS + M - k] = Op::split(v.x * v.x + v.y * v.y).pack();
+    }
+    __syncthreads();
+    const long long row0 = (long long)c * nf + f0;
+    const int nb = min(FB, nf - f0);
+    if (staged)
+      mel_dct<M, ALG, FUSE_DCT>(
+          [=](int i) { return Op::unpack(s_w[i]); },
+          [=](int i) { return Op::unpack(s_d[i]); }, s_i, pw, mel, out,
+          row0, nb, n_mels, n_mfcc, log_eps);
+    else
+      mel_dct<M, ALG, FUSE_DCT>(
+          [=](int i) { return Op::split(__ldg(fbw + i)); },
+          [=](int i) { return Op::split(__ldg(dct + i)); }, s_i, pw, mel,
+          out, row0, nb, n_mels, n_mfcc, log_eps);
+  }
+}
+
+// Dynamic shared memory of a stft_mfcc_kernel block (fft_plan.mfcc_smem)
+template <int M>
+static size_t mfcc_smem(int n_mels, int n_mfcc, int nnz, bool fuse_dct,
+                        bool staged) {
+  const size_t rows = fuse_dct ? (size_t)(FR_POINTS / M) * n_mels : 0;
+  const size_t tables =
+      2 * (size_t)n_mels + 1 +
+      (staged ? nnz + (fuse_dct ? (size_t)n_mfcc * n_mels : 0) : 0);
+  return (fr_table_size(M) + M + 1 + 2 * FR_POINTS) * sizeof(float2) +
+         (rows + tables) * sizeof(float);
+}
+
+template <int M, int ALG, bool FUSE_DCT>
+static cudaError_t launch_mfcc(const float* x, const float* win,
+                               const void* tw, const void* wk,
+                               const float* fbw, const int* fbi,
+                               const float* dct, float* out, int channels,
+                               long long n, int nf, int hop, int n_mels,
+                               int n_mfcc, int nnz, float log_eps,
+                               bool staged, size_t smem, int device,
+                               cudaStream_t stream) {
+  if (smem != mfcc_smem<M>(n_mels, n_mfcc, nnz, FUSE_DCT, staged))
+    return cudaErrorInvalidValue;
+  constexpr int FB = FR_POINTS / M;
+  const int per_row = (nf + FB - 1) / FB;
+  return fr_launch<stft_mfcc_kernel<M, ALG, FUSE_DCT>>(
+      smem, (long long)per_row * channels, device, stream, x, win,
+      (const float2*)tw, (const float2*)wk, fbw, fbi, dct, out, n, nf, hop,
+      n_mels, n_mfcc, nnz, log_eps, staged, per_row,
+      (long long)per_row * channels);
 }
 
 extern "C" int vv_stft_spectrum(const float* x, const float* win,
@@ -263,52 +443,46 @@ extern "C" int vv_stft_power(const float* x, const float* win, const void* tw,
   return (int)cudaGetLastError();
 }
 
-template <int ALG, bool FUSE_DCT>
-static cudaError_t launch_mfcc(const float* x, const float* win,
-                               const void* tw, const void* wk,
-                               const float* fb, const int* band_lo,
-                               const int* band_hi, const float* dct,
-                               float* out, int channels, long long n, int nf,
-                               int nfft, int hop, int n_mels, int n_mfcc,
-                               float log_eps, cudaStream_t stream) {
-  const int m = nfft / 2;
-  const size_t smem = (size_t)m * sizeof(float2) +
-                      (size_t)(m + 1 + n_mels) * sizeof(float);
-  const dim3 grid((unsigned)nf, (unsigned)channels);
-  stft_mfcc_kernel<ALG, FUSE_DCT><<<grid, STFT_THREADS, smem, stream>>>(
-      x, win, (const float2*)tw, (const float2*)wk, fb, band_lo, band_hi, dct,
-      out, n, nf, nfft, hop, n_mels, n_mfcc, log_eps);
-  return cudaGetLastError();
-}
-
+// smem: the host plan's (fft_plan.mfcc_plan), which the launcher checks
+// against its own reckoning of the layout.
 extern "C" int vv_stft_mfcc(const float* x, const float* win, const void* tw,
-                            const void* wk, const float* fb,
-                            const int* band_lo, const int* band_hi,
+                            const void* wk, const float* fbw, const int* fbi,
                             const float* dct, float* out, int channels,
                             long long n, int nf, int nfft, int hop,
-                            int n_mels, int n_mfcc, float log_eps,
-                            int algorithm, int fuse_dct, int device,
-                            void* stream) {
+                            int n_mels, int n_mfcc, int nnz, float log_eps,
+                            int algorithm, int fuse_dct, int staged,
+                            long long smem, int device, void* stream) {
+  if (nf < 1 || hop < 1 || channels < 1 || n_mels < 1 || nnz < 0 ||
+      (fuse_dct && n_mfcc < 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-#define VV_MFCC(ALG, FUSE)                                                   \
-  return (int)launch_mfcc<ALG, FUSE>(x, win, tw, wk, fb, band_lo, band_hi,   \
-                                     dct, out, channels, n, nf, nfft, hop,   \
-                                     n_mels, n_mfcc, log_eps, s)
-  if (fuse_dct) {
-    switch (algorithm) {
-      case ALG_F32: VV_MFCC(ALG_F32, true);
-      case ALG_BF16X3: VV_MFCC(ALG_BF16X3, true);
-      case ALG_BF16: VV_MFCC(ALG_BF16, true);
-    }
-  } else {
-    switch (algorithm) {
-      case ALG_F32: VV_MFCC(ALG_F32, false);
-      case ALG_BF16X3: VV_MFCC(ALG_BF16X3, false);
-      case ALG_BF16: VV_MFCC(ALG_BF16, false);
-    }
+#define VV_MFCC(M, ALG, FUSE)                                                \
+  return (int)launch_mfcc<M, ALG, FUSE>(x, win, tw, wk, fbw, fbi, dct, out,  \
+                                        channels, n, nf, hop, n_mels, n_mfcc, \
+                                        nnz, log_eps, staged != 0,           \
+                                        (size_t)smem, device, s)
+#define VV_MFCC_TIERS(M, FUSE)                                  \
+  if (algorithm == ALG_F32) VV_MFCC(M, ALG_F32, FUSE);          \
+  if (algorithm == ALG_BF16X3) VV_MFCC(M, ALG_BF16X3, FUSE);    \
+  if (algorithm == ALG_BF16) VV_MFCC(M, ALG_BF16, FUSE)
+#define VV_MFCC_SIZE(M)          \
+  if (fuse_dct) {                \
+    VV_MFCC_TIERS(M, true);      \
+  } else {                       \
+    VV_MFCC_TIERS(M, false);     \
+  }                              \
+  break
+  switch (nfft) {
+    case 256: VV_MFCC_SIZE(128);
+    case 512: VV_MFCC_SIZE(256);
+    case 1024: VV_MFCC_SIZE(512);
+    case 2048: VV_MFCC_SIZE(1024);
+    case 4096: VV_MFCC_SIZE(2048);
   }
+#undef VV_MFCC_SIZE
+#undef VV_MFCC_TIERS
 #undef VV_MFCC
   return (int)cudaErrorInvalidValue;
 }

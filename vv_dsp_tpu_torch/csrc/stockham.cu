@@ -24,8 +24,9 @@
 // host-built float64 -> f32 twiddles. Bins come out in natural order, so
 // the TPU kernels' bin permutation and the epilogue that undoes it have no
 // counterpart, nor has their DFT-64 matrix tail: the butterflies run to
-// the end. The spectrum kernel runs the register-resident radix-8
-// transform of fft_reg.cuh (its own section below). The other four run a
+// the end. The spectrum kernel and the inverse run the register-resident
+// radix-8 transform of fft_reg.cuh (their own sections below), two real
+// frames per complex transform. The other three run a
 // radix-2 DIT in shared memory on bit-reversed input, twiddles
 // tw[k] = exp(-2 pi i k / nfft), k < nfft/2: a block takes FB =
 // max(1, 2048/nfft) consecutive frames of one channel, so every
@@ -72,7 +73,7 @@
 // SpectralGate keeps). seg >= 4 (q - 1), so at 1024/8 (q = 128) a block
 // recomputes at most 127 frames for 512 it owns.
 //
-// Inverse STFT: the same inverse, overlap-add and norm, on frames read from
+// Inverse STFT: the overlap-add and norm of the gate, on frames read from
 // a spectrum in natural bin order (the TPU kernel's storage permutation,
 // _stockham_storage_from_natural, is TPU layout and has no counterpart).
 // With all nfft bins given, the real part of each frame's complex inverse
@@ -81,7 +82,11 @@
 // the imaginary parts of the DC and Nyquist bins drop out of the real
 // part, as in irfft. Bound: it reads 8 bytes a bin and writes 4 a sample
 // (123 MB and 31 MB at 1024/256 one-sided on 16 x 1876 frames), so device
-// memory bounds it; the radix-2 passes hold it back as they do the rest.
+// memory bounds it, and the transform is what keeps it from the bound: so
+// it inverts two real frames per register-resident transform (their
+// Hermitian parts packed as one complex spectrum), reads the output in
+// natural order and, in the overlap-add, visits only the frames covering
+// a sample (at 128 points a block takes 32 frames, 4 of which cover one).
 #include "common.cuh"
 #include "fft_reg.cuh"
 
@@ -403,61 +408,140 @@ stockham_gate_kernel(const float* __restrict__ x,
   }
 }
 
-// spec: (channels, nf, bins) interleaved complex, bins = nfft or
-// nfft/2 + 1 (the conjugate mirror above nfft/2); norm: (output_len,)
-// guarded w^2 norm of the nf frames; out: (channels, output_len)
-__global__ void __launch_bounds__(SH_THREADS)
+// spec: (channels, nf, BINS) interleaved complex, BINS = N (all bins) or
+// N/2 + 1 (RFFT: the conjugate mirror above N/2); norm: (output_len,)
+// guarded w^2 norm of the nf frames; out: (channels, output_len).
+//
+// Two real frames per N-point transform of fft_reg.cuh, run forward on
+// conjugated input. Per frame, the Hermitian part H[k] = (X[k] + conj
+// X[(N-k) mod N]) / 2, whose inverse is the real part of X's (all bins), or
+// with RFFT the one-sided input mirrored, the imaginary parts of the DC
+// and Nyquist bins dropped (irfft's real frame). For frames f, f+1 of a
+// pair, Z = H_f + i H_f+1 has the inverse x_f + i x_f+1, and
+// N ifft(Z) = conj(fft(conj Z)): thread j loads points k = j + s N/8 of
+// conj Z straight into registers (bins k and N - k of both frames, zero
+// for a frame past the block's last), and the transform leaves N x_f in
+// the real parts, -N x_f+1 in the imaginary parts, in natural order. The
+// halving of H (all bins) is folded into the scale: exact, as 1/N is.
+//
+// Overlap-add with stockham_gate_kernel's ownership, on a persistent grid:
+// a block walks over (strip, channel) items, a strip being `seg` hop-long
+// output segments (owned_segments); for each it recomputes the q - 1
+// frames reaching in from the left, sums the frames touching the strip
+// into shared memory, FB = 2 * 2048/N at a time, in ascending frame order
+// (ola_strip), and writes each output sample once, divided by the norm.
+// The twiddle table and the window are staged once a block.
+template <int N, bool RFFT>
+__global__ void __launch_bounds__(FR_THREADS, 3)
 istft_stockham_kernel(const float2* __restrict__ spec,
                       const float* __restrict__ win,
                       const float2* __restrict__ tw,
                       const float* __restrict__ norm, float* __restrict__ out,
-                      int nf, int nfft, int hop, int bins, int q,
-                      long long output_len, int seg) {
-  extern __shared__ float2 smem[];
-  const int log2n = __ffs(nfft) - 1, fpb = frames_per_block(nfft);
-  float2* z = smem;                                    // fpb frames, slot()
-  float* strip = reinterpret_cast<float*>(z + batch_floats2(nfft));  // seg*hop
-  const int c = blockIdx.y, strip_len = seg * hop;
-  const long long s0 = (long long)blockIdx.x * seg;  // first owned segment
-  const float2* xc = spec + (long long)c * nf * bins;
-  const float scale = 1.f / (float)nfft;
-
-  for (int t = threadIdx.x; t < strip_len; t += SH_THREADS) strip[t] = 0.f;
-  const long long f_lo = max(s0 - (q - 1), 0LL);
-  const long long f_hi = min(s0 + seg - 1, (long long)nf - 1);
-  for (long long f0 = f_lo; f0 <= f_hi; f0 += fpb) {
-    const int nb = (int)min((long long)fpb, f_hi - f0 + 1);
-    for (int idx = threadIdx.x; idx < nb * nfft; idx += SH_THREADS) {
-      const int b = idx >> log2n, k = idx & (nfft - 1);
-      const float2* xf = xc + (f0 + b) * bins;
-      float2 v;
-      if (k < bins) {
-        v = xf[k];
-      } else {
-        v = xf[nfft - k];
-        v.y = -v.y;
+                      int nf, int hop, int q, long long output_len, int seg,
+                      int strips_per_row, long long strips) {
+  constexpr int T = N / 8, FB = 2 * FR_POINTS / N;
+  constexpr int BINS = RFFT ? N / 2 + 1 : N;
+  constexpr float SCALE = (RFFT ? 1.f : 0.5f) / N;
+  extern __shared__ float2 sm[];
+  float2* tws = sm;
+  float2* a = tws + fr_table_size(N);
+  float2* b = a + FR_POINTS;
+  float* wins = reinterpret_cast<float*>(b + FR_POINTS);  // N
+  float* strip = wins + N;                                 // seg * hop
+  fr_stage(tws, tw, fr_table_size(N));
+  for (int i = threadIdx.x; i < N; i += FR_THREADS) wins[i] = win[i];
+  const int pair = threadIdx.x / T, j = threadIdx.x % T;
+  const int strip_len = seg * hop;
+  __syncthreads();
+  for (long long g = blockIdx.x; g < strips; g += gridDim.x) {
+    const int c = (int)(g / strips_per_row);
+    const long long s0 = (g - (long long)c * strips_per_row) * seg;
+    for (int t = threadIdx.x; t < strip_len; t += FR_THREADS) strip[t] = 0.f;
+    const float2* xc = spec + (long long)c * nf * BINS;
+    const long long f_lo = max(s0 - (q - 1), 0LL);
+    const long long f_hi = min(s0 + seg - 1, (long long)nf - 1);
+    for (long long f0 = f_lo; f0 <= f_hi; f0 += FB) {
+      const long long f = f0 + 2 * pair;
+      const float2* xf = xc + f * BINS;
+      const bool has0 = f <= f_hi, has1 = f + 1 <= f_hi;
+      float2 v[8];
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const int k = j + s * T, kr = (N - k) & (N - 1);
+        float2 h0 = make_float2(0.f, 0.f), h1 = h0;
+        if (RFFT) {
+          // H[k] = X[k] up to N/2, conj X[N - k] above; real at 0 and N/2
+          const int kk = k <= N / 2 ? k : kr;
+          const float sg = k <= N / 2 ? 1.f : -1.f;
+          if (has0) h0 = xf[kk];
+          if (has1) h1 = xf[BINS + kk];
+          h0.y = (k == 0 || k == N / 2) ? 0.f : sg * h0.y;
+          h1.y = (k == 0 || k == N / 2) ? 0.f : sg * h1.y;
+        } else {
+          // 2 H[k] = X[k] + conj X[N - k]
+          if (has0) {
+            const float2 p = xf[k], r = xf[kr];
+            h0 = make_float2(p.x + r.x, p.y - r.y);
+          }
+          if (has1) {
+            const float2 p = xf[BINS + k], r = xf[BINS + kr];
+            h1 = make_float2(p.x + r.x, p.y - r.y);
+          }
+        }
+        // conj(H_f + i H_f+1)
+        v[s] = make_float2(h0.x - h1.y, -(h0.y + h1.x));
       }
-      z[slot(idx)] = v;
+      fr_fft<N>(v, j, tws, a + pair * N, b + pair * N);
+      const float2* z = fr_result<N>(a, b);
+      const int nb = (int)min((long long)FB, f_hi - f0 + 1);
+      ola_strip(
+          [=](int fb, int i) {
+            const float2 u = z[(fb >> 1) * N + i];
+            return (fb & 1 ? -u.y : u.x) * SCALE;
+          },
+          strip, nb, (f0 - s0) * hop, strip_len, N, hop, wins);
     }
-    __syncthreads();
-    ifft_dif(z, nb, nfft, log2n, tw);
-    ola_real(z, strip, nb, (f0 - s0) * hop, strip_len, nfft, log2n, hop, win,
-             scale);
-  }
-  float* oc = out + (long long)c * output_len;
-  const long long g0 = s0 * hop;
-  for (int t = threadIdx.x; t < strip_len; t += SH_THREADS) {
-    const long long g = g0 + t;
-    if (g < output_len) oc[g] = strip[t] / norm[g];
+    float* oc = out + (long long)c * output_len;
+    const long long g0 = s0 * hop;
+    for (int t = threadIdx.x; t < strip_len; t += FR_THREADS) {
+      const long long o = g0 + t;
+      if (o < output_len) oc[o] = strip[t] / norm[o];
+    }
   }
 }
 
+// Dynamic shared memory of an istft_stockham_kernel block
+// (fft_plan.istft_smem): the twiddle table, two exchange buffers, the
+// window and the strip.
+template <int N>
+static size_t istft_smem(int hop) {
+  return (fr_table_size(N) + 2 * FR_POINTS) * sizeof(float2) +
+         ((size_t)N + (size_t)owned_segments(N, hop) * hop) * sizeof(float);
+}
+
+template <int N, bool RFFT>
+static cudaError_t launch_istft(const void* spec, const float* win,
+                                const void* tw, const float* norm,
+                                float* out, int channels, int nf, int hop,
+                                long long output_len, size_t smem,
+                                int device, cudaStream_t stream) {
+  if (smem != istft_smem<N>(hop)) return cudaErrorInvalidValue;
+  const int seg = owned_segments(N, hop);
+  const long long segs = (output_len + hop - 1) / hop;
+  const long long per_row = (segs + seg - 1) / seg;
+  return fr_launch<istft_stockham_kernel<N, RFFT>>(
+      smem, per_row * channels, device, stream, (const float2*)spec, win,
+      (const float2*)tw, norm, out, nf, hop, N / hop, output_len, seg,
+      (int)per_row, per_row * channels);
+}
+
 // The geometries the launchers take: power-of-two nfft in [4, 2048] (a
-// frame batch and its strip stay within a block's shared memory), hop in
-// [1, nfft]; the Python wrappers narrow this to the JAX package's lattice.
+// frame batch and its strip stay within a block's shared memory), hop a
+// divisor of nfft; the Python wrappers narrow this to the JAX package's
+// lattice.
 static bool bad_geometry(int nfft, int hop, int nf, int channels) {
   return nfft < 4 || nfft > SH_POINTS || (nfft & (nfft - 1)) || hop < 1 ||
-         hop > nfft || nf < 1 || channels < 1 || channels > 65535;
+         nfft % hop || nf < 1 || channels < 1 || channels > 65535;
 }
 
 static dim3 frame_grid(int nf, int nfft, int channels) {
@@ -563,31 +647,34 @@ extern "C" int vv_stockham_gate(const float* x, const float* win,
   return (int)cudaGetLastError();
 }
 
+// smem: the host plan's (fft_plan.istft_smem), which the launcher checks
+// against its own reckoning of the layout.
 extern "C" int vv_istft_stockham(const void* spec, const float* win,
                                  const void* tw, const float* norm, float* out,
                                  int channels, int nf, int nfft, int hop,
-                                 int bins, long long output_len, int device,
-                                 void* stream) {
-  if (bad_geometry(nfft, hop, nf, channels) || output_len < 1 ||
-      (bins != nfft && bins != nfft / 2 + 1))
+                                 int bins, long long output_len,
+                                 long long smem, int device, void* stream) {
+  if (bad_geometry(nfft, hop, nf, channels) || nfft < 128 ||
+      output_len < 1 || (bins != nfft && bins != nfft / 2 + 1))
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const int q = (nfft + hop - 1) / hop;
-  const int seg = owned_segments(nfft, hop);
-  const size_t smem = batch_floats2(nfft) * sizeof(float2) +
-                      (size_t)seg * hop * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      istft_stockham_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so the next launch does not report it
-    return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool one = bins != nfft;
+#define VV_ISTFT(N)                                                         \
+  return (int)(one ? launch_istft<N, true>(spec, win, tw, norm, out,       \
+                                           channels, nf, hop, output_len,  \
+                                           (size_t)smem, device, s)        \
+                   : launch_istft<N, false>(spec, win, tw, norm, out,      \
+                                            channels, nf, hop, output_len, \
+                                            (size_t)smem, device, s))
+  switch (nfft) {
+    case 128: VV_ISTFT(128);
+    case 256: VV_ISTFT(256);
+    case 512: VV_ISTFT(512);
+    case 1024: VV_ISTFT(1024);
+    case 2048: VV_ISTFT(2048);
   }
-  const long long segs = (output_len + hop - 1) / hop;
-  const dim3 grid((unsigned)((segs + seg - 1) / seg), (unsigned)channels);
-  istft_stockham_kernel<<<grid, SH_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float2*)spec, win, (const float2*)tw, norm, out, nf, nfft, hop,
-      bins, q, output_len, seg);
-  return (int)cudaGetLastError();
+#undef VV_ISTFT
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,7 @@
 """Host side of the register-resident FFT of ``csrc/fft_reg.cuh``: its
-radix plan and its per-pass twiddle table.
+radix plan and its per-pass twiddle table, and the shared-memory layouts of
+the kernels built on it that vary with their arguments (the packed MFCC
+kernel's, with its compact filterbank, and the full-nfft inverse's).
 
 The N-point forward transform (N a power of two in [128, 2048]) runs as
 Stockham passes over N/8 threads a frame, each thread holding 8 points in
@@ -21,11 +23,17 @@ float32; the kernel stages it in shared memory.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 MIN_N, MAX_N = 128, 2048
+FR_POINTS = 2048             # complex points of a block's transforms
+SMEM_BYTES = 232448          # shared memory one Hopper block may hold
+# the MFCC kernel stages its tables while two blocks still fit an SM
+# (228 KB, 1 KB of it reserved a block)
+MFCC_SMEM_BUDGET = (233472 - 2 * 1024) // 2
 
 
 def radix_plan(n: int) -> tuple[int, ...]:
@@ -72,3 +80,79 @@ def pass_twiddles_np(n: int, dtype=np.float32) -> np.ndarray:
 def pass_twiddles(n: int, device: torch.device) -> torch.Tensor:
     """``pass_twiddles_np(n)`` as a float32 tensor on `device`."""
     return torch.as_tensor(pass_twiddles_np(n), device=device)
+
+
+def table_size(n: int) -> int:
+    """Length of the n-point transform's twiddle table."""
+    return pass_offsets(n)[-1]
+
+
+# ---- the packed MFCC kernel (csrc/stft.cu stft_mfcc_kernel) --------------
+
+def compact_filterbank_np(mel_fb, bands) -> tuple[np.ndarray, np.ndarray]:
+    """The MFCC kernel's filterbank: (weights, index). Band b's weights are
+    mel_fb[b, lo_b:hi_b] over its band range ([lo; hi) rows of
+    ``stft_kernels.band_edges_np``), concatenated band after band as float32;
+    index = [off_0 .. off_n_mels, lo_0 .. lo_n_mels-1] int32, band b's
+    weights at weights[off_b:off_b+1]. An all-zero band has an empty range
+    and no weights."""
+    fb = np.asarray(mel_fb, np.float32)
+    lo, hi = (np.asarray(e, np.int64) for e in bands)
+    off = np.concatenate([[0], np.cumsum(np.maximum(hi - lo, 0))])
+    weights = np.zeros(off[-1], np.float32)
+    for b in range(fb.shape[0]):
+        weights[off[b]:off[b + 1]] = fb[b, lo[b]:hi[b]]
+    return weights, np.concatenate([off, lo]).astype(np.int32)
+
+
+def mfcc_smem(nfft: int, n_mels: int, n_mfcc: int, nnz: int,
+              fuse_dct: bool, staged: bool) -> int:
+    """Dynamic shared memory of an MFCC kernel block, bytes: the m-point
+    twiddle table, wk (m + 1), two exchange buffers, the log-mel rows of
+    its 2048/m frames (fuse_dct), the filterbank's index (2 n_mels + 1)
+    and, staged, its nnz weights and the DCT rows."""
+    m = nfft // 2
+    rows = FR_POINTS // m * n_mels if fuse_dct else 0
+    tables = 2 * n_mels + 1 + (
+        nnz + (n_mfcc * n_mels if fuse_dct else 0) if staged else 0)
+    return 8 * (table_size(m) + m + 1 + 2 * FR_POINTS) + 4 * (rows + tables)
+
+
+class MfccPlan(NamedTuple):
+    staged: bool      # the filterbank and DCT in shared memory
+    smem: int         # dynamic shared memory of a block, bytes
+
+
+def mfcc_plan(nfft: int, n_mels: int, n_mfcc: int, nnz: int,
+              fuse_dct: bool) -> MfccPlan:
+    """The MFCC kernel's layout: the compact filterbank and the DCT rows
+    staged in shared memory while a block stays within MFCC_SMEM_BUDGET,
+    else read from device memory. Raises where even that does not fit a
+    block (the log-mel rows of thousands of mel bands)."""
+    smem = mfcc_smem(nfft, n_mels, n_mfcc, nnz, fuse_dct, True)
+    if smem <= MFCC_SMEM_BUDGET:
+        return MfccPlan(True, smem)
+    smem = mfcc_smem(nfft, n_mels, n_mfcc, nnz, fuse_dct, False)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"stft_mfcc: {n_mels} mel bands at nfft={nfft} "
+                         f"need {smem} bytes of shared memory a block, "
+                         f"above {SMEM_BYTES}")
+    return MfccPlan(False, smem)
+
+
+# ---- the full-nfft inverse (csrc/stockham.cu istft_stockham_kernel) ------
+
+def owned_segments(nfft: int, hop: int) -> int:
+    """``csrc/common.cuh owned_segments``: the hop-long output segments a
+    block of the overlap-add kernels owns, at least 4 (q - 1) against the
+    q - 1 frames it recomputes (q = nfft/hop, rounded up), and a strip of
+    at least 4096 samples."""
+    q = -(-nfft // hop)
+    return max(4 * (q - 1), -(-4096 // hop), 1)
+
+
+def istft_smem(nfft: int, hop: int) -> int:
+    """Dynamic shared memory of an inverse block, bytes: the twiddle
+    table, two exchange buffers, the window and the strip."""
+    return (8 * (table_size(nfft) + 2 * FR_POINTS)
+            + 4 * (nfft + owned_segments(nfft, hop) * hop))

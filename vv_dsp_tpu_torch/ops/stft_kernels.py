@@ -18,6 +18,7 @@ for ``stft_power``.
 from __future__ import annotations
 
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -31,9 +32,9 @@ from vv_dsp_tpu_torch.ops.window import get_window_np
 
 def stft_supported(nfft: int, hop: int) -> bool:
     """Geometry the kernels take: power-of-two nfft in [256, 4096] (the
-    m = nfft/2 complex frame, its powers and the mel row fit shared memory
-    with room), 0 < hop <= nfft. The JAX kernels' hop % 16 condition keeps
-    TPU sublanes aligned and has no counterpart here."""
+    m = nfft/2 complex frame of the register-resident transform, 128 to
+    2048 points), 0 < hop <= nfft. The JAX kernels' hop % 16 condition
+    keeps TPU sublanes aligned and has no counterpart here."""
     return (256 <= nfft <= 4096 and nfft & (nfft - 1) == 0
             and 0 < hop <= nfft)
 
@@ -179,14 +180,46 @@ def band_edges_np(mel_fb) -> np.ndarray:
     return np.stack([lo, hi]).astype(np.int32)
 
 
+_MEL_TABLES: dict = {}
+
+
+def _mel_tables(mel_fb: torch.Tensor, bands: torch.Tensor):
+    """(weights, index): ``fft_plan.compact_filterbank_np`` of the
+    filterbank on its device, cached for the filterbank tensor (rebuilt if
+    it or its bands are written in place, or other bands come with it), so
+    a call reads nothing back from the device after its first."""
+    versions = (mel_fb._version, bands._version)
+    hit = _MEL_TABLES.get(id(mel_fb))
+    if (hit is None or hit[0]() is not mel_fb or hit[1]() is not bands
+            or hit[2] != versions):
+        fb = mel_fb.detach().cpu().numpy()
+        lo, hi = bands.cpu().numpy()
+        if not ((0 <= lo) & (lo <= hi) & (hi <= fb.shape[1])).all():
+            raise ValueError("bands must be [lo; hi) bin ranges of mel_fb's "
+                             "rows (band_edges_np)")
+        tables = tuple(torch.as_tensor(t, device=mel_fb.device) for t in
+                       fft_plan.compact_filterbank_np(fb, (lo, hi)))
+        hit = (weakref.ref(mel_fb, lambda _, i=id(mel_fb):
+                           _MEL_TABLES.pop(i, None)), weakref.ref(bands),
+               versions, tables)
+        _MEL_TABLES[id(mel_fb)] = hit
+    return hit[3]
+
+
 def stft_mfcc(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
               mel_fb: torch.Tensor, bands: torch.Tensor,
               dct: torch.Tensor | None = None, log_eps: float = 1e-10,
               algorithm: str | None = None) -> torch.Tensor:
     """(c, n) float32 -> (c, frames, n_mfcc) MFCCs, or (c, frames, n_mels)
     mel energies when dct is None, in one kernel pass on a CUDA tensor: the
-    frames, spectrum and power stay in shared memory. bands: mel_fb's
-    ``band_edges_np`` on x's device (the plain version does not need it)."""
+    frames, spectrum and power stay in registers and shared memory. bands:
+    mel_fb's ``band_edges_np`` on x's device (the plain version does not
+    need it); the kernel sums each band over that range, from the
+    filterbank's compact form (``fft_plan.compact_filterbank_np``, built on
+    the first call with this filterbank) in the layout of
+    ``fft_plan.mfcc_plan``, which raises where a block's log-mel rows do not
+    fit its shared memory (above 2,744 mel bands at nfft 256, 13,911 at
+    4096)."""
     algorithm = config.dot_algorithm(algorithm)
     if x.device.type == "cpu":
         return stft_mfcc_plain(x, nfft, hop, window, mel_fb, dct, log_eps,
@@ -201,15 +234,19 @@ def stft_mfcc(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
         _build.require(dct, "dct", x.device, (n_out, n_mels))
     c, n = x.shape
     nf = stft_num_frames(n, nfft, hop)
+    weights, index = _mel_tables(mel_fb, bands)
+    plan = fft_plan.mfcc_plan(nfft, n_mels, n_out, weights.numel(),
+                              dct is not None)
     out = torch.empty((c, nf, n_out), dtype=torch.float32, device=x.device)
-    tw, wk = _fft_tables(nfft, x.device)
+    tw = fft_plan.pass_twiddles(nfft // 2, x.device)
+    wk = _fft_tables(nfft, x.device)[1]
     err = _build.library().vv_stft_mfcc(
         _build.ptr(x), _build.ptr(window), _build.ptr(tw), _build.ptr(wk),
-        _build.ptr(mel_fb), _build.ptr(bands[0]), _build.ptr(bands[1]),
-        _build.ptr(dct if dct is not None else mel_fb), _build.ptr(out), c,
-        n, nf, nfft, hop, n_mels, n_out, float(log_eps),
+        _build.ptr(weights), _build.ptr(index),
+        _build.ptr(dct if dct is not None else weights), _build.ptr(out), c,
+        n, nf, nfft, hop, n_mels, n_out, weights.numel(), float(log_eps),
         config.ALGORITHMS.index(algorithm), int(dct is not None),
-        x.device.index,
+        int(plan.staged), plan.smem, x.device.index,
         _build.stream_handle(x))
     _build.check(err, "stft_mfcc")
     stft_mfcc.launches += 1

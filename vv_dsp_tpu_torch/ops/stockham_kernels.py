@@ -244,7 +244,8 @@ def istft_stockham(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
                    window: torch.Tensor, norm: torch.Tensor,
                    rfft: bool = False) -> torch.Tensor:
     """(c, frames, bins) complex64 -> (c, output_len) float32 in one kernel
-    pass on a CUDA tensor, each output sample written once. bins = nfft
+    pass on a CUDA tensor, each output sample written once, two frames per
+    register-resident transform (``csrc/stockham.cu``). bins = nfft
     (rfft=False: all nfft bins are inverted, a non-Hermitian spectrum
     included, and the real part kept, as the JAX package's
     ``istft_stockham``) or nfft//2+1 (rfft=True: bins above nfft/2 are the
@@ -278,9 +279,10 @@ def istft_stockham(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
                       device=spec.device)
     err = _build.library().vv_istft_stockham(
         _build.ptr(spec), _build.ptr(window),
-        _build.ptr(_twiddles(nfft, spec.device)), _build.ptr(norm),
-        _build.ptr(out), c, nf, nfft, hop, bins, output_len,
-        spec.device.index, _build.stream_handle(spec))
+        _build.ptr(fft_plan.pass_twiddles(nfft, spec.device)),
+        _build.ptr(norm), _build.ptr(out), c, nf, nfft, hop, bins, output_len,
+        fft_plan.istft_smem(nfft, hop), spec.device.index,
+        _build.stream_handle(spec))
     _build.check(err, "istft_stockham")
     istft_stockham.launches += 1
     return out

@@ -7,7 +7,9 @@ Phases, each fatal on failure:
 2. build: compile the port's CUDA kernels from vv_dsp_tpu_torch/csrc,
    failing if ptxas spills in any instance of the two tensor-core kernels
    (csrc/upfirdn.cu, csrc/dft_power.cu), of the packed MFCC kernel
-   (csrc/stft.cu) or of the full-nfft inverse (csrc/stockham.cu);
+   (csrc/stft.cu), of the full-nfft inverse (csrc/stockham.cu), of the
+   packed inverse (csrc/istft.cu) or of the packed fused gate
+   (csrc/gate_packed.cu);
 3. kernels: each kernel of the path against its plain PyTorch version on
    the card, at the shapes the main path gives it (the MFCC kernel at the
    chain's and at MFCCFrontend's geometry), within its tolerance,
@@ -23,10 +25,11 @@ Phases, each fatal on failure:
    held at the ends of its range on 2 channels (256/64, 4096/1024), and
    each main-path row of the two prints kernel, torch.stft and bound ms,
    the bound's share and the registers ptxas gave the kernel (build.log);
-   so does each main-path row of the MFCC kernel and of the full-nfft
-   inverse, which run the same transform (a redesign line: kernel and
-   bound ms, the bound's share, ptxas's figures, the plan's dynamic shared
-   memory).
+   so does each main-path row of the MFCC kernel, of the full-nfft
+   inverse, of the packed inverse (without and with the gate) and of the
+   packed fused gate, which run the same transform (a redesign line:
+   kernel and bound ms, the bound's share, ptxas's figures, the plan's
+   dynamic shared memory).
    The two tensor-core kernels print the same row (kernel and bound ms,
    the bound's share, ptxas's figures): the banded upfirdn at each tier at
    the chain head, each against its own tier's bound (f32 the lesser of
@@ -268,9 +271,11 @@ def ptxas_usage(log: list[str], kernel: str, n: int, onesided: bool) -> str:
 
 # kernels whose instances may not spill: the two tensor-core kernels
 # (csrc/upfirdn.cu, csrc/dft_power.cu), the packed MFCC kernel and the
-# full-nfft inverse (csrc/stft.cu, csrc/stockham.cu)
+# full-nfft inverse (csrc/stft.cu, csrc/stockham.cu), the packed inverse
+# and the packed fused gate (csrc/istft.cu, csrc/gate_packed.cu)
 NO_SPILL = ("upfirdn_mma_kernel", "dft_power_kernel", "stft_mfcc_kernel",
-            "istft_stockham_kernel")
+            "istft_stockham_kernel", "istft_kernel",
+            "stft_gate_packed_kernel")
 
 
 def checked_spills(log: list[str]) -> list[str]:
@@ -313,8 +318,8 @@ def upfirdn_instance(up, down, taps_pp, offset, tier) -> tuple[str, int]:
 def mma_line(name, label, ms, bound_ms, bound_by, log, tag, smem,
              kind="tensor cores") -> None:
     """A redesigned kernel's row (the tensor-core kernels', and with kind
-    "redesign" the MFCC kernel's and the full-nfft inverse's): kernel and
-    bound ms, the bound's share of the kernel time, and what ptxas gave the
+    "redesign" those on the register-resident FFT): kernel and bound ms,
+    the bound's share of the kernel time, and what ptxas gave the
     instance."""
     print(f"  {kind} {name} [{label}]: kernel {ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}), share of the bound "
@@ -627,12 +632,12 @@ def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
           "spectrum; the power takes another pass)")
     results["stft_power"] = r
 
-    results.update(istft_phase(xc, win, failed))
+    results.update(istft_phase(xc, win, failed, log))
     results.update(stockham_phase(xc, xs, front128, failed, log))
     results.update(filter_phase(xc, failed))
     results["stft_power_dft"] = dft_power_phase(xs, win, failed, log)
     results["istft_stockham"] = istft_stockham_phase(xc, win, failed, log)
-    results["stft_gate_packed"] = gate_packed_phase(xc, win, failed)
+    results["stft_gate_packed"] = gate_packed_phase(xc, win, failed, log)
     tier_probes((up, down, offset, n_out, taps), mfcc_args, failed)
     torch.cuda.synchronize()
     if failed:
@@ -641,12 +646,14 @@ def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
     return results
 
 
-def istft_phase(xc, win, failed: list) -> dict:
+def istft_phase(xc, win, failed: list, log: list[str]) -> dict:
     """The inverse kernel on SpectralGate's shape: the one-sided spectrum
     of the COLA-padded (16, 479232) input, (16, 1876, 513), back to
     (16, 480768) samples; without the gate (STFT.reconstruct) and with it
     (SpectralGate). The plain version is fed the kernel's own forward
-    spectrum, so both gate the same bins."""
+    spectrum, so both gate the same bins. A redesign line for each: the
+    <M, GATE> instance's ptxas figures and the plan's shared memory."""
+    from vv_dsp_tpu_torch.ops import fft_plan
     from vv_dsp_tpu_torch.ops import istft_kernels as ik
     from vv_dsp_tpu_torch.ops import stft_kernels as sk
     from vv_dsp_tpu_torch.ops.window import get_window_np
@@ -681,10 +688,15 @@ def istft_phase(xc, win, failed: list) -> dict:
     print(f"  dense-input bins within 1e-5 (relative) of the gate's "
           f"threshold (frames of zeros left out): {near} of {p2.numel()}")
     r = out["istft"]
-    r["gated_ms"] = out.pop("istft_gated")["ms"]
     r.update(bound(8 * spec.numel() + 4 * (c * n_pad + n_pad),
                    fft_flops(c * nf, NFFT) + c * nf * 2 * NFFT,
                    F32_FLOP_PER_S))
+    for gate, ms in ((0, r["ms"]), (1, out["istft_gated"]["ms"])):
+        mma_line("istft", "gate 0.1" if gate else "no gate", ms,
+                 r["bound_ms"], r["bound_by"], log,
+                 f"istft_kernelILi{NFFT // 2}ELb{gate}E",
+                 fft_plan.packed_istft_smem(NFFT, HOP), kind="redesign")
+    r["gated_ms"] = out.pop("istft_gated")["ms"]
     try:
         lib = lambda: torch.istft(spec.transpose(1, 2), NFFT, HOP, window=win,
                                   center=False, length=n_pad)
@@ -1100,14 +1112,17 @@ def istft_stockham_phase(xc, win, failed: list, log: list[str]) -> dict:
     return r
 
 
-def gate_packed_phase(xc, win, failed: list) -> dict:
+def gate_packed_phase(xc, win, failed: list, log: list[str]) -> dict:
     """stft_gate_packed at 1024/256 on the COLA-padded (16, 480768) input:
     threshold 0 (a pure roundtrip, the input back on the retained
     samples), GATE_T on the 1024/256 tone probe at the same shape, and
     GATE_T on the dense input (the run's row; bins near the threshold may
     flip between two FFTs, so the count of differing samples must stay
     within GATE_FLIPS_FRAMES frames), with SpectralGate's split pair
-    (spectrum kernel, gated inverse kernel) timed on the same input."""
+    (spectrum kernel, gated inverse kernel) timed on the same input, and a
+    redesign line: the <M> instance's ptxas figures and the plan's shared
+    memory."""
+    from vv_dsp_tpu_torch.ops import fft_plan
     from vv_dsp_tpu_torch.ops import istft_kernels as ik
     from vv_dsp_tpu_torch.ops import stft_kernels as sk
     from vv_dsp_tpu_torch.ops.framing import stft_num_frames
@@ -1172,6 +1187,10 @@ def gate_packed_phase(xc, win, failed: list) -> dict:
           f"SpectralGate's split pair {r['split_ms']:.4f} ms; bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_by']}); library call: none (no "
           f"single PyTorch call computes STFT -> per-frame gate -> ISTFT)")
+    mma_line("stft_gate_packed", f"{NFFT}/{HOP} threshold {GATE_T:g}",
+             r["ms"], r["bound_ms"], r["bound_by"], log,
+             f"stft_gate_packed_kernelILi{NFFT // 2}EE",
+             fft_plan.gate_packed_smem(NFFT, HOP), kind="redesign")
     return r
 
 

@@ -11,7 +11,11 @@ filter and resample entry points' geometries; the windowed-DFT power at
 hop | nfft, 128 | hop, n < nfft and extra frames; the full-nfft inverse
 with all nfft bins of a non-Hermitian spectrum and with the one-sided
 half, at q = 1 to 128; the packed fused gate at threshold 0 and on the
-tone probe, with bit-identical reruns; the two register-resident spectrum
+tone probe, with bit-identical reruns; the packed inverse and fused gate
+on the register-resident FFT at every transform size, the inverse to
+q = 256 and the gate to q = 128, on short and ragged signals and at three
+shared-memory sizes of one instance in one process, and their launchers'
+refusal of a plan size not their own; the two register-resident spectrum
 kernels at every transform size, 128 to 2048 points, on part groups of
 frames, tails past the signal and a unit impulse, whose spectrum is known
 to 1e-6 absolute; the two tensor-core kernels at every tier and launch
@@ -1056,6 +1060,131 @@ def test_stft_gate_packed_refuses_what_it_does_not_take(dev, gen):
         tik.stft_gate_packed(x.double(), 1024, 256, 0.1, win, norm)
     with pytest.raises(ValueError):
         tik.stft_gate_packed(x, 1024, 256, 0.1, win, norm, "bf16x3")
+
+
+# the packed inverse and fused gate on the register-resident FFT: every
+# transform size M = nfft/2 (128 to 2048), the inverse to q = 256 and the
+# gate to its q = 128, short and ragged signals, several shared-memory sizes
+# of one instance in one process, and the launchers' plan checks
+PACKED_NFFTS = (256, 512, 1024, 2048, 4096)
+
+
+@pytest.mark.parametrize("nfft", PACKED_NFFTS)
+def test_istft_kernel_at_every_transform_size(dev, gen, nfft):
+    """A random one-sided spectrum (DC and Nyquist imaginary parts
+    included) at hop = nfft, nfft/4 and nfft/256 (q = 1, 4, 256); 1, 6 and
+    11 frames; output_len at, short of and beyond the cover; no gate and
+    gates at 0.1 and 1, the plain version fed the same spectrum; the same
+    bits on a second run."""
+    bins = nfft // 2 + 1
+    for hop in (nfft, nfft // 4, nfft // 256):
+        win = STFT(nfft, hop).win(dev)
+        for nf in (1, 6, 11):
+            spec = torch.complex(*(torch.as_tensor(
+                gen.standard_normal((2, nf, bins)), dtype=torch.float32)
+                for _ in range(2))).to(dev)
+            cover = (nf - 1) * hop + nfft
+            for out_len in (cover, max(cover - hop - 5, nfft // 2),
+                            cover + nfft + 3):
+                norm = tik.ola_norm(get_window_np("hann", nfft), hop, nf,
+                                    out_len, dev)
+                for gate in (None, 0.1, 1.0):
+                    got = tik.istft(spec, nfft, hop, out_len, win, norm, gate)
+                    again = tik.istft(spec, nfft, hop, out_len, win, norm,
+                                      gate)
+                    want = tik.istft_plain(spec, nfft, hop, out_len, win,
+                                           norm, gate)
+                    assert torch.equal(got, again)
+                    assert _rel(got * norm, want * norm) < 5e-6, (
+                        hop, nf, out_len, gate)
+                    if out_len > cover:
+                        assert (got[:, cover:] == 0).all()
+
+
+@pytest.mark.parametrize("nfft", PACKED_NFFTS)
+@pytest.mark.parametrize("n", [300, 9001])
+def test_stft_gate_packed_kernel_at_every_transform_size(dev, gen, nfft, n):
+    """hop = nfft/2, nfft/4 and the lattice's smallest (16, or nfft/128:
+    q = 128 at 4096/32); a signal shorter than a frame and a ragged one;
+    threshold 0 on dense input (the input back on the retained samples)
+    and 0.1 on the tone probe; the same bits on a second run."""
+    for hop in (nfft // 2, nfft // 4, max(16, nfft // 128)):
+        assert tsk.packed_gate_supported(nfft, hop)
+        pad = nfft - hop
+        x = torch.as_tensor(gen.standard_normal((2, n)), dtype=torch.float32,
+                            device=dev)
+        got, again, want, norm = _packed_gate_pair(x, nfft, hop, 0.0, dev)
+        assert torch.equal(got, again)
+        assert _rel(got * norm, want * norm) < 5e-6, hop
+        assert _rel(got[:, pad:pad + n], x) < 5e-6, hop
+        edge = pad + nfft        # every frame reaching in lies in the tones
+        got, again, want, _ = _packed_gate_pair(
+            _tones(2, n + 4 * nfft, nfft, 3, dev), nfft, hop, 0.1, dev)
+        assert torch.equal(got, again)
+        assert _rel(got[:, edge:-edge], want[:, edge:-edge]) < 5e-6, hop
+
+
+def test_packed_kernels_at_several_layout_sizes(dev, gen):
+    """One instance (M = 2048) at three strip sizes in turns: fr_launch
+    keeps a block count per shared-memory size and never lowers the
+    kernel's limit, so each call still matches its plain version."""
+    from vv_dsp_tpu_torch.ops import fft_plan
+    nfft = 4096
+    hops = (4096, 1024, 32)
+    assert len({fft_plan.packed_istft_smem(nfft, h) for h in hops}) == 3
+    x = torch.as_tensor(gen.standard_normal((2, 20000)), dtype=torch.float32,
+                        device=dev)
+    for hop in hops + hops[::-1]:
+        win = STFT(nfft, hop).win(dev)
+        spec = tsk.stft_spectrum(x, nfft, hop, win, onesided=True)
+        nf = spec.shape[1]
+        out_len = (nf - 1) * hop + nfft
+        norm = tik.ola_norm(get_window_np("hann", nfft), hop, nf, out_len,
+                            dev)
+        for gate in (None, 0.1):
+            got = tik.istft(spec, nfft, hop, out_len, win, norm, gate)
+            want = tik.istft_plain(spec, nfft, hop, out_len, win, norm, gate)
+            assert _rel(got * norm, want * norm) < 5e-6, (hop, gate)
+        if hop < nfft:
+            got, again, want, norm = _packed_gate_pair(x, nfft, hop, 0.0, dev)
+            assert torch.equal(got, again)
+            assert _rel(got * norm, want * norm) < 5e-6, hop
+
+
+def test_packed_launchers_refuse_a_plan_not_their_own(dev):
+    """The launchers check the host plan's shared-memory size against their
+    own reckoning of the layout, and launch nothing on a mismatch."""
+    from vv_dsp_tpu_torch import _build
+    from vv_dsp_tpu_torch.ops import fft_plan
+    lib = _build.library()
+    nfft, hop, nf, n = 1024, 256, 5, 2048
+    spec = torch.zeros(1, nf, nfft // 2 + 1, dtype=torch.complex64,
+                       device=dev)
+    x = torch.zeros(1, n, device=dev)
+    out = torch.full((1, n), 7.0, device=dev)
+    win = STFT(nfft, hop).win(dev)
+    norm = torch.ones(n, device=dev)
+    tw = fft_plan.pass_twiddles(nfft // 2, dev)
+    wk = tsk._fft_tables(nfft, dev)[1]
+    ptrs = [_build.ptr(t) for t in (win, tw, wk, norm, out)]
+    plan = fft_plan.packed_istft_smem(nfft, hop)
+    assert plan == fft_plan.gate_packed_smem(nfft, hop)
+    for smem in (plan - 8, plan + 4, fft_plan.packed_istft_smem(nfft, 1)
+                 + 8 * 1024):
+        for gate in (0, 1):
+            assert lib.vv_istft(_build.ptr(spec), *ptrs, 1, nf, nfft, hop, n,
+                                gate, 0.01, smem, dev.index,
+                                _build.stream_handle(spec)) != 0
+        assert lib.vv_stft_gate_packed(
+            _build.ptr(x), *ptrs, 1, n, nf, nfft, hop, 0.01, smem,
+            dev.index, _build.stream_handle(x)) != 0
+    torch.cuda.synchronize()
+    assert (out == 7.0).all()
+    assert lib.vv_istft(_build.ptr(spec), *ptrs, 1, nf, nfft, hop, n, 1,
+                        0.01, plan, dev.index,
+                        _build.stream_handle(spec)) == 0
+    torch.cuda.synchronize()
+    assert (out == 0.0).all()
 
 
 def test_last_slice_entry_points_on_card_match_cpu(dev, gen):

@@ -96,7 +96,8 @@ def library() -> ctypes.CDLL:
     lib.vv_stft_mfcc.argtypes = [P, P, P, P, P, P, P, P, I, L, I, I, I, I,
                                  I, I, F, I, I, I, L, I, P]
     lib.vv_stft_power.argtypes = [P, P, P, P, P, I, L, I, I, I, I, P]
-    lib.vv_istft.argtypes = [P, P, P, P, P, P, I, I, I, I, L, I, F, I, P]
+    lib.vv_istft.argtypes = [P, P, P, P, P, P, I, I, I, I, L, I, F, L, I,
+                             P]
     lib.vv_stockham_spectrum.argtypes = [P, P, P, P, I, L, I, I, I, I, I, P]
     lib.vv_stockham_power.argtypes = [P, P, P, P, I, L, I, I, I, I, P]
     lib.vv_stockham_mel.argtypes = [P, P, P, P, P, P, P, P, I, L, I, I, I, I,
@@ -108,7 +109,7 @@ def library() -> ctypes.CDLL:
     lib.vv_istft_stockham.argtypes = [P, P, P, P, P, I, I, I, I, I, L, L, I,
                                       P]
     lib.vv_stft_gate_packed.argtypes = [P, P, P, P, P, P, I, L, I, I, I, F,
-                                        I, P]
+                                        L, I, P]
     for fn in (lib.vv_upfirdn, lib.vv_stft_spectrum, lib.vv_stft_mfcc,
                lib.vv_stft_power, lib.vv_istft, lib.vv_stockham_spectrum,
                lib.vv_stockham_power, lib.vv_stockham_mel,

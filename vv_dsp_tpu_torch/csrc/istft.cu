@@ -6,129 +6,150 @@
 // istft_packed_from_storage and stft_gate_split) together with its XLA
 // epilogue _ola_strips_epilogue and the _ola_norm_table division.
 //
-// Per frame f (one-sided spectrum X[0..m], m = nfft/2), the real nfft-point
-// inverse runs as the packed-real inverse of packed.cuh: an m-point complex
+// Per frame f (one-sided spectrum X[0..M], M = nfft/2), the real nfft-point
+// inverse is the packed-real inverse of packed.cuh: the M-point complex
 // inverse FFT of the Hermitian repack, scaled by 1/nfft, whose output holds
-// the frame's even and odd samples. The imaginary parts of X[0] and X[m]
-// are dropped, as torch.fft.irfft drops them (the TPU kernel folds them
-// into Z[0]; for the spectrum of a real signal both are rounding noise).
-// The butterflies are radix-2 DIT in shared memory on bit-reversed input,
-// float32, with float64-built twiddles: the f32 contract of every caller of
-// this path.
+// the frame's even and odd samples. It runs as the register-resident
+// forward transform of fft_reg.cuh on conjugated input, M ifft(Z) =
+// conj(fft(conj Z)): thread j of a frame loads bins k and M - k for its
+// eight k = j + s M/8 straight into registers (coalesced; each bin is read
+// twice, the second time mostly from cache), repacks them there
+// (packed_inverse_regs) and runs fr_fft<M>. The imaginary parts of X[0]
+// and X[M] are dropped, as torch.fft.irfft drops them (the TPU kernel
+// folds them into Z[0]; for the spectrum of a real signal both are rounding
+// noise). float32, with float64-built twiddles: the f32 contract of every
+// caller of this path.
 //
-// Gate (gate != 0): per frame, peak2 = max_k p2[k] over the m + 1 bins with
+// Gate (GATE): per frame, peak2 = max_k p2[k] over the M + 1 bins with
 // p2 = re^2 + im^2, and bin k is kept iff p2[k] >= thresh2 * peak2, in
 // float32 with no fused multiply-add, exactly as the TPU kernel compares.
+// Each thread takes the max over the 16 bins it loaded, then the frame's
+// threads reduce it (frame_max): the max is exact in any order, so the
+// gate keeps the same bins as the plain version on the same spectrum.
 //
 // Overlap-add across blocks. The TPU grid runs in order, and each tile
 // writes an owned strip plus a spill strip that XLA folds afterwards. Blocks
 // here run in no order, and float atomics would make the sums depend on
-// it. So block (s, c) owns `seg` consecutive hop-long output segments of
-// channel c and also recomputes the q - 1 frames (q = nfft/hop) that
-// reach into the first of them from the left. It sums every frame that
-// touches its segments into a shared-memory strip, frames in ascending
-// order, and writes each output sample once, divided by the guarded w^2
-// norm (the host's float64 table, cast once). One kernel, one write, and
-// (q - 1)/seg extra inverse FFTs (3/16 at 1024/256). Frames are taken
-// `fb` at a time, so each barrier-separated stage covers fb frames.
+// it. So a strip item (s, c) owns `seg` consecutive hop-long output
+// segments of channel c (owned_segments) and also recomputes the q - 1
+// frames (q = nfft/hop) that reach into the first of them from the left.
+// A persistent block walks over items (fr_launch); for each it sums every
+// frame that touches the strip into shared memory, FB = 2048/M frames at a
+// time and in ascending frame order (ola_strip, visiting only the frames
+// that cover a sample), and writes each output sample once, divided by the
+// guarded w^2 norm (the host's float64 table, cast once). The twiddle
+// table, wk and the window are staged once a block.
 //
 // Bound. At the gate's shape (16 x 1876 frames x 513 bins, 480768 samples
 // out) it reads 123 MB of spectrum and writes 31 MB, ~0.05 ms at 3.35 TB/s;
-// its ~0.9 GFLOP are far from the float32 peak. What holds it back is
-// latency: log2(m) barrier-separated stages per batch of frames.
+// its ~0.9 GFLOP are far from the float32 peak. Its radix-2 form took 8x
+// that: log2(M) barrier-separated passes of one butterfly a thread, a
+// bit-reversed scatter, twiddles read from device memory per butterfly and
+// a separate peak pass. Here a transform takes fr_passes(M) barriers (3 at
+// M = 512) and the gate one more where a frame spans warps (M >= 512).
 #include "packed.cuh"
 
-constexpr int ISTFT_THREADS = 256;
-constexpr int ISTFT_WARPS = ISTFT_THREADS / 32;
-
-// spec: (channels, nf, m + 1) one-sided complex; win: (nfft,) synthesis
-// window; tw[k] = exp(-2 pi i k / m), k < m/2; wk[k] = exp(-2 pi i k / nfft),
-// k <= m; norm: (output_len,) guarded w^2 norm; out: (channels, output_len).
-__global__ void __launch_bounds__(ISTFT_THREADS)
+// spec: (channels, nf, M + 1) one-sided complex; win: (2M,) synthesis
+// window; tw: the M-point transform's twiddle table (fft_plan.pass_twiddles);
+// wk[k] = exp(-2 pi i k / 2M), k <= M; norm: (output_len,) guarded w^2
+// norm; out: (channels, output_len).
+template <int M, bool GATE>
+__global__ void __launch_bounds__(FR_THREADS, 3)
 istft_kernel(const float2* __restrict__ spec, const float* __restrict__ win,
              const float2* __restrict__ tw, const float2* __restrict__ wk,
              const float* __restrict__ norm, float* __restrict__ out, int nf,
-             int nfft, int hop, int q, long long output_len, int seg, int fb,
-             int gate, float thresh2) {
-  extern __shared__ float2 smem[];
-  const int m = nfft / 2, log2m = __ffs(m) - 1;
-  float2* z = smem;                                          // fb * m
-  float* strip = reinterpret_cast<float*>(z + (size_t)fb * m);  // seg * hop
-  float* peak2 = strip + (size_t)seg * hop;                  // fb
-  const int c = blockIdx.y;
+             int hop, int q, long long output_len, int seg,
+             int strips_per_row, long long strips, float thresh2) {
+  constexpr int T = M / 8, FB = FR_POINTS / M, BINS = M + 1;
+  extern __shared__ float2 sm[];
+  const PackedOlaSmem<M> s(sm, tw, wk, win);
+  const int fb = threadIdx.x / T, j = threadIdx.x % T;
   const int strip_len = seg * hop;
-  const long long s0 = (long long)blockIdx.x * seg;  // first owned segment
-  const float2* xc = spec + (long long)c * nf * (m + 1);
-  const float scale = 1.f / (float)nfft;             // exact: nfft is 2^k
-
-  for (int t = threadIdx.x; t < strip_len; t += ISTFT_THREADS) strip[t] = 0.f;
-  const long long f_lo = max(s0 - (q - 1), 0LL);
-  const long long f_hi = min(s0 + seg - 1, (long long)nf - 1);
-  for (long long f0 = f_lo; f0 <= f_hi; f0 += fb) {
-    const int nb = (int)min((long long)fb, f_hi - f0 + 1);
-    if (gate) {
-      // one warp per frame: the peak power over bins 0..m
-      const int lane = threadIdx.x & 31;
-      for (int b = threadIdx.x >> 5; b < nb; b += ISTFT_WARPS) {
-        const float2* xf = xc + (f0 + b) * (m + 1);
-        float pk = 0.f;
-        for (int k = lane; k <= m; k += 32) pk = fmaxf(pk, power2(xf[k]));
-        for (int s = 16; s > 0; s >>= 1)
-          pk = fmaxf(pk, __shfl_xor_sync(0xffffffffu, pk, s));
-        if (lane == 0) peak2[b] = __fmul_rn(thresh2, pk);
+  __syncthreads();
+  for (long long g = blockIdx.x; g < strips; g += gridDim.x) {
+    const StripItem it(g, strips_per_row, seg, q, nf);
+    for (int t = threadIdx.x; t < strip_len; t += FR_THREADS)
+      s.strip[t] = 0.f;
+    const float2* xc = spec + (long long)it.c * nf * BINS;
+    for (long long f0 = it.f_lo; f0 <= it.f_hi; f0 += FB) {
+      const long long f = f0 + fb;
+      float2 x[8], r[8];
+      if (f <= it.f_hi) {
+        const float2* xf = xc + f * BINS;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          x[u] = __ldg(xf + j + u * T);
+          r[u] = __ldg(xf + M - j - u * T);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) x[u] = r[u] = make_float2(0.f, 0.f);
       }
-      __syncthreads();
+      float2 v[8];
+      packed_inverse_regs<M, GATE>(v, x, r, j, s.wks, thresh2, s.slots);
+      fr_fft<M>(v, j, s.tws, s.a + fb * M, s.b + fb * M);
+      const int nb = (int)min((long long)FB, it.f_hi - f0 + 1);
+      ola_strip(PackedSample<M>{fr_result<M>(s.a, s.b)}, s.strip, nb,
+                (f0 - it.s0) * hop, strip_len, 2 * M, hop, s.wins);
     }
-    // Hermitian repack into bit-reversed order
-    for (int idx = threadIdx.x; idx < nb * m; idx += ISTFT_THREADS) {
-      const int b = idx >> log2m, j = idx & (m - 1);
-      const float2* xf = xc + (f0 + b) * (m + 1);
-      float2 a = xf[j], r = xf[m - j];
-      if (gate) {
-        if (!(power2(a) >= peak2[b])) a = make_float2(0.f, 0.f);
-        if (!(power2(r) >= peak2[b])) r = make_float2(0.f, 0.f);
-      }
-      z[b * m + (__brev((unsigned)j) >> (32 - log2m))] =
-          repack_bin(a, r, wk, j, scale);
+    float* oc = out + (long long)it.c * output_len;
+    const long long g0 = it.s0 * hop;
+    for (int t = threadIdx.x; t < strip_len; t += FR_THREADS) {
+      const long long o = g0 + t;
+      if (o < output_len) oc[o] = s.strip[t] / norm[o];
     }
-    __syncthreads();
-    packed_ifft(z, nb, m, log2m, tw);
-    // window and overlap-add into the strip, frames in ascending order
-    packed_ola(z, strip, nb, (f0 - s0) * hop, strip_len, m, hop, win);
-  }
-  float* oc = out + (long long)c * output_len;
-  const long long g0 = s0 * hop;
-  for (int t = threadIdx.x; t < strip_len; t += ISTFT_THREADS) {
-    const long long g = g0 + t;
-    if (g < output_len) oc[g] = strip[t] / norm[g];
   }
 }
 
+template <int M, bool GATE>
+static cudaError_t launch_istft(const void* spec, const float* win,
+                                const void* tw, const void* wk,
+                                const float* norm, float* out, int channels,
+                                int nf, int hop, long long output_len,
+                                float thresh2, size_t smem, int device,
+                                cudaStream_t stream) {
+  if (smem != packed_ola_smem<M>(hop)) return cudaErrorInvalidValue;
+  const int seg = owned_segments(2 * M, hop);
+  const long long segs = (output_len + hop - 1) / hop;
+  const long long per_row = (segs + seg - 1) / seg;
+  return fr_launch<istft_kernel<M, GATE>>(
+      smem, per_row * channels, device, stream, (const float2*)spec, win,
+      (const float2*)tw, (const float2*)wk, norm, out, nf, hop, 2 * M / hop,
+      output_len, seg, (int)per_row, per_row * channels, thresh2);
+}
+
+// The geometries the launcher takes: power-of-two nfft in [256, 4096], hop
+// a divisor of nfft (istft_supported). smem: the host plan's
+// (fft_plan.packed_istft_smem), which the launcher checks against its own
+// reckoning of the layout.
 extern "C" int vv_istft(const void* spec, const float* win, const void* tw,
                         const void* wk, const float* norm, float* out,
                         int channels, int nf, int nfft, int hop,
                         long long output_len, int gate, float thresh2,
-                        int device, void* stream) {
-  if (nfft < 4 || (nfft & (nfft - 1)) || hop < 1 || nfft % hop || nf < 1 ||
-      output_len < 1)
+                        long long smem, int device, void* stream) {
+  if (nfft < 256 || nfft > 4096 || (nfft & (nfft - 1)) || hop < 1 ||
+      nfft % hop || nf < 1 || output_len < 1 || channels < 1 ||
+      channels > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const int m = nfft / 2;
-  const int q = (nfft + hop - 1) / hop;
-  const int fb = packed_batch(m), seg = owned_segments(nfft, hop);
-  const size_t smem = (size_t)fb * m * sizeof(float2) +
-                      ((size_t)seg * hop + fb) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      istft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so the next launch does not report it
-    return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+#define VV_ISTFT(M)                                                          \
+  return (int)(gate ? launch_istft<M, true>(spec, win, tw, wk, norm, out,   \
+                                            channels, nf, hop, output_len,  \
+                                            thresh2, (size_t)smem, device,  \
+                                            s)                              \
+                    : launch_istft<M, false>(spec, win, tw, wk, norm, out,  \
+                                             channels, nf, hop, output_len, \
+                                             thresh2, (size_t)smem, device, \
+                                             s))
+  switch (nfft / 2) {
+    case 128: VV_ISTFT(128);
+    case 256: VV_ISTFT(256);
+    case 512: VV_ISTFT(512);
+    case 1024: VV_ISTFT(1024);
+    case 2048: VV_ISTFT(2048);
   }
-  const long long segs = (output_len + hop - 1) / hop;
-  const dim3 grid((unsigned)((segs + seg - 1) / seg), (unsigned)channels);
-  istft_kernel<<<grid, ISTFT_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float2*)spec, win, (const float2*)tw, (const float2*)wk, norm,
-      out, nf, nfft, hop, q, output_len, seg, fb, gate, thresh2);
-  return (int)cudaGetLastError();
+#undef VV_ISTFT
+  return (int)cudaErrorInvalidValue;
 }

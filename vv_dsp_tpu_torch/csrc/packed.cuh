@@ -2,9 +2,7 @@
 // gate_packed.cu).
 //
 // Forward: the nfft-point real FFT of a frame is an m = nfft/2 point complex
-// FFT of z[j] = w[2j] x[2j] + i w[2j+1] x[2j+1] (loaded in bit-reversed
-// order, radix-2 DIT in shared memory with host-built float64 -> f32
-// twiddles tw[k] = exp(-2 pi i k / m), k < m/2), then the Hermitian unpack
+// FFT of z[j] = w[2j] x[2j] + i w[2j+1] x[2j+1], then the Hermitian unpack
 //   X[k] = E[k] + e^{-2 pi i k / nfft} O[k],  k = 0..m,
 //   E = (Z[k] + conj Z[m-k]) / 2,  O = (Z[k] - conj Z[m-k]) / 2i.
 // Inverse: the real nfft-point inverse of a one-sided spectrum X[0..m] is
@@ -14,58 +12,53 @@
 // scaled by 1/nfft, whose output z[n] = y[2n] + j y[2n+1] is the frame's
 // even and odd samples. wk[k] = exp(-2 pi i k / nfft), k <= m, serves both.
 //
-// A batch of nb frames sits in z as nb runs of m points; every loop strides
-// over the block's threads, and each pass ends at a barrier. A caller with
-// one frame a block passes nb = 1 as a constant, which folds the batch
-// index away.
+// The spectrum, MFCC, inverse and fused-gate kernels run the m-point
+// transform register-resident (fft_reg.cuh): thread j of a frame holds its
+// points k = j + s m/8 (s < 8), loaded straight into registers
+// (packed_frame_regs), or bins k and m - k for the inverse
+// (packed_inverse_regs), which runs as the forward transform of conj Z:
+// m ifft(Z) = conj(fft(conj Z)). The power
+// kernel keeps the radix-2 transform in shared memory (packed_load,
+// packed_fft), one frame a block.
 #pragma once
 
-#include "common.cuh"
+#include <cstdint>
 
-// Frames a block of the batched packed kernels transforms at once: up to
-// 2048 packed points, so every barrier-separated stage has 1024 butterflies
-// for 256 threads.
-__host__ __device__ inline int packed_batch(int m) {
-  return m >= 2048 ? 1 : 2048 / m;
-}
+#include "fft_reg.cuh"
 
-// Frames f0 .. f0 + nb - 1 (frame f covers xc[f*hop, f*hop + 2m), zero past
-// n) windowed and even/odd packed into z, each in bit-reversed order.
+// Frame f0 (frame f covers xc[f*hop, f*hop + 2m), zero past n) windowed and
+// even/odd packed into z in bit-reversed order.
 __device__ __forceinline__ void packed_load(
-    const float* __restrict__ xc, long long n, long long f0, int nb, int hop,
+    const float* __restrict__ xc, long long n, long long f0, int hop,
     const float* __restrict__ win, float2* z, int m, int log2m) {
-  for (int idx = threadIdx.x; idx < nb * m; idx += blockDim.x) {
-    const int b = nb == 1 ? 0 : idx >> log2m, j = idx & (m - 1);
-    const long long i0 = (f0 + b) * hop + 2 * j;
+  for (int j = threadIdx.x; j < m; j += blockDim.x) {
+    const long long i0 = f0 * hop + 2 * j;
     const float a = i0 < n ? xc[i0] : 0.f;
     const float c = i0 + 1 < n ? xc[i0 + 1] : 0.f;
-    z[b * m + (int)(__brev((unsigned)j) >> (32 - log2m))] =
+    z[(int)(__brev((unsigned)j) >> (32 - log2m))] =
         make_float2(a * win[2 * j], c * win[2 * j + 1]);
   }
   __syncthreads();
 }
 
-// The m-point forward FFT of each of nb frames in place: radix-2 DIT,
-// bit-reversed input, natural-order output.
-__device__ __forceinline__ void packed_fft(float2* z, int nb, int m,
-                                           int log2m,
+// The m-point forward FFT of one frame in place: radix-2 DIT, bit-reversed
+// input, natural-order output.
+__device__ __forceinline__ void packed_fft(float2* z, int m, int log2m,
                                            const float2* __restrict__ tw) {
-  const int half_m = m >> 1, log2h = log2m - 1;
+  const int half_m = m >> 1;
   for (int s = 0; s < log2m; ++s) {
     const int half = 1 << s;
     const int stride = m >> (s + 1);  // span 2*half: exp(-2 pi i pos / 2half)
-    for (int bi = threadIdx.x; bi < nb * half_m; bi += blockDim.x) {
-      float2* zf = nb == 1 ? z : z + (bi >> log2h) * m;
-      const int b = nb == 1 ? bi : bi & (half_m - 1);
+    for (int b = threadIdx.x; b < half_m; b += blockDim.x) {
       const int pos = b & (half - 1);
       const int i0 = ((b >> s) << (s + 1)) + pos;
       const int i1 = i0 + half;
       const float2 w = tw[pos * stride];
-      const float2 u = zf[i0], v = zf[i1];
+      const float2 u = z[i0], v = z[i1];
       const float tr = w.x * v.x - w.y * v.y;
       const float ti = w.x * v.y + w.y * v.x;
-      zf[i0] = make_float2(u.x + tr, u.y + ti);
-      zf[i1] = make_float2(u.x - tr, u.y - ti);
+      z[i0] = make_float2(u.x + tr, u.y + ti);
+      z[i1] = make_float2(u.x - tr, u.y - ti);
     }
     __syncthreads();
   }
@@ -104,42 +97,162 @@ __device__ __forceinline__ float2 repack_bin(
   return make_float2((er - o_i) * scale, (ei + o_r) * scale);
 }
 
-// The m-point inverse FFT (conjugate twiddles, unscaled) of each of nb
-// frames in place: radix-2 DIT, bit-reversed input, natural-order output.
-// The caller fills z and ends that pass at a barrier.
-__device__ inline void packed_ifft(float2* z, int nb, int m, int log2m,
-                                   const float2* __restrict__ tw) {
-  const int half_m = m >> 1, log2h = log2m - 1;
-  for (int s = 0; s < log2m; ++s) {
-    const int half = 1 << s;
-    const int stride = m >> (s + 1);
-    for (int bi = threadIdx.x; bi < nb * half_m; bi += blockDim.x) {
-      float2* zf = z + (bi >> log2h) * m;
-      const int b = bi & (half_m - 1);
-      const int pos = b & (half - 1);
-      const int i0 = ((b >> s) << (s + 1)) + pos;
-      const int i1 = i0 + half;
-      const float2 w = tw[pos * stride];
-      const float2 u = zf[i0], v = zf[i1];
-      const float tr = w.x * v.x + w.y * v.y;
-      const float ti = w.x * v.y - w.y * v.x;
-      zf[i0] = make_float2(u.x + tr, u.y + ti);
-      zf[i1] = make_float2(u.x - tr, u.y - ti);
+// Thread j's packed points z[p] = (w[2p] x[2p], w[2p+1] x[2p+1]), p = j +
+// s M/8, of frame f of row xc (n samples; zero past the signal and for
+// f >= nf), with its window pairs w[s] = (win[2p], win[2p+1]): one 8-byte
+// load a point where the frame lies inside the signal at an even float
+// offset, else two bounds-checked scalar loads, so any hop works.
+template <int M>
+__device__ __forceinline__ void packed_frame_regs(
+    float2 (&v)[8], const float* __restrict__ xc, long long n, int f, int nf,
+    int hop, int j, const float2 (&w)[8]) {
+  constexpr int T = M / 8;
+  // samples of frame f left in the signal (none past the last frame)
+  const long long left = f < nf ? n - (long long)f * hop : 0;
+  const float* xf = xc + (f < nf ? (long long)f * hop : 0);
+  if (left >= 2 * M && (reinterpret_cast<uintptr_t>(xf) & 7) == 0) {
+    const float2* x2 = reinterpret_cast<const float2*>(xf);
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const float2 t = __ldg(x2 + j + s * T);
+      v[s] = make_float2(t.x * w[s].x, t.y * w[s].y);
     }
-    __syncthreads();
+  } else {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int i = 2 * (j + s * T);
+      const float e = i < left ? __ldg(xf + i) : 0.f;
+      const float o = i + 1 < left ? __ldg(xf + i + 1) : 0.f;
+      v[s] = make_float2(e * w[s].x, o * w[s].y);
+    }
   }
 }
 
-// ola_strip of nb packed inverse frames: z[b*m + i/2] holds samples i and
-// i+1 of frame b as (re, im).
-__device__ __forceinline__ void packed_ola(const float2* z, float* strip,
-                                           int nb, long long off,
-                                           int strip_len, int m, int hop,
-                                           const float* __restrict__ win) {
-  ola_strip(
-      [=](int b, int i) {
-        const float2 v = z[b * m + (i >> 1)];
-        return (i & 1) ? v.y : v.x;
-      },
-      strip, nb, off, strip_len, 2 * m, hop, win);
+// Thread j's window pairs of packed_frame_regs, from win (the window in
+// device memory, read once a block, or staged in shared memory)
+template <int M>
+__device__ __forceinline__ void packed_window_regs(
+    float2 (&w)[8], const float* __restrict__ win, int j) {
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+    w[s] = reinterpret_cast<const float2*>(win)[j + s * (M / 8)];
 }
+
+// The maximum of pk over the M/8 threads of a frame (a frame's threads are
+// consecutive in the block): xor shuffles within the warp, then, where a
+// frame spans warps (M >= 512), one slot a warp in shared memory and a
+// barrier that every thread of the block reaches. fmaxf is exact, so the
+// order does not matter. The slots are read again only after the next
+// barrier of the caller's transform, so one set serves every group.
+template <int M>
+__device__ __forceinline__ float frame_max(float pk, float* slots) {
+  constexpr int T = M / 8, LANES = T < 32 ? T : 32, WARPS = T / 32;
+#pragma unroll
+  for (int s = LANES / 2; s > 0; s >>= 1)
+    pk = fmaxf(pk, __shfl_xor_sync(0xffffffffu, pk, s));
+  if constexpr (WARPS > 1) {
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) slots[warp] = pk;
+    __syncthreads();
+    const float* mine = slots + (warp & ~(WARPS - 1));
+    pk = mine[0];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) pk = fmaxf(pk, mine[w]);
+  }
+  return pk;
+}
+
+// Thread j's input to the inverse of a frame: conj Z[k] of the repack
+// scaled by 1/(2M) (repack_bin), k = j + s M/8, from x[s] = X[k] and
+// r[s] = X[M - k]; bins k and M - k cover 0..M, so every bin is in one
+// thread's pairs. With GATE, each bin is first zeroed unless power2(X) >=
+// thresh2 * peak, peak the frame's largest power2 (frame_max, which every
+// thread of the block reaches), in float32 with no fused multiply-add: the
+// plain version's comparison, bit for bit, on the same spectrum. The
+// forward transform of v then gives conj of the frame's packed samples:
+// y[2n] = Re, y[2n+1] = -Im.
+template <int M, bool GATE>
+__device__ __forceinline__ void packed_inverse_regs(
+    float2 (&v)[8], float2 (&x)[8], float2 (&r)[8], int j,
+    const float2* wks, float thresh2, float* slots) {
+  constexpr int T = M / 8;
+  if constexpr (GATE) {
+    float pk = 0.f;
+#pragma unroll
+    for (int s = 0; s < 8; ++s)
+      pk = fmaxf(pk, fmaxf(power2(x[s]), power2(r[s])));
+    const float level = __fmul_rn(thresh2, frame_max<M>(pk, slots));
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      if (!(power2(x[s]) >= level)) x[s] = make_float2(0.f, 0.f);
+      if (!(power2(r[s]) >= level)) r[s] = make_float2(0.f, 0.f);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const float2 z = repack_bin(x[s], r[s], wks, j + s * T, 0.5f / M);
+    v[s] = make_float2(z.x, -z.y);
+  }
+}
+
+// ola_strip's sample of the packed inverse frames the transform of
+// packed_inverse_regs's points leaves in z, M points a frame
+template <int M>
+struct PackedSample {
+  const float2* z;
+  __device__ __forceinline__ float operator()(int b, int i) const {
+    const float2 u = z[b * M + (i >> 1)];
+    return (i & 1) ? -u.y : u.x;
+  }
+};
+
+// Dynamic shared memory of a block of the packed overlap-add kernels
+// (istft.cu, gate_packed.cu; fft_plan.packed_istft_smem and
+// gate_packed_smem): the M-point twiddle table, wk (M + 1), two exchange
+// buffers, the window, a peak slot a warp and the strip of
+// owned_segments(2M, hop) hops.
+template <int M>
+inline size_t packed_ola_smem(int hop) {
+  return (fr_table_size(M) + M + 1 + 2 * FR_POINTS) * sizeof(float2) +
+         ((size_t)2 * M + FR_THREADS / 32 +
+          (size_t)owned_segments(2 * M, hop) * hop) * sizeof(float);
+}
+
+// The packed overlap-add kernels' shared memory, carved as packed_ola_smem
+// lays it out; the twiddles, wk and the window staged (the caller ends
+// the staging at a barrier).
+template <int M>
+struct PackedOlaSmem {
+  float2 *tws, *wks, *a, *b;
+  float *wins, *slots, *strip;
+  __device__ __forceinline__ PackedOlaSmem(float2* sm,
+                                           const float2* __restrict__ tw,
+                                           const float2* __restrict__ wk,
+                                           const float* __restrict__ win) {
+    tws = sm;
+    wks = tws + fr_table_size(M);
+    a = wks + M + 1;
+    b = a + FR_POINTS;
+    wins = reinterpret_cast<float*>(b + FR_POINTS);
+    slots = wins + 2 * M;
+    strip = slots + FR_THREADS / 32;
+    fr_stage(tws, tw, fr_table_size(M));
+    fr_stage(wks, wk, M + 1);
+    for (int i = threadIdx.x; i < 2 * M; i += blockDim.x) wins[i] = win[i];
+  }
+};
+
+// A strip item g of the packed overlap-add kernels: channel c and its
+// first owned segment s0 (owned_segments per strip), the frames f_lo..f_hi
+// that touch it
+struct StripItem {
+  int c;
+  long long s0, f_lo, f_hi;
+  __device__ __forceinline__ StripItem(long long g, int strips_per_row,
+                                       int seg, int q, int nf) {
+    c = (int)(g / strips_per_row);
+    s0 = (g - (long long)c * strips_per_row) * seg;
+    f_lo = max(s0 - (q - 1), 0LL);
+    f_hi = min(s0 + seg - 1, (long long)nf - 1);
+  }
+};

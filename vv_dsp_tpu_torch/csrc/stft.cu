@@ -54,9 +54,6 @@
 // at that tier on its matrix unit; the butterflies are float32 on both
 // machines. (The TPU kernel also runs its DFT-64 tail at the tier; here
 // that part of the transform is butterflies, in float32.)
-#include <cstdint>
-
-#include "fft_reg.cuh"
 #include "packed.cuh"
 
 constexpr int STFT_THREADS = 256;
@@ -66,48 +63,8 @@ __device__ __forceinline__ void packed_frame_fft(
     const float* __restrict__ xc, long long n, int f, int hop,
     const float* __restrict__ win, const float2* __restrict__ tw, float2* z,
     int m, int log2m) {
-  packed_load(xc, n, f, 1, hop, win, z, m, log2m);
-  packed_fft(z, 1, m, log2m, tw);
-}
-
-// Thread j's packed points z[p] = (w[2p] x[2p], w[2p+1] x[2p+1]), p = j +
-// s M/8, of frame f of row xc (n samples; zero past the signal and for
-// f >= nf), with its window pairs w[s] = (win[2p], win[2p+1]): one 8-byte
-// load a point where the frame lies inside the signal at an even float
-// offset, else two bounds-checked scalar loads, so any hop works.
-template <int M>
-__device__ __forceinline__ void packed_frame_regs(
-    float2 (&v)[8], const float* __restrict__ xc, long long n, int f, int nf,
-    int hop, int j, const float2 (&w)[8]) {
-  constexpr int T = M / 8;
-  // samples of frame f left in the signal (none past the last frame)
-  const long long left = f < nf ? n - (long long)f * hop : 0;
-  const float* xf = xc + (f < nf ? (long long)f * hop : 0);
-  if (left >= 2 * M && (reinterpret_cast<uintptr_t>(xf) & 7) == 0) {
-    const float2* x2 = reinterpret_cast<const float2*>(xf);
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const float2 t = __ldg(x2 + j + s * T);
-      v[s] = make_float2(t.x * w[s].x, t.y * w[s].y);
-    }
-  } else {
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const int i = 2 * (j + s * T);
-      const float e = i < left ? __ldg(xf + i) : 0.f;
-      const float o = i + 1 < left ? __ldg(xf + i + 1) : 0.f;
-      v[s] = make_float2(e * w[s].x, o * w[s].y);
-    }
-  }
-}
-
-// Thread j's window pairs of packed_frame_regs, read once a block
-template <int M>
-__device__ __forceinline__ void packed_window_regs(
-    float2 (&w)[8], const float* __restrict__ win, int j) {
-#pragma unroll
-  for (int s = 0; s < 8; ++s)
-    w[s] = reinterpret_cast<const float2*>(win)[j + s * (M / 8)];
+  packed_load(xc, n, f, hop, win, z, m, log2m);
+  packed_fft(z, m, log2m, tw);
 }
 
 // out: (channels, nf, BINS) interleaved complex; BINS = 2M (two-sided,

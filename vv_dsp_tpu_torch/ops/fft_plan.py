@@ -1,7 +1,8 @@
 """Host side of the register-resident FFT of ``csrc/fft_reg.cuh``: its
 radix plan and its per-pass twiddle table, and the shared-memory layouts of
 the kernels built on it that vary with their arguments (the packed MFCC
-kernel's, with its compact filterbank, and the full-nfft inverse's).
+kernel's, with its compact filterbank, the full-nfft inverse's, and the
+packed inverse's and fused gate's, whose strips grow with nfft/hop).
 
 The N-point forward transform (N a power of two in [128, 2048]) runs as
 Stockham passes over N/8 threads a frame, each thread holding 8 points in
@@ -156,3 +157,23 @@ def istft_smem(nfft: int, hop: int) -> int:
     table, two exchange buffers, the window and the strip."""
     return (8 * (table_size(nfft) + 2 * FR_POINTS)
             + 4 * (nfft + owned_segments(nfft, hop) * hop))
+
+
+# ---- the packed inverse and fused gate (csrc/istft.cu, csrc/gate_packed.cu)
+
+WARPS = 256 // 32            # a block's warps: one peak slot each
+
+
+def packed_istft_smem(nfft: int, hop: int) -> int:
+    """Dynamic shared memory of a packed inverse block, bytes
+    (``csrc/packed.cuh packed_ola_smem``): the m = nfft/2 point twiddle
+    table, wk (m + 1), two exchange buffers, the window, a peak slot a warp
+    and the strip of ``owned_segments`` hops. At nfft 4096 it is largest at
+    hop 1 (16,380 owned samples), 147,448 bytes: one block an SM."""
+    m = nfft // 2
+    return (8 * (table_size(m) + m + 1 + 2 * FR_POINTS)
+            + 4 * (nfft + WARPS + owned_segments(nfft, hop) * hop))
+
+
+# the fused gate's block has the inverse's layout: it keeps no spectrum
+gate_packed_smem = packed_istft_smem

@@ -16,7 +16,10 @@ Both versions ignore the imaginary parts of the DC and Nyquist bins, as
 the spectrum of a real signal they are rounding noise). On a CUDA tensor
 ``istft`` launches the kernel in ``csrc/istft.cu`` or raises, and
 ``stft_gate_packed`` the kernel in ``csrc/gate_packed.cu``; on a CPU
-tensor each runs its plain version.
+tensor each runs its plain version. Both kernels run the nfft/2-point
+register-resident transform of ``csrc/fft_reg.cuh`` (its twiddle table
+``fft_plan.pass_twiddles``, the block's layout
+``fft_plan.packed_istft_smem``, which the launchers check).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 
 from vv_dsp_tpu_torch import _build, config
 from vv_dsp_tpu_torch.ops import fft as _fft
-from vv_dsp_tpu_torch.ops import framing
+from vv_dsp_tpu_torch.ops import fft_plan, framing
 from vv_dsp_tpu_torch.ops import stft_kernels as _sk
 
 
@@ -137,13 +140,15 @@ def istft(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
     _build.require(norm, "norm", spec.device, (output_len,))
     out = torch.empty((c, output_len), dtype=torch.float32,
                       device=spec.device)
-    tw, wk = _sk._fft_tables(nfft, spec.device)
+    tw = fft_plan.pass_twiddles(nfft // 2, spec.device)
+    wk = _sk._fft_tables(nfft, spec.device)[1]
     gate = gate_threshold is not None
     thresh2 = float(gate_threshold) ** 2 if gate else 0.0
     err = _build.library().vv_istft(
         _build.ptr(spec), _build.ptr(window), _build.ptr(tw), _build.ptr(wk),
         _build.ptr(norm), _build.ptr(out), c, nf, nfft, hop, output_len,
-        int(gate), thresh2, spec.device.index, _build.stream_handle(spec))
+        int(gate), thresh2, fft_plan.packed_istft_smem(nfft, hop),
+        spec.device.index, _build.stream_handle(spec))
     _build.check(err, "istft")
     istft.launches += 1
     return out
@@ -230,12 +235,14 @@ def stft_gate_packed(x: torch.Tensor, nfft: int, hop: int, threshold: float,
     _build.require(window, "window", x.device, (nfft,))
     _build.require(norm, "norm", x.device, (n,))
     out = torch.empty_like(x)
-    tw, wk = _sk._fft_tables(nfft, x.device)
+    tw = fft_plan.pass_twiddles(nfft // 2, x.device)
+    wk = _sk._fft_tables(nfft, x.device)[1]
     err = _build.library().vv_stft_gate_packed(
         _build.ptr(x), _build.ptr(window), _build.ptr(tw), _build.ptr(wk),
         _build.ptr(norm), _build.ptr(out), c, n,
         framing.stft_num_frames(n, nfft, hop), nfft, hop,
-        float(threshold) ** 2, x.device.index, _build.stream_handle(x))
+        float(threshold) ** 2, fft_plan.gate_packed_smem(nfft, hop),
+        x.device.index, _build.stream_handle(x))
     _build.check(err, "stft_gate_packed")
     stft_gate_packed.launches += 1
     return out

@@ -7,9 +7,9 @@ Phases, each fatal on failure:
 2. build: compile the port's CUDA kernels from vv_dsp_tpu_torch/csrc,
    failing if ptxas spills in any instance of the two tensor-core kernels
    (csrc/upfirdn.cu, csrc/dft_power.cu), of the packed MFCC kernel
-   (csrc/stft.cu), of the full-nfft inverse (csrc/stockham.cu), of the
-   packed inverse (csrc/istft.cu) or of the packed fused gate
-   (csrc/gate_packed.cu);
+   (csrc/stft.cu), of the full-nfft inverse, fused gate and mel/MFCC
+   kernel (csrc/stockham.cu), of the packed inverse (csrc/istft.cu) or of
+   the packed fused gate (csrc/gate_packed.cu);
 3. kernels: each kernel of the path against its plain PyTorch version on
    the card, at the shapes the main path gives it (the MFCC kernel at the
    chain's and at MFCCFrontend's geometry), within its tolerance,
@@ -26,10 +26,11 @@ Phases, each fatal on failure:
    each main-path row of the two prints kernel, torch.stft and bound ms,
    the bound's share and the registers ptxas gave the kernel (build.log);
    so does each main-path row of the MFCC kernel, of the full-nfft
-   inverse, of the packed inverse (without and with the gate) and of the
-   packed fused gate, which run the same transform (a redesign line:
-   kernel and bound ms, the bound's share, ptxas's figures, the plan's
-   dynamic shared memory).
+   inverse, fused gate (threshold 0 and 0.1) and mel/MFCC kernel, of the
+   packed inverse (without and with the gate) and of the packed fused
+   gate, which run the same transform (a redesign line: kernel and bound
+   ms, the bound's share, ptxas's figures, the plan's dynamic shared
+   memory).
    The two tensor-core kernels print the same row (kernel and bound ms,
    the bound's share, ptxas's figures): the banded upfirdn at each tier at
    the chain head, each against its own tier's bound (f32 the lesser of
@@ -132,7 +133,11 @@ GATE_TOL = 5e-6
 # a fused gate on dense input at GATE_T: a bin within float32 noise of the
 # threshold may flip between the kernel's FFT and the plain version's, and
 # one flip moves at most one frame's nfft samples; the readings are 0 and 1
-# samples (PERF.md), a broken mask or peak moves millions
+# samples (PERF.md), a broken mask or peak moves millions. The full-nfft
+# gate is held to its plain version run in float64, whose mask float32
+# noise cannot flip: cuFFT's float32 spectrum flips bins lying within
+# float32 noise of the level in frames where the kernel's mask is
+# float64's (PERF.md)
 GATE_FLIPS_FRAMES = 1
 SMALL = (128, 32)              # the 128-point frames of the full-nfft paths
 DENSE = (512, 8)               # the hop-8 spectrum row
@@ -270,12 +275,14 @@ def ptxas_usage(log: list[str], kernel: str, n: int, onesided: bool) -> str:
 
 
 # kernels whose instances may not spill: the two tensor-core kernels
-# (csrc/upfirdn.cu, csrc/dft_power.cu), the packed MFCC kernel and the
-# full-nfft inverse (csrc/stft.cu, csrc/stockham.cu), the packed inverse
-# and the packed fused gate (csrc/istft.cu, csrc/gate_packed.cu)
+# (csrc/upfirdn.cu, csrc/dft_power.cu), the packed MFCC kernel
+# (csrc/stft.cu), the full-nfft inverse, fused gate and mel/MFCC kernel
+# (csrc/stockham.cu), the packed inverse and the packed fused gate
+# (csrc/istft.cu, csrc/gate_packed.cu)
 NO_SPILL = ("upfirdn_mma_kernel", "dft_power_kernel", "stft_mfcc_kernel",
             "istft_stockham_kernel", "istft_kernel",
-            "stft_gate_packed_kernel")
+            "stft_gate_packed_kernel", "stockham_gate_kernel",
+            "stockham_mel_kernel")
 
 
 def checked_spills(log: list[str]) -> list[str]:
@@ -341,6 +348,30 @@ def mfcc_instance(mfcc_args, tier) -> tuple[str, int]:
                               weights.numel(), True)
     return (f"stft_mfcc_kernelILi{nfft // 2}ELi"
             f"{config.ALGORITHMS.index(tier)}ELb1E", plan.smem)
+
+
+def instance_registers(log: list[str], tags: dict) -> str:
+    """Registers and spill stores of each named instance, from build.log."""
+    parts = []
+    for name, tag in tags.items():
+        got = ptxas_of(log, tag)
+        parts.append(f"{name} {got.get('registers')} registers, "
+                     f"{got.get('spill stores')} B spilled")
+    return "; ".join(parts)
+
+
+def stockham_mel_instance(front) -> tuple[str, int]:
+    """The csrc/stockham.cu instance <N, FUSE_DCT> an MFCCFrontend on the
+    full-nfft route runs, as its mangled-name tag, and its dynamic shared
+    memory: the host plan's (ops/fft_plan.py stockham_mel_plan), which the
+    launcher checks."""
+    from vv_dsp_tpu_torch.ops import fft_plan
+    from vv_dsp_tpu_torch.ops import stft_kernels as sk
+    weights, _ = sk._mel_tables(front.mel_fb, front.mel_bands)
+    plan = fft_plan.stockham_mel_plan(front.nfft, front.mel_fb.shape[0],
+                                      front.dct_lift.shape[0],
+                                      weights.numel(), True)
+    return f"stockham_mel_kernelILi{front.nfft}ELb1EE", plan.smem
 
 
 def fr_smem(n: int, packed: bool) -> int:
@@ -764,6 +795,12 @@ def stockham_phase(xc, xs, front128, failed: list, log: list[str]) -> dict:
     print(f"  stft_mel_stockham bound {r['bound_ms']:.4f} ms "
           f"({r['bound_by']}); library call: none (no single PyTorch call "
           f"computes STFT -> mel -> log -> DCT)")
+    mma_line("stft_mel_stockham", "MFCCFrontend 128/32", r["ms"],
+             r["bound_ms"], r["bound_by"], log,
+             *stockham_mel_instance(front128), kind="redesign")
+    print("  stockham_mel_kernel instances: " + instance_registers(log, {
+        f"<{n}, {fuse}>": f"stockham_mel_kernelILi{n}ELb{int(fuse)}EE"
+        for n in (128, 256, 512, 1024, 2048) for fuse in (False, True)}))
     out["stft_mel_stockham"] = r
     w, fb, bands = _mel_constants(1024, 40, 16000.0, 0.0, 8000.0, "htk",
                                   "hann", None, dev)
@@ -773,7 +810,7 @@ def stockham_phase(xc, xs, front128, failed: list, log: list[str]) -> dict:
     record("stft_mel_stockham", f"40 mel energies 1024/8, {io(got, x2)}",
            got, plain(), STOCKHAM_TOL, fast, plain, failed)
 
-    out["stft_gate_stockham"] = gate_phase(xc, x2, failed)
+    out["stft_gate_stockham"] = gate_phase(xc, x2, failed, log)
 
     dense_win = STFT(*DENSE).win(dev)
     for onesided in (False, True):
@@ -822,13 +859,18 @@ def stockham_phase(xc, xs, front128, failed: list, log: list[str]) -> dict:
     return out
 
 
-def gate_phase(xc, x2, failed: list) -> dict:
+def gate_phase(xc, x2, failed: list, log: list[str]) -> dict:
     """The fused gate kernel on SpectralGate(128, 32)'s padded (16, 479424)
     input: at threshold 0 on the dense input (a pure roundtrip; the run's
     kernel row), at GATE_T on the tone probe, and at GATE_T on the dense
     input, where bins near the threshold may flip between two FFTs (the
-    count of differing samples must stay within GATE_FLIPS_FRAMES frames);
-    then threshold 0 at 1024/8 (q = 128) on 2 channels."""
+    count of samples differing from the plain version run in float64 must
+    stay within GATE_FLIPS_FRAMES frames; the count against it in float32
+    and the frames where cuFFT's float32 mask differs from float64's are
+    printed beside it), each with a redesign line (the <N> instance's ptxas
+    figures and the plan's shared memory); then threshold 0 at 1024/8
+    (q = 128) on 2 channels."""
+    from vv_dsp_tpu_torch.ops import fft_plan
     from vv_dsp_tpu_torch.ops import istft_kernels as ik
     from vv_dsp_tpu_torch.ops import stockham_kernels as stk
     from vv_dsp_tpu_torch.ops.framing import stft_num_frames
@@ -868,16 +910,33 @@ def gate_phase(xc, x2, failed: list) -> dict:
         if r is None:
             r = rr
     got = stk.stft_gate_stockham(xp, *SMALL, win, norm, GATE_T)
-    want = stk.stft_gate_stockham_plain(xp, *SMALL, win, norm, GATE_T)
-    far = ((got - want).abs() > GATE_TOL * want.abs().max()).sum().item()
-    flips_ok = far <= GATE_FLIPS_FRAMES * SMALL[0]
-    print(f"  stft_gate_stockham dense input at threshold {GATE_T:g}: {far} "
-          f"of {got.numel()} samples differ by more than {GATE_TOL:g} of "
-          f"scale (bins near the threshold; limit "
-          f"{GATE_FLIPS_FRAMES * SMALL[0]}) {'ok' if flips_ok else 'FAIL'}")
+    far = {}
+    for dt in (torch.float64, torch.float32):
+        want = stk.stft_gate_stockham_plain(xp.to(dt), *SMALL, win.to(dt),
+                                            norm.to(dt), GATE_T)
+        far[dt] = ((got - want).abs()
+                   > GATE_TOL * want.abs().max()).sum().item()
+        del want
+    masks = []
+    for dt in (torch.float32, torch.float64):
+        spec = stk.stft_spectrum_stockham_plain(xp.to(dt), *SMALL,
+                                                win.to(dt))
+        p2 = spec.real * spec.real + spec.imag * spec.imag
+        t2 = torch.tensor(GATE_T ** 2, dtype=dt, device=xc.device)
+        masks.append(p2 >= t2 * p2.amax(-1, keepdim=True))
+        del spec, p2
+    cufft_frames = (masks[0] != masks[1]).any(-1).sum().item()
+    flips_ok = far[torch.float64] <= GATE_FLIPS_FRAMES * SMALL[0]
+    print(f"  stft_gate_stockham dense input at threshold {GATE_T:g}: "
+          f"{far[torch.float64]} of {got.numel()} samples differ by more "
+          f"than {GATE_TOL:g} of scale from the plain version in float64 "
+          f"(bins near the threshold; limit {GATE_FLIPS_FRAMES * SMALL[0]}) "
+          f"{'ok' if flips_ok else 'FAIL'}; {far[torch.float32]} from it in "
+          f"float32, whose cuFFT spectrum's mask differs from float64's in "
+          f"{cufft_frames} frames")
     if not flips_ok:
         failed.append("stft_gate_stockham dense input at threshold "
-                      f"{GATE_T:g}: {far} samples differ")
+                      f"{GATE_T:g}: {far[torch.float64]} samples differ")
     r["gated_ms"] = cuda_ms(lambda: stk.stft_gate_stockham(
         xp, *SMALL, win, norm, GATE_T))
     c, n_pad = xp.shape
@@ -889,6 +948,14 @@ def gate_phase(xc, x2, failed: list) -> dict:
     print(f"  stft_gate_stockham gated {r['gated_ms']:.4f} ms; bound "
           f"{r['bound_ms']:.4f} ms ({r['bound_by']}); library call: none (no "
           f"single PyTorch call computes STFT -> per-frame gate -> ISTFT)")
+    for label, ms in (("threshold 0", r["ms"]),
+                      (f"threshold {GATE_T:g}", r["gated_ms"])):
+        mma_line("stft_gate_stockham", f"128/32 {label}", ms, r["bound_ms"],
+                 r["bound_by"], log, f"stockham_gate_kernelILi{SMALL[0]}EE",
+                 fft_plan.stockham_gate_smem(*SMALL), kind="redesign")
+    print("  stockham_gate_kernel instances: " + instance_registers(log, {
+        f"<{n}>": f"stockham_gate_kernelILi{n}EE"
+        for n in (128, 256, 512, 1024, 2048)}))
     xq, norm_q, win_q, pad_q = padded(x2, 1024, 8)
     fast = lambda: stk.stft_gate_stockham(xq, 1024, 8, win_q, norm_q, 0.0)
     plain = lambda: stk.stft_gate_stockham_plain(xq, 1024, 8, win_q, norm_q,

@@ -4,7 +4,10 @@ phases differ within a thread, short and ragged signals, every tier, both
 spectrum forms, mel energies, the power spectrogram, and the inverse STFT
 at q = nfft/hop = 1, 2, 4 and 8 with and without its gate, and the
 full-nfft kernels at nfft = 128 and hop = 8: short signals, one frame,
-hop == nfft, q = 128, one channel, bit-identical reruns of the fused gate;
+hop == nfft, q = 128, one channel, bit-identical reruns of the fused gate,
+and the fused gate and mel/MFCC kernel on the register-resident FFT at
+every transform size, at hop 8 (16 at 2048) and nfft/4, with their
+launchers' refusal of a plan size not their own;
 the direct FIR and the per-phase resampler at taps 1 to 2048, n < taps and
 every ratio class, with bit-identical reruns, and the banded kernel at the
 filter and resample entry points' geometries; the windowed-DFT power at
@@ -571,12 +574,24 @@ def test_stockham_spectrum_and_power_kernels_match_plain(dev, gen, nfft, hop,
     assert _rel(got, want) < 5e-5
 
 
+# the full-nfft mel and gate kernels on fr_fft at every transform size, at
+# hop 8 (16 at 2048, where 8 would make q = 256) and at nfft/4
+FR_GEOMETRIES = [(128, 32), (128, 8), (256, 8), (256, 64), (512, 8),
+                 (512, 128), (1024, 8), (1024, 256), (2048, 16), (2048, 512)]
+
+
 @pytest.mark.parametrize("nfft,hop,n_mels,n_mfcc,sr,lifter", [
     (128, 32, 26, 13, 8000.0, 0.0), (128, 128, 20, 12, 8000.0, 22.0),
-    (256, 8, 40, 13, 16000.0, 0.0), (1024, 8, 64, 20, 16000.0, 22.0)])
+    (256, 8, 40, 13, 16000.0, 0.0), (1024, 8, 64, 20, 16000.0, 22.0),
+    (128, 8, 26, 13, 8000.0, 22.0), (256, 64, 40, 13, 16000.0, 22.0),
+    (512, 8, 40, 13, 16000.0, 0.0), (512, 128, 40, 13, 16000.0, 22.0),
+    (1024, 256, 64, 20, 16000.0, 0.0), (2048, 16, 80, 20, 16000.0, 22.0),
+    (2048, 512, 80, 20, 16000.0, 0.0)])
 @pytest.mark.parametrize("channels,n", [(1, 90), (2, 9001)])
 def test_stockham_mel_kernel_matches_plain(dev, gen, nfft, hop, n_mels,
                                            n_mfcc, sr, lifter, channels, n):
+    """Mel energies and MFCCs on a signal shorter than one group of frames
+    (one channel) and on a ragged one, each call one launch."""
     x = torch.as_tensor(gen.standard_normal((channels, n)),
                         dtype=torch.float32, device=dev)
     win, fb, bands, dct = tmel._mfcc_constants(nfft, n_mels, n_mfcc, sr, 0.0,
@@ -628,14 +643,14 @@ def _gate_pair(x, nfft, hop, threshold, dev):
     return got, again, want, norm
 
 
-@pytest.mark.parametrize("nfft,hop", [(128, 32), (128, 8), (128, 64),
-                                      (256, 8), (1024, 8)])
+@pytest.mark.parametrize("nfft,hop", FR_GEOMETRIES + [(128, 64)])
 @pytest.mark.parametrize("channels,n", [(1, 700), (2, 9001)])
 def test_stockham_gate_kernel_matches_plain(dev, gen, nfft, hop, channels, n):
     """Threshold 0 on dense input, a pure roundtrip: before the norm over
     the full length (after it, the 1/w^2 norm amplifies float32 rounding
     where the cover thins out) and after it on the samples SpectralGate
-    keeps, which equal the input; the same bits on a second run."""
+    keeps, which equal the input; the same bits on a second run. 700
+    samples are fewer than one group of frames spans at every geometry."""
     pad = nfft - hop
     x = torch.as_tensor(gen.standard_normal((channels, n)),
                         dtype=torch.float32, device=dev)
@@ -646,8 +661,7 @@ def test_stockham_gate_kernel_matches_plain(dev, gen, nfft, hop, channels, n):
     assert _rel(got[:, pad:pad + n], x) < 5e-6
 
 
-@pytest.mark.parametrize("nfft,hop", [(128, 32), (128, 8), (256, 8),
-                                      (1024, 8)])
+@pytest.mark.parametrize("nfft,hop", FR_GEOMETRIES)
 @pytest.mark.parametrize("channels", [1, 2])
 def test_stockham_gate_kernel_on_the_tone_probe(dev, nfft, hop, channels):
     """Threshold 0.1 on tones whose bins all clear it by >= 10x in every
@@ -1185,6 +1199,40 @@ def test_packed_launchers_refuse_a_plan_not_their_own(dev):
                         _build.stream_handle(spec)) == 0
     torch.cuda.synchronize()
     assert (out == 0.0).all()
+
+
+def test_stockham_launchers_refuse_a_plan_not_their_own(dev):
+    """The full-nfft gate and mel launchers check the host plan's
+    shared-memory size as the packed ones do, and launch nothing on a
+    mismatch."""
+    from vv_dsp_tpu_torch import _build
+    from vv_dsp_tpu_torch.ops import fft_plan
+    lib = _build.library()
+    nfft, hop, n = 128, 32, 4096
+    nf = stft_num_frames(n, nfft, hop)
+    x = torch.zeros(1, n, device=dev)
+    out = torch.full((1, n), 7.0, device=dev)
+    win, fb, bands, dct = tmel._mfcc_constants(nfft, 26, 13, 8000.0, 0.0,
+                                               4000.0, 0.0, "htk", "hann",
+                                               None, dev)
+    weights, index = tsk._mel_tables(fb, bands)
+    feats = torch.full((1, nf, 13), 7.0, device=dev)
+    tw = _build.ptr(fft_plan.pass_twiddles(nfft, dev))
+    gate = fft_plan.stockham_gate_smem(nfft, hop)
+    mel = fft_plan.stockham_mel_plan(nfft, 26, 13, weights.numel(), True)
+    stream = _build.stream_handle(x)
+    for d in (-8, 4):
+        assert lib.vv_stockham_gate(
+            _build.ptr(x), _build.ptr(win), tw, _build.ptr(out),
+            _build.ptr(out), 1, n, nf, nfft, hop, 0.01, gate + d, dev.index,
+            stream) != 0
+        assert lib.vv_stockham_mel(
+            _build.ptr(x), _build.ptr(win), tw, _build.ptr(weights),
+            _build.ptr(index), _build.ptr(dct), _build.ptr(feats), 1, n, nf,
+            nfft, hop, 26, 13, weights.numel(), 1e-10, 1, int(mel.staged),
+            mel.smem + d, dev.index, stream) != 0
+    torch.cuda.synchronize()
+    assert (out == 7.0).all() and (feats == 7.0).all()
 
 
 def test_last_slice_entry_points_on_card_match_cpu(dev, gen):

@@ -100,9 +100,10 @@ def library() -> ctypes.CDLL:
                              P]
     lib.vv_stockham_spectrum.argtypes = [P, P, P, P, I, L, I, I, I, I, I, P]
     lib.vv_stockham_power.argtypes = [P, P, P, P, I, L, I, I, I, I, P]
-    lib.vv_stockham_mel.argtypes = [P, P, P, P, P, P, P, P, I, L, I, I, I, I,
-                                    I, F, I, I, P]
-    lib.vv_stockham_gate.argtypes = [P, P, P, P, P, I, L, I, I, I, F, I, P]
+    lib.vv_stockham_mel.argtypes = [P, P, P, P, P, P, P, I, L, I, I, I, I,
+                                    I, I, F, I, I, L, I, P]
+    lib.vv_stockham_gate.argtypes = [P, P, P, P, P, I, L, I, I, I, F, L, I,
+                                     P]
     lib.vv_fir_direct.argtypes = [P, P, P, I, L, I, I, P]
     lib.vv_poly.argtypes = [P, P, P, I, L, L, I, I, I, I, I, P]
     lib.vv_dft_power.argtypes = [P, P, P, I, L, I, I, I, I, I, I, I, I, P]

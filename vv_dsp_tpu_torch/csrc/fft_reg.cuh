@@ -1,8 +1,10 @@
 // Register-resident forward FFT shared by the two spectrum kernels
 // (stft.cu stft_spectrum_kernel, stockham.cu stockham_spectrum_kernel), the
-// packed MFCC kernel (stft.cu stft_mfcc_kernel) and the full-nfft inverse
-// (stockham.cu istft_stockham_kernel, which runs it on conjugated input:
-// N ifft(Z) = conj(fft(conj Z))).
+// two MFCC kernels (stft.cu stft_mfcc_kernel, stockham.cu
+// stockham_mel_kernel), the two inverses (istft.cu istft_kernel,
+// stockham.cu istft_stockham_kernel, which run it on conjugated input:
+// N ifft(Z) = conj(fft(conj Z))) and the two fused gates (gate_packed.cu,
+// stockham.cu stockham_gate_kernel, which run it both ways).
 //
 // The N-point complex transform (N a power of two in [128, 2048]) of each
 // frame runs on N/8 threads, each holding 8 points in registers, as

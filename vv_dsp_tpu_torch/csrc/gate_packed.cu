@@ -70,7 +70,7 @@ stft_gate_packed_kernel(const float* __restrict__ x,
   const int strip_len = seg * hop;
   __syncthreads();
   for (long long g = blockIdx.x; g < strips; g += gridDim.x) {
-    const StripItem it(g, strips_per_row, seg, q, nf);
+    const StripItem<> it(g, strips_per_row, seg, q, nf);
     for (int t = threadIdx.x; t < strip_len; t += FR_THREADS)
       s.strip[t] = 0.f;
     const float* xc = x + (long long)it.c * n;

@@ -67,7 +67,7 @@ istft_kernel(const float2* __restrict__ spec, const float* __restrict__ win,
   const int strip_len = seg * hop;
   __syncthreads();
   for (long long g = blockIdx.x; g < strips; g += gridDim.x) {
-    const StripItem it(g, strips_per_row, seg, q, nf);
+    const StripItem<> it(g, strips_per_row, seg, q, nf);
     for (int t = threadIdx.x; t < strip_len; t += FR_THREADS)
       s.strip[t] = 0.f;
     const float2* xc = spec + (long long)it.c * nf * BINS;

@@ -138,26 +138,41 @@ __device__ __forceinline__ void packed_window_regs(
     w[s] = reinterpret_cast<const float2*>(win)[j + s * (M / 8)];
 }
 
-// The maximum of pk over the M/8 threads of a frame (a frame's threads are
-// consecutive in the block): xor shuffles within the warp, then, where a
-// frame spans warps (M >= 512), one slot a warp in shared memory and a
-// barrier that every thread of the block reaches. fmaxf is exact, so the
-// order does not matter. The slots are read again only after the next
-// barrier of the caller's transform, so one set serves every group.
-template <int M>
-__device__ __forceinline__ float frame_max(float pk, float* slots) {
+__device__ __forceinline__ float peak_max(float a, float b) {
+  return fmaxf(a, b);
+}
+__device__ __forceinline__ float2 peak_max(float2 a, float2 b) {
+  return make_float2(fmaxf(a.x, b.x), fmaxf(a.y, b.y));
+}
+__device__ __forceinline__ float peak_shfl(float v, int s) {
+  return __shfl_xor_sync(0xffffffffu, v, s);
+}
+__device__ __forceinline__ float2 peak_shfl(float2 v, int s) {
+  return make_float2(__shfl_xor_sync(0xffffffffu, v.x, s),
+                     __shfl_xor_sync(0xffffffffu, v.y, s));
+}
+
+// The maximum of pk over the M/8 threads of an M-point transform (its
+// threads are consecutive in the block): xor shuffles within the warp,
+// then, where a transform spans warps (M >= 512), one slot a warp in shared
+// memory and a barrier that every thread of the block reaches. fmaxf is
+// exact, so the order does not matter. The slots are read again only after
+// the next barrier of the caller's transform, so one set serves every
+// group. pk is one frame's peak (float) or the peaks of the two frames a
+// full-nfft transform holds (float2, each reduced alone).
+template <int M, class V>
+__device__ __forceinline__ V frame_max(V pk, V* slots) {
   constexpr int T = M / 8, LANES = T < 32 ? T : 32, WARPS = T / 32;
 #pragma unroll
-  for (int s = LANES / 2; s > 0; s >>= 1)
-    pk = fmaxf(pk, __shfl_xor_sync(0xffffffffu, pk, s));
+  for (int s = LANES / 2; s > 0; s >>= 1) pk = peak_max(pk, peak_shfl(pk, s));
   if constexpr (WARPS > 1) {
     const int warp = threadIdx.x >> 5;
     if ((threadIdx.x & 31) == 0) slots[warp] = pk;
     __syncthreads();
-    const float* mine = slots + (warp & ~(WARPS - 1));
+    const V* mine = slots + (warp & ~(WARPS - 1));
     pk = mine[0];
 #pragma unroll
-    for (int w = 1; w < WARPS; ++w) pk = fmaxf(pk, mine[w]);
+    for (int w = 1; w < WARPS; ++w) pk = peak_max(pk, mine[w]);
   }
   return pk;
 }
@@ -242,17 +257,19 @@ struct PackedOlaSmem {
   }
 };
 
-// A strip item g of the packed overlap-add kernels: channel c and its
-// first owned segment s0 (owned_segments per strip), the frames f_lo..f_hi
-// that touch it
+// A strip item g of the overlap-add kernels: channel c and its first owned
+// segment s0 (owned_segments per strip), the frames f_lo..f_hi that touch
+// it. I: the index type (int where the frame count is an int, as in the
+// full-nfft gate, whose registers are tight)
+template <class I = long long>
 struct StripItem {
   int c;
-  long long s0, f_lo, f_hi;
+  I s0, f_lo, f_hi;
   __device__ __forceinline__ StripItem(long long g, int strips_per_row,
                                        int seg, int q, int nf) {
     c = (int)(g / strips_per_row);
-    s0 = (g - (long long)c * strips_per_row) * seg;
-    f_lo = max(s0 - (q - 1), 0LL);
-    f_hi = min(s0 + seg - 1, (long long)nf - 1);
+    s0 = (I)(g - (long long)c * strips_per_row) * seg;
+    f_lo = max(s0 - (I)(q - 1), (I)0);
+    f_hi = min(s0 + (I)(seg - 1), (I)(nf - 1));
   }
 };

@@ -54,6 +54,7 @@
 // at that tier on its matrix unit; the butterflies are float32 on both
 // machines. (The TPU kernel also runs its DFT-64 tail at the tier; here
 // that part of the transform is butterflies, in float32.)
+#include "mel_dct.cuh"
 #include "packed.cuh"
 
 constexpr int STFT_THREADS = 256;
@@ -145,99 +146,6 @@ stft_power_kernel(const float* __restrict__ x, const float* __restrict__ win,
   for (int k = threadIdx.x; k <= m; k += STFT_THREADS) {
     const float2 v = unpack_bin(z, wk, k, m);
     o[k] = v.x * v.x + v.y * v.y;
-  }
-}
-
-// Threads that sum one band of the mel projection or one coefficient of
-// the DCT, for all of a group's frames at once, each taking every
-// MEL_LANES-th term, then a shuffle tree: a band of 2-100 bins keeps at
-// most 25 weights on one thread, each split once for the group's frames,
-// and a warp's 32 / MEL_LANES items end together.
-constexpr int MEL_LANES = 4;
-constexpr int MEL_ITEMS = FR_THREADS / MEL_LANES;  // items a block takes at once
-
-__device__ __forceinline__ float lane_group_sum(float v) {
-#pragma unroll
-  for (int s = MEL_LANES / 2; s > 0; s >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, s);
-  return v;
-}
-
-// The mel sums and the DCT of a group's FB frames, from pw (FB rows of
-// BINS powers, packed split operands): each band's sum over its compact
-// weights for all FB frames at once, logged into mel (FB rows of n_mels
-// packed split operands) or, without the DCT, written out for the nb
-// frames kept; a barrier; each coefficient's sum over the log-mel row.
-// weight(i) and coef(i) give the compact filterbank's weight i and the DCT
-// rows' element i as split operands; ifb: the filterbank's index.
-template <int M, int ALG, bool FUSE_DCT, class Weight, class Coef>
-__device__ __forceinline__ void mel_dct(Weight weight, Coef coef,
-                                        const int* ifb, const float* pw,
-                                        float* mel, float* out,
-                                        long long row0, int nb, int n_mels,
-                                        int n_mfcc, float log_eps) {
-  // frames a thread sums at once: at most 8 accumulators (16 frames at
-  // M = 128 take two passes), so no instance spills
-  constexpr int FB = FR_POINTS / M, BINS = M + 1, QC = FB < 8 ? FB : 8;
-  using Op = TierOperand<ALG>;
-  const int lane = threadIdx.x % MEL_LANES, item = threadIdx.x / MEL_LANES;
-  const int bands_end = (n_mels + MEL_ITEMS - 1) / MEL_ITEMS * MEL_ITEMS;
-  for (int band = item; band < bands_end; band += MEL_ITEMS) {
-#pragma unroll
-    for (int q0 = 0; q0 < FB; q0 += QC) {
-      float acc[QC];
-#pragma unroll
-      for (int q = 0; q < QC; ++q) acc[q] = 0.f;
-      if (band < n_mels) {
-        const int o = ifb[band], len = ifb[band + 1] - o;
-        const float* pb = pw + q0 * BINS + ifb[n_mels + 1 + band];
-        for (int t = lane; t < len; t += MEL_LANES) {
-          const Op w = weight(o + t);
-#pragma unroll
-          for (int q = 0; q < QC; ++q)
-            acc[q] = tier_fma(w, Op::unpack(pb[q * BINS + t]), acc[q]);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < QC; ++q) {
-        const float sum = lane_group_sum(acc[q]);
-        if (lane == 0 && band < n_mels) {
-          if (FUSE_DCT)
-            mel[(q0 + q) * n_mels + band] =
-                Op::split(logf(sum + log_eps)).pack();
-          else if (q0 + q < nb)
-            out[(row0 + q0 + q) * n_mels + band] = sum;
-        }
-      }
-    }
-  }
-  // the powers are read and the log-mel rows written before the next
-  // group's transform writes the exchange buffers or the DCT reads them
-  __syncthreads();
-  if (!FUSE_DCT) return;
-  const int coefs_end = (n_mfcc + MEL_ITEMS - 1) / MEL_ITEMS * MEL_ITEMS;
-  for (int k = item; k < coefs_end; k += MEL_ITEMS) {
-#pragma unroll
-    for (int q0 = 0; q0 < FB; q0 += QC) {
-      float acc[QC];
-#pragma unroll
-      for (int q = 0; q < QC; ++q) acc[q] = 0.f;
-      if (k < n_mfcc) {
-        for (int t = lane; t < n_mels; t += MEL_LANES) {
-          const Op d = coef(k * n_mels + t);
-#pragma unroll
-          for (int q = 0; q < QC; ++q)
-            acc[q] = tier_fma(d, Op::unpack(mel[(q0 + q) * n_mels + t]),
-                              acc[q]);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < QC; ++q) {
-        const float sum = lane_group_sum(acc[q]);
-        if (lane == 0 && k < n_mfcc && q0 + q < nb)
-          out[(row0 + q0 + q) * n_mfcc + k] = sum;
-      }
-    }
   }
 }
 

@@ -1,8 +1,9 @@
 """Host side of the register-resident FFT of ``csrc/fft_reg.cuh``: its
 radix plan and its per-pass twiddle table, and the shared-memory layouts of
-the kernels built on it that vary with their arguments (the packed MFCC
-kernel's, with its compact filterbank, the full-nfft inverse's, and the
-packed inverse's and fused gate's, whose strips grow with nfft/hop).
+the kernels built on it that vary with their arguments (the MFCC kernels',
+packed and full-nfft, with their compact filterbank, the full-nfft
+inverse's and fused gate's, and the packed inverse's and fused gate's,
+whose strips grow with nfft/hop).
 
 The N-point forward transform (N a power of two in [128, 2048]) runs as
 Stockham passes over N/8 threads a frame, each thread holding 8 points in
@@ -35,6 +36,7 @@ SMEM_BYTES = 232448          # shared memory one Hopper block may hold
 # the MFCC kernel stages its tables while two blocks still fit an SM
 # (228 KB, 1 KB of it reserved a block)
 MFCC_SMEM_BUDGET = (233472 - 2 * 1024) // 2
+WARPS = 256 // 32            # a block's warps: one peak slot each
 
 
 def radix_plan(n: int) -> tuple[int, ...]:
@@ -106,22 +108,56 @@ def compact_filterbank_np(mel_fb, bands) -> tuple[np.ndarray, np.ndarray]:
     return weights, np.concatenate([off, lo]).astype(np.int32)
 
 
+def _mel_tables_smem(frames: int, n_mels: int, n_mfcc: int, nnz: int,
+                     fuse_dct: bool, staged: bool) -> int:
+    """Bytes of the MFCC kernels' tables: the log-mel rows of a group's
+    frames (fuse_dct), the filterbank's index (2 n_mels + 1) and, staged,
+    its nnz weights and the DCT rows."""
+    rows = frames * n_mels if fuse_dct else 0
+    tables = 2 * n_mels + 1 + (
+        nnz + (n_mfcc * n_mels if fuse_dct else 0) if staged else 0)
+    return 4 * (rows + tables)
+
+
 def mfcc_smem(nfft: int, n_mels: int, n_mfcc: int, nnz: int,
               fuse_dct: bool, staged: bool) -> int:
     """Dynamic shared memory of an MFCC kernel block, bytes: the m-point
-    twiddle table, wk (m + 1), two exchange buffers, the log-mel rows of
-    its 2048/m frames (fuse_dct), the filterbank's index (2 n_mels + 1)
-    and, staged, its nnz weights and the DCT rows."""
+    twiddle table, wk (m + 1), two exchange buffers and the tables of
+    ``_mel_tables_smem`` for its 2048/m frames."""
     m = nfft // 2
-    rows = FR_POINTS // m * n_mels if fuse_dct else 0
-    tables = 2 * n_mels + 1 + (
-        nnz + (n_mfcc * n_mels if fuse_dct else 0) if staged else 0)
-    return 8 * (table_size(m) + m + 1 + 2 * FR_POINTS) + 4 * (rows + tables)
+    return (8 * (table_size(m) + m + 1 + 2 * FR_POINTS)
+            + _mel_tables_smem(FR_POINTS // m, n_mels, n_mfcc, nnz,
+                               fuse_dct, staged))
+
+
+def stockham_mel_smem(nfft: int, n_mels: int, n_mfcc: int, nnz: int,
+                      fuse_dct: bool, staged: bool) -> int:
+    """Dynamic shared memory of a full-nfft mel/MFCC block
+    (``csrc/stockham.cu stockham_mel_kernel``), bytes: the nfft-point
+    twiddle table, two exchange buffers and the tables of
+    ``_mel_tables_smem`` for its 4096/nfft frames (no wk: the full
+    transform needs no unpack twiddles)."""
+    return (8 * (table_size(nfft) + 2 * FR_POINTS)
+            + _mel_tables_smem(2 * FR_POINTS // nfft, n_mels, n_mfcc, nnz,
+                               fuse_dct, staged))
 
 
 class MfccPlan(NamedTuple):
     staged: bool      # the filterbank and DCT in shared memory
     smem: int         # dynamic shared memory of a block, bytes
+
+
+def _mel_plan(smem_of, name: str, nfft: int, n_mels: int, n_mfcc: int,
+              nnz: int, fuse_dct: bool) -> MfccPlan:
+    smem = smem_of(nfft, n_mels, n_mfcc, nnz, fuse_dct, True)
+    if smem <= MFCC_SMEM_BUDGET:
+        return MfccPlan(True, smem)
+    smem = smem_of(nfft, n_mels, n_mfcc, nnz, fuse_dct, False)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"{name}: {n_mels} mel bands at nfft={nfft} "
+                         f"need {smem} bytes of shared memory a block, "
+                         f"above {SMEM_BYTES}")
+    return MfccPlan(False, smem)
 
 
 def mfcc_plan(nfft: int, n_mels: int, n_mfcc: int, nnz: int,
@@ -130,15 +166,16 @@ def mfcc_plan(nfft: int, n_mels: int, n_mfcc: int, nnz: int,
     staged in shared memory while a block stays within MFCC_SMEM_BUDGET,
     else read from device memory. Raises where even that does not fit a
     block (the log-mel rows of thousands of mel bands)."""
-    smem = mfcc_smem(nfft, n_mels, n_mfcc, nnz, fuse_dct, True)
-    if smem <= MFCC_SMEM_BUDGET:
-        return MfccPlan(True, smem)
-    smem = mfcc_smem(nfft, n_mels, n_mfcc, nnz, fuse_dct, False)
-    if smem > SMEM_BYTES:
-        raise ValueError(f"stft_mfcc: {n_mels} mel bands at nfft={nfft} "
-                         f"need {smem} bytes of shared memory a block, "
-                         f"above {SMEM_BYTES}")
-    return MfccPlan(False, smem)
+    return _mel_plan(mfcc_smem, "stft_mfcc", nfft, n_mels, n_mfcc, nnz,
+                     fuse_dct)
+
+
+def stockham_mel_plan(nfft: int, n_mels: int, n_mfcc: int, nnz: int,
+                      fuse_dct: bool) -> MfccPlan:
+    """``mfcc_plan`` for the full-nfft mel/MFCC kernel: its layout
+    (``stockham_mel_smem``) has the nfft-point table and no wk."""
+    return _mel_plan(stockham_mel_smem, "stft_mel_stockham", nfft, n_mels,
+                     n_mfcc, nnz, fuse_dct)
 
 
 # ---- the full-nfft inverse (csrc/stockham.cu istft_stockham_kernel) ------
@@ -159,9 +196,26 @@ def istft_smem(nfft: int, hop: int) -> int:
             + 4 * (nfft + owned_segments(nfft, hop) * hop))
 
 
-# ---- the packed inverse and fused gate (csrc/istft.cu, csrc/gate_packed.cu)
+def gate_segments(nfft: int, hop: int) -> int:
+    """``csrc/stockham.cu gate_segments``: the full-nfft gate's strip,
+    ``owned_segments`` rounded up so that an item's seg + q - 1 frames fill
+    whole groups of 4096/nfft frames (at 128/32 157 segments, 160 frames in
+    5 groups of 32, where 128 would leave 29 of the 160 idle)."""
+    fb, q1 = 2 * FR_POINTS // nfft, -(-nfft // hop) - 1
+    return -(-(owned_segments(nfft, hop) + q1) // fb) * fb - q1
 
-WARPS = 256 // 32            # a block's warps: one peak slot each
+
+def stockham_gate_smem(nfft: int, hop: int) -> int:
+    """Dynamic shared memory of a full-nfft fused gate block
+    (``csrc/stockham.cu stockham_gate_kernel``), bytes: the twiddle table,
+    two exchange buffers, a pair of peak slots (float2) a warp, the window
+    and the strip of ``gate_segments`` hops. Largest at 2048/16, 89,952
+    bytes."""
+    return (8 * (table_size(nfft) + 2 * FR_POINTS + WARPS)
+            + 4 * (nfft + gate_segments(nfft, hop) * hop))
+
+
+# ---- the packed inverse and fused gate (csrc/istft.cu, csrc/gate_packed.cu)
 
 
 def packed_istft_smem(nfft: int, hop: int) -> int:

@@ -158,7 +158,10 @@ def stft_mel_stockham(x: torch.Tensor, nfft: int, hop: int,
     """(c, n) float32 -> (c, frames, n_mfcc) MFCCs, or (c, frames, n_mels)
     mel energies when dct is None, in one kernel pass on a CUDA tensor.
     mel_fb: (n_mels, nfft//2+1); bands: its ``band_edges_np`` on x's
-    device; dct: (n_mfcc, n_mels), lifter folded in."""
+    device; dct: (n_mfcc, n_mels), lifter folded in. The kernel sums each
+    band over the filterbank's compact form (``stft_kernels._mel_tables``,
+    built on the first call with this filterbank) in the layout of
+    ``fft_plan.stockham_mel_plan``."""
     if x.device.type == "cpu":
         return stft_mel_stockham_plain(x, nfft, hop, window, mel_fb, dct,
                                        log_eps)
@@ -172,14 +175,18 @@ def stft_mel_stockham(x: torch.Tensor, nfft: int, hop: int,
         _build.require(dct, "dct", x.device, (n_out, n_mels))
     c, n = x.shape
     nf = stft_num_frames(n, nfft, hop)
+    weights, index = _sk._mel_tables(mel_fb, bands)
+    plan = fft_plan.stockham_mel_plan(nfft, n_mels, n_out, weights.numel(),
+                                      dct is not None)
     out = torch.empty((c, nf, n_out), dtype=torch.float32, device=x.device)
     err = _build.library().vv_stockham_mel(
         _build.ptr(x), _build.ptr(window),
-        _build.ptr(_twiddles(nfft, x.device)), _build.ptr(mel_fb),
-        _build.ptr(bands[0]), _build.ptr(bands[1]),
-        _build.ptr(dct if dct is not None else mel_fb), _build.ptr(out), c,
-        n, nf, nfft, hop, n_mels, n_out, float(log_eps), int(dct is not None),
-        x.device.index, _build.stream_handle(x))
+        _build.ptr(fft_plan.pass_twiddles(nfft, x.device)),
+        _build.ptr(weights), _build.ptr(index),
+        _build.ptr(dct if dct is not None else weights), _build.ptr(out), c,
+        n, nf, nfft, hop, n_mels, n_out, weights.numel(), float(log_eps),
+        int(dct is not None), int(plan.staged), plan.smem, x.device.index,
+        _build.stream_handle(x))
     _build.check(err, "stft_mel_stockham")
     stft_mel_stockham.launches += 1
     return out
@@ -204,7 +211,8 @@ def stft_gate_stockham(x: torch.Tensor, nfft: int, hop: int,
                        window: torch.Tensor, norm: torch.Tensor,
                        threshold: float) -> torch.Tensor:
     """(c, n) float32 -> (c, n) gated, in one kernel pass on a CUDA tensor:
-    no spectrum in device memory, each output sample written once. norm:
+    no spectrum in device memory, each output sample written once, two
+    frames per register-resident transform each way. norm:
     ``istft_kernels.ola_norm`` of the float64 window for the n samples'
     frames, on x's device."""
     if x.device.type == "cpu":
@@ -217,9 +225,10 @@ def stft_gate_stockham(x: torch.Tensor, nfft: int, hop: int,
     out = torch.empty_like(x)
     err = _build.library().vv_stockham_gate(
         _build.ptr(x), _build.ptr(window),
-        _build.ptr(_twiddles(nfft, x.device)), _build.ptr(norm),
+        _build.ptr(fft_plan.pass_twiddles(nfft, x.device)), _build.ptr(norm),
         _build.ptr(out), c, n, stft_num_frames(n, nfft, hop), nfft, hop,
-        float(threshold) ** 2, x.device.index, _build.stream_handle(x))
+        float(threshold) ** 2, fft_plan.stockham_gate_smem(nfft, hop),
+        x.device.index, _build.stream_handle(x))
     _build.check(err, "stft_gate_stockham")
     stft_gate_stockham.launches += 1
     return out

@@ -6,10 +6,10 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile the port's CUDA kernels from vv_dsp_tpu_torch/csrc,
    failing if ptxas spills in any instance of the two tensor-core kernels
-   (csrc/upfirdn.cu, csrc/dft_power.cu), of the packed MFCC kernel
-   (csrc/stft.cu), of the full-nfft inverse, fused gate and mel/MFCC
-   kernel (csrc/stockham.cu), of the packed inverse (csrc/istft.cu) or of
-   the packed fused gate (csrc/gate_packed.cu);
+   (csrc/upfirdn.cu, csrc/dft_power.cu), of the packed MFCC and power
+   kernels (csrc/stft.cu), of the full-nfft inverse, fused gate, mel/MFCC
+   and power kernels (csrc/stockham.cu), of the packed inverse
+   (csrc/istft.cu) or of the packed fused gate (csrc/gate_packed.cu);
 3. kernels: each kernel of the path against its plain PyTorch version on
    the card, at the shapes the main path gives it (the MFCC kernel at the
    chain's and at MFCCFrontend's geometry), within its tolerance,
@@ -27,10 +27,13 @@ Phases, each fatal on failure:
    the bound's share and the registers ptxas gave the kernel (build.log);
    so does each main-path row of the MFCC kernel, of the full-nfft
    inverse, fused gate (threshold 0 and 0.1) and mel/MFCC kernel, of the
-   packed inverse (without and with the gate) and of the packed fused
-   gate, which run the same transform (a redesign line: kernel and bound
-   ms, the bound's share, ptxas's figures, the plan's dynamic shared
-   memory).
+   packed inverse (without and with the gate), of the packed fused gate
+   and of the two power kernels (1024/256 packed, 128/32 and 1024/8
+   full-nfft), which run the same transform (a redesign line: kernel and
+   bound ms, the bound's share, ptxas's figures, the plan's dynamic shared
+   memory; the power rows with the one-sided spectrum kernel's time at the
+   same geometry, their yardstick, since no PyTorch call computes the
+   power in one pass).
    The two tensor-core kernels print the same row (kernel and bound ms,
    the bound's share, ptxas's figures): the banded upfirdn at each tier at
    the chain head, each against its own tier's bound (f32 the lesser of
@@ -275,24 +278,33 @@ def ptxas_usage(log: list[str], kernel: str, n: int, onesided: bool) -> str:
 
 
 # kernels whose instances may not spill: the two tensor-core kernels
-# (csrc/upfirdn.cu, csrc/dft_power.cu), the packed MFCC kernel
-# (csrc/stft.cu), the full-nfft inverse, fused gate and mel/MFCC kernel
-# (csrc/stockham.cu), the packed inverse and the packed fused gate
+# (csrc/upfirdn.cu, csrc/dft_power.cu), the packed MFCC and power kernels
+# (csrc/stft.cu), the full-nfft inverse, fused gate, mel/MFCC and power
+# kernels (csrc/stockham.cu), the packed inverse and the packed fused gate
 # (csrc/istft.cu, csrc/gate_packed.cu)
 NO_SPILL = ("upfirdn_mma_kernel", "dft_power_kernel", "stft_mfcc_kernel",
             "istft_stockham_kernel", "istft_kernel",
             "stft_gate_packed_kernel", "stockham_gate_kernel",
-            "stockham_mel_kernel")
+            "stockham_mel_kernel", "stft_power_kernel",
+            "stockham_power_kernel")
+
+
+def kernel_name(mangled: str) -> str:
+    """The function name of an Itanium-mangled entry function
+    (_Z17stft_power_kernelILi512EE... -> stft_power_kernel)."""
+    m = re.match(r"_Z(\d+)", mangled)
+    return mangled[m.end():m.end() + int(m.group(1))] if m else mangled
 
 
 def checked_spills(log: list[str]) -> list[str]:
-    """Instances of the NO_SPILL kernels that spill, by mangled name."""
+    """Instances of the NO_SPILL kernels that spill, by mangled name; a
+    kernel is matched by its exact name, not a part of it."""
     spills, name = [], None
     for line in log:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-        elif name and any(k in name for k in NO_SPILL):
+        elif name and kernel_name(name) in NO_SPILL:
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and int(m.group(1)):
                 spills.append(name)
@@ -308,6 +320,24 @@ def redesign_line(name, label, r, log, kernel, n, onesided, smem) -> None:
           f"bound {r['bound_ms'] / r['ms']:.3f}; build.log: "
           f"{ptxas_usage(log, kernel, n, onesided)}; dynamic shared memory "
           f"{smem} bytes a block (the launcher's request)")
+
+
+def power_line(name, label, r, stft_ms, log, kernel, n, smem) -> None:
+    """A power kernel's redesign line, with the one-sided spectrum kernel's
+    time at the same geometry (r["spectrum_ms"]), the yardstick that stands
+    in for the missing library call, the registers of every instance of
+    the kernel, and torch.stft followed by abs().square() on the same input
+    as a reference (not the row's library time)."""
+    mma_line(name, label, r["ms"], r["bound_ms"], r["bound_by"], log,
+             f"{kernel}ILi{n}EE", smem, kind="redesign")
+    print(f"  {name} [{label}]: the one-sided spectrum kernel at the same "
+          f"geometry {r['spectrum_ms']:.4f} ms (power {r['ms']:.4f} ms, "
+          f"{r['ms'] / r['spectrum_ms']:.2f}x); torch.stft + abs().square() "
+          f"{stft_ms:.4f} ms, a reference: library call none (torch.stft "
+          f"writes the complex spectrum; the power takes another pass)")
+    sizes = (128, 256, 512, 1024, 2048)
+    print(f"  {kernel} instances: " + instance_registers(
+        log, {f"<{m}>": f"{kernel}ILi{m}EE" for m in sizes}))
 
 
 def upfirdn_instance(up, down, taps_pp, offset, tier) -> tuple[str, int]:
@@ -654,13 +684,16 @@ def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
     fast = lambda: sk.stft_power(xs, NFFT, HOP, win)
     plain = lambda: sk.stft_power_plain(xs, NFFT, HOP, win)
     got = fast()
-    r = record("stft_power", "f32", got, plain(), POWER_TOL, fast, plain,
-               failed)
+    r = record("stft_power", f"{NFFT}/{HOP}", got, plain(), POWER_TOL, fast,
+               plain, failed)
     r.update(bound(4 * (xs.numel() + got.numel()),
                    fft_flops(c * got.shape[1], NFFT), F32_FLOP_PER_S))
     r["library_ms"] = None
-    print("  stft_power library call: none (torch.stft writes the complex "
-          "spectrum; the power takes another pass)")
+    r["spectrum_ms"] = results["stft_spectrum"]["onesided_ms"]
+    lib = lambda: torch.stft(xs_pad, NFFT, HOP, window=win, center=False,
+                             return_complex=True).abs().square()
+    power_line("stft_power", f"{NFFT}/{HOP}", r, cuda_ms(lib), log,
+               "stft_power_kernel", NFFT // 2, fr_smem(NFFT // 2, True))
     results["stft_power"] = r
 
     results.update(istft_phase(xc, win, failed, log))
@@ -764,23 +797,30 @@ def stockham_phase(xc, xs, front128, failed: list, log: list[str]) -> dict:
     x2 = xs[:2]                  # 2 x 480000 samples, 3.84 MB
     win128, win1024 = STFT(*SMALL).win(dev), STFT(1024, 8).win(dev)
 
-    fast = lambda: stk.stft_power_stockham(xc, *SMALL, win128)
-    plain = lambda: stk.stft_power_stockham_plain(xc, *SMALL, win128)
-    got = fast()
-    r = record("stft_power_stockham", "128/32", got, plain(), STOCKHAM_TOL,
-               fast, plain, failed)
-    r.update(bound(4 * (xc.numel() + got.numel()),
-                   fft_flops(c * got.shape[1], SMALL[0]), F32_FLOP_PER_S))
-    r["library_ms"] = None
-    print(f"  stft_power_stockham bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}); library call: none (torch.stft writes the "
-          f"complex spectrum; the power takes another pass)")
-    out["stft_power_stockham"] = r
-    fast = lambda: stk.stft_power_stockham(x2, 1024, 8, win1024)
-    plain = lambda: stk.stft_power_stockham_plain(x2, 1024, 8, win1024)
-    got = fast()
-    record("stft_power_stockham", f"1024/8, {io(got, x2)}", got, plain(),
-           STOCKHAM_TOL, fast, plain, failed)
+    def power_row(x, nfft, hop, w, label):
+        fast = lambda: stk.stft_power_stockham(x, nfft, hop, w)
+        plain = lambda: stk.stft_power_stockham_plain(x, nfft, hop, w)
+        got = fast()
+        r = record("stft_power_stockham", label, got, plain(), STOCKHAM_TOL,
+                   fast, plain, failed)
+        r.update(bound(4 * (x.numel() + got.numel()),
+                       fft_flops(x.shape[0] * got.shape[1], nfft),
+                       F32_FLOP_PER_S))
+        r["library_ms"] = None
+        r["spectrum_ms"] = cuda_ms(
+            lambda: stk.stft_spectrum_stockham(x, nfft, hop, w, True))
+        x_pad = torch.nn.functional.pad(x, (0, hop))
+        lib = lambda: torch.stft(x_pad, nfft, hop, window=w, center=False,
+                                 return_complex=True).abs().square()
+        power_line("stft_power_stockham", label, r, cuda_ms(lib), log,
+                   "stockham_power_kernel", nfft, fr_smem(nfft, False))
+        return r, got
+
+    out["stft_power_stockham"], _ = power_row(xc, *SMALL, win128, "128/32")
+    r, got = power_row(x2, 1024, 8, win1024, "1024/8, 2 ch")
+    print(f"  stft_power_stockham [1024/8]: {io(got, x2)}")
+    out["stft_power_stockham"].update(
+        {f"dense_{k}": v for k, v in r.items()})
 
     mel_args = (front128.window, front128.mel_fb, front128.mel_bands,
                 front128.dct_lift)

@@ -27,7 +27,11 @@ geometry, the chain's fused heads at 8/7, 5/7 and 2,048 FIR taps, a
 copied), ragged and short signals, 1 and 65535 channels, the tier probe
 at 1024 taps, and the windowed-DFT power at q = 1 to 129 (from q = 104
 split over two sample tiles) and depths to 16,512, with fewer and more
-frames than the signal holds and an unaligned signal). Needs an
+frames than the signal holds and an unaligned signal; the two power
+kernels on the register-resident FFT at every instance, odd frame counts
+and hop == nfft, the full-nfft launcher's refusal of nfft < 128, and the
+kernels' launch cache (csrc/fft_reg.cuh fr_launch) from two host threads
+and from a second loaded copy of the library). Needs an
 NVIDIA GPU and nvcc;
 skips without them. Run on the card (this
 file imports neither jax nor the JAX package, so the suite's jax conftest
@@ -433,10 +437,27 @@ def test_unsupported_geometry_raises_on_card(dev, gen):
     assert trs.fir_resample_fused(h, x, 4, 3).shape == (2, 40000)
 
 
-@pytest.mark.parametrize("nfft,hop", [(256, 64), (1024, 256), (2048, 300),
-                                      (4096, 1024)])
-@pytest.mark.parametrize("n", [700, 9001])
+def _odd_frames(nfft, hop):
+    """A signal length of 2 FB + 1 frames (FB = 4096/nfft, the frames of a
+    group of both power kernels), ragged: three groups, the last of one
+    frame."""
+    nf = 8192 // nfft + 1
+    n = nfft + hop * (nf - 2) + 5
+    assert stft_num_frames(n, nfft, hop) == nf
+    return n
+
+
+# the packed power kernel at every instance (M = nfft/2 = 128..2048), odd
+# hops (the 8-byte load off an even float offset) and hop == nfft
+@pytest.mark.parametrize("nfft,hop", [(256, 64), (256, 256), (512, 128),
+                                      (1024, 256), (1024, 255), (1024, 1024),
+                                      (2048, 300), (2048, 512), (4096, 1024),
+                                      (4096, 4096)])
+@pytest.mark.parametrize("n", [700, 9001, None])
 def test_power_kernel_matches_plain(dev, gen, nfft, hop, n):
+    """n < nfft at 1024 and up, a ragged tail, and (None) an odd frame
+    count whose last group holds one frame."""
+    n = n or _odd_frames(nfft, hop)
     x = torch.as_tensor(gen.standard_normal((2, n)), dtype=torch.float32,
                         device=dev)
     win = STFT(nfft, hop).win(dev)
@@ -548,14 +569,18 @@ def test_synthesis_refuses_what_the_kernels_do_not_take(dev, gen):
 # the full-nfft family: nfft = 128 at several hops (hop == nfft included),
 # hop 8 up to q = 128 (1024/8)
 STOCKHAM_GEOMETRIES = [(128, 32), (128, 8), (128, 128), (256, 8), (256, 32),
-                       (512, 8), (1024, 8), (2048, 16)]
+                       (512, 8), (1024, 8), (2048, 16), (2048, 2048)]
 
 
 @pytest.mark.parametrize("nfft,hop", STOCKHAM_GEOMETRIES)
-@pytest.mark.parametrize("channels,n", [(2, 100), (1, 3001), (3, 9000)])
+@pytest.mark.parametrize("channels,n", [(2, 100), (1, 3001), (3, 9000),
+                                        (2, None)])
 def test_stockham_spectrum_and_power_kernels_match_plain(dev, gen, nfft, hop,
                                                          channels, n):
-    """n < nfft at 128 and beyond (one frame), ragged tails."""
+    """n < nfft at 128 and beyond (one frame), ragged tails, and (None) an
+    odd frame count, whose last pair's second frame lies past nf, at every
+    transform size N = 128..2048."""
+    n = n or _odd_frames(nfft, hop)
     x = torch.as_tensor(gen.standard_normal((channels, n)),
                         dtype=torch.float32, device=dev)
     win = STFT(nfft, hop).win(dev)
@@ -567,11 +592,35 @@ def test_stockham_spectrum_and_power_kernels_match_plain(dev, gen, nfft, hop,
         want = tstk.stft_spectrum_stockham_plain(x, nfft, hop, win, onesided)
         assert got.shape == want.shape and got.dtype == torch.complex64
         assert _cplx_rel(got, want) < 5e-5
+    before = tstk.stft_power_stockham.launches
     got = tstk.stft_power_stockham(x, nfft, hop, win)
+    torch.cuda.synchronize()
+    assert tstk.stft_power_stockham.launches == before + 1
     want = tstk.stft_power_stockham_plain(x, nfft, hop, win)
     assert got.shape == want.shape == (channels, want.shape[1],
                                        nfft // 2 + 1)
     assert _rel(got, want) < 5e-5
+
+
+def test_stockham_power_launcher_refuses_nfft_below_128(dev):
+    """vv_stockham_power takes fr_fft's N = 128..2048 only, as the other
+    full-nfft launchers do, and launches nothing at nfft = 64 (or 4096)."""
+    from vv_dsp_tpu_torch import _build
+    from vv_dsp_tpu_torch.ops import fft_plan
+    lib = _build.library()
+    x = torch.zeros(1, 4096, device=dev)
+    for nfft in (64, 4096):
+        hop = nfft // 4
+        nf = stft_num_frames(x.shape[1], nfft, hop)
+        out = torch.full((1, nf, nfft // 2 + 1), 7.0, device=dev)
+        win = torch.ones(nfft, device=dev)
+        tw = fft_plan.pass_twiddles(128, dev)
+        assert lib.vv_stockham_power(
+            _build.ptr(x), _build.ptr(win), _build.ptr(tw), _build.ptr(out),
+            1, x.shape[1], nf, nfft, hop, dev.index,
+            _build.stream_handle(x)) != 0
+        torch.cuda.synchronize()
+        assert (out == 7.0).all()
 
 
 # the full-nfft mel and gate kernels on fr_fft at every transform size, at
@@ -1233,6 +1282,88 @@ def test_stockham_launchers_refuse_a_plan_not_their_own(dev):
             mel.smem + d, dev.index, stream) != 0
     torch.cuda.synchronize()
     assert (out == 7.0).all() and (feats == 7.0).all()
+
+
+# Run in a fresh process, so that every stft_power instance it launches is
+# launched there for the first time: two host threads launch each instance
+# at once (ctypes calls release the GIL, so both reach fr_launch's cache
+# together), then a second copy of the kernel library, loaded beside the
+# first, launches the 4096-point instance, whose 65,512 bytes of shared
+# memory need the kernel attribute its own fr_launch must set.
+_LAUNCH_CACHE_SCRIPT = """
+import os, shutil, sys, tempfile, threading
+import numpy as np, torch
+from vv_dsp_tpu_torch import _build
+from vv_dsp_tpu_torch.ops import fft_plan
+from vv_dsp_tpu_torch.ops import stft_kernels as tsk
+from vv_dsp_tpu_torch.ops.stft import STFT
+
+dev = torch.device("cuda", 0)
+x = torch.as_tensor(np.random.default_rng(5).standard_normal((2, 9001)),
+                    dtype=torch.float32, device=dev)
+geos = [(256, 64), (512, 128), (1024, 256), (2048, 512), (4096, 1024)]
+wins = {g: STFT(*g).win(dev) for g in geos}
+_build.library()
+meet = threading.Barrier(2)
+got, errors = {}, []
+
+def run(t):
+    try:
+        for g in geos:
+            meet.wait()
+            got[t, g] = [tsk.stft_power(x, *g, wins[g]) for _ in range(3)]
+    except Exception as e:
+        errors.append(repr(e))
+        meet.abort()
+
+threads = [threading.Thread(target=run, args=(t,)) for t in range(2)]
+for th in threads:
+    th.start()
+for th in threads:
+    th.join()
+torch.cuda.synchronize()
+assert not errors, errors
+for g in geos:
+    want = tsk.stft_power_plain(x, *g, wins[g])
+    for t in range(2):
+        for out in got[t, g]:
+            err = ((out - want).abs().max() / want.abs().max()).item()
+            assert err < 5e-5, (t, g, err)
+with tempfile.TemporaryDirectory() as tmp:
+    copy = os.path.join(tmp, "copy.so")
+    shutil.copy(_build.build(), copy)
+    lib2 = _build.load(copy)
+    nfft, hop = 4096, 1024
+    want = tsk.stft_power_plain(x, nfft, hop, wins[nfft, hop])
+    nf = want.shape[1]
+    out = torch.full_like(want, 7.0)
+    tw = fft_plan.pass_twiddles(nfft // 2, dev)
+    wk = tsk._fft_tables(nfft, dev)[1]
+    err = lib2.vv_stft_power(
+        _build.ptr(x), _build.ptr(wins[nfft, hop]), _build.ptr(tw),
+        _build.ptr(wk), _build.ptr(out), 2, x.shape[1], nf, nfft, hop,
+        dev.index, _build.stream_handle(x))
+    torch.cuda.synchronize()
+    assert err == 0, err
+    assert ((out - want).abs().max() / want.abs().max()).item() < 5e-5
+print("launch cache ok")
+"""
+
+
+def test_fr_launch_cache_across_threads_and_libraries(dev):
+    """fr_launch's attribute and block-count cache under a lock and with
+    internal linkage: two host threads launching fresh stft_power instances
+    at once both get the plain version's powers, and a second loaded copy
+    of the library keeps a cache of its own (its 4096-point launch sets its
+    own kernel's shared-memory attribute)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _LAUNCH_CACHE_SCRIPT],
+                       cwd=root, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "launch cache ok" in r.stdout
 
 
 def test_last_slice_entry_points_on_card_match_cpu(dev, gen):

@@ -87,7 +87,14 @@ def build() -> Path:
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
+    return load(build())
+
+
+def load(path) -> ctypes.CDLL:
+    """The kernel library at path, its entry points typed. Each load of
+    another file is a library of its own, with its own kernels and launch
+    caches (csrc/fft_reg.cuh fr_launch)."""
+    lib = ctypes.CDLL(str(path))
     P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
     lib.vv_upfirdn.argtypes = [P, P, P, I, L, L, I, I, L, I, I, I, I, I, I,

@@ -1,10 +1,12 @@
-// Register-resident forward FFT shared by the two spectrum kernels
-// (stft.cu stft_spectrum_kernel, stockham.cu stockham_spectrum_kernel), the
-// two MFCC kernels (stft.cu stft_mfcc_kernel, stockham.cu
-// stockham_mel_kernel), the two inverses (istft.cu istft_kernel,
-// stockham.cu istft_stockham_kernel, which run it on conjugated input:
-// N ifft(Z) = conj(fft(conj Z))) and the two fused gates (gate_packed.cu,
-// stockham.cu stockham_gate_kernel, which run it both ways).
+// Register-resident forward FFT shared by every FFT kernel of the port:
+// the two spectrum kernels (stft.cu stft_spectrum_kernel, stockham.cu
+// stockham_spectrum_kernel), the two power kernels (stft.cu
+// stft_power_kernel, stockham.cu stockham_power_kernel), the two MFCC
+// kernels (stft.cu stft_mfcc_kernel, stockham.cu stockham_mel_kernel), the
+// two inverses (istft.cu istft_kernel, stockham.cu istft_stockham_kernel,
+// which run it on conjugated input: N ifft(Z) = conj(fft(conj Z))) and the
+// two fused gates (gate_packed.cu, stockham.cu stockham_gate_kernel, which
+// run it both ways).
 //
 // The N-point complex transform (N a power of two in [128, 2048]) of each
 // frame runs on N/8 threads, each holding 8 points in registers, as
@@ -31,6 +33,8 @@
 // A block is FR_THREADS threads over FR_POINTS / N transforms. The host
 // side (ops/fft_plan.py) also lays out each kernel's shared memory.
 #pragma once
+
+#include <mutex>
 
 #include "common.cuh"
 
@@ -206,43 +210,61 @@ __device__ __forceinline__ void fr_stage(float2* dst,
 // the kernel's maximum dynamic shared memory is raised to the largest size
 // requested so far on the device, never lowered, and the block count is
 // kept per (device, size), the last FR_SIZES sizes of the instance.
+//
+// The cache is read and written under a lock, since host threads may launch
+// at once (the ctypes calls release the GIL), and fr_launch has internal
+// linkage: a function-local static of a function with external linkage is
+// a unique symbol across the process's shared objects (STB_GNU_UNIQUE), so
+// two loaded builds of the library would share a cache that holds one
+// build's kernel attributes.
 constexpr int FR_SIZES = 16;
+
+namespace {
 
 template <auto Kernel, class... Args>
 cudaError_t fr_launch(size_t smem, long long groups, int device,
                       cudaStream_t stream, Args... args) {
   if (groups <= 0) return cudaSuccess;
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  static std::mutex mu;
   static size_t attr[64] = {0};
   static size_t sizes[64][FR_SIZES] = {};
   static int slots[64][FR_SIZES] = {};
   static int next[64] = {0};
-  cudaError_t e;
-  if (smem > attr[device]) {
-    e = cudaFuncSetAttribute(
-        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) {
-      cudaGetLastError();  // clear it, so the next launch does not report it
-      return e;
+  int grid;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    cudaError_t e;
+    if (smem > attr[device]) {
+      e = cudaFuncSetAttribute(
+          Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) {
+        cudaGetLastError();  // clear it, so the next launch does not report it
+        return e;
+      }
+      attr[device] = smem;
     }
-    attr[device] = smem;
+    int i = 0;
+    while (i < FR_SIZES && !(slots[device][i] && sizes[device][i] == smem))
+      ++i;
+    if (i == FR_SIZES) {
+      int per_sm = 0, sms = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
+                                                        FR_THREADS, smem);
+      if (e != cudaSuccess) return e;
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+      if (e != cudaSuccess) return e;
+      if (per_sm < 1) return cudaErrorInvalidConfiguration;
+      i = next[device];
+      next[device] = (i + 1) % FR_SIZES;
+      sizes[device][i] = smem;
+      slots[device][i] = per_sm * sms;
+    }
+    grid = (int)std::min<long long>(groups, slots[device][i]);
   }
-  int i = 0;
-  while (i < FR_SIZES && !(slots[device][i] && sizes[device][i] == smem)) ++i;
-  if (i == FR_SIZES) {
-    int per_sm = 0, sms = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel,
-                                                      FR_THREADS, smem);
-    if (e != cudaSuccess) return e;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    i = next[device];
-    next[device] = (i + 1) % FR_SIZES;
-    sizes[device][i] = smem;
-    slots[device][i] = per_sm * sms;
-  }
-  const int grid = (int)std::min<long long>(groups, slots[device][i]);
   Kernel<<<grid, FR_THREADS, smem, stream>>>(args...);
   return cudaGetLastError();
 }
+
+}  // namespace

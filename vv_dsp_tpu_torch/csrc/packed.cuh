@@ -12,57 +12,17 @@
 // scaled by 1/nfft, whose output z[n] = y[2n] + j y[2n+1] is the frame's
 // even and odd samples. wk[k] = exp(-2 pi i k / nfft), k <= m, serves both.
 //
-// The spectrum, MFCC, inverse and fused-gate kernels run the m-point
-// transform register-resident (fft_reg.cuh): thread j of a frame holds its
-// points k = j + s m/8 (s < 8), loaded straight into registers
-// (packed_frame_regs), or bins k and m - k for the inverse
+// Every packed kernel (spectrum, power, MFCC, inverse, fused gate) runs
+// the m-point transform register-resident (fft_reg.cuh): thread j of a
+// frame holds its points k = j + s m/8 (s < 8), loaded straight into
+// registers (packed_frame_regs), or bins k and m - k for the inverse
 // (packed_inverse_regs), which runs as the forward transform of conj Z:
-// m ifft(Z) = conj(fft(conj Z)). The power
-// kernel keeps the radix-2 transform in shared memory (packed_load,
-// packed_fft), one frame a block.
+// m ifft(Z) = conj(fft(conj Z)).
 #pragma once
 
 #include <cstdint>
 
 #include "fft_reg.cuh"
-
-// Frame f0 (frame f covers xc[f*hop, f*hop + 2m), zero past n) windowed and
-// even/odd packed into z in bit-reversed order.
-__device__ __forceinline__ void packed_load(
-    const float* __restrict__ xc, long long n, long long f0, int hop,
-    const float* __restrict__ win, float2* z, int m, int log2m) {
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    const long long i0 = f0 * hop + 2 * j;
-    const float a = i0 < n ? xc[i0] : 0.f;
-    const float c = i0 + 1 < n ? xc[i0 + 1] : 0.f;
-    z[(int)(__brev((unsigned)j) >> (32 - log2m))] =
-        make_float2(a * win[2 * j], c * win[2 * j + 1]);
-  }
-  __syncthreads();
-}
-
-// The m-point forward FFT of one frame in place: radix-2 DIT, bit-reversed
-// input, natural-order output.
-__device__ __forceinline__ void packed_fft(float2* z, int m, int log2m,
-                                           const float2* __restrict__ tw) {
-  const int half_m = m >> 1;
-  for (int s = 0; s < log2m; ++s) {
-    const int half = 1 << s;
-    const int stride = m >> (s + 1);  // span 2*half: exp(-2 pi i pos / 2half)
-    for (int b = threadIdx.x; b < half_m; b += blockDim.x) {
-      const int pos = b & (half - 1);
-      const int i0 = ((b >> s) << (s + 1)) + pos;
-      const int i1 = i0 + half;
-      const float2 w = tw[pos * stride];
-      const float2 u = z[i0], v = z[i1];
-      const float tr = w.x * v.x - w.y * v.y;
-      const float ti = w.x * v.y + w.y * v.x;
-      z[i0] = make_float2(u.x + tr, u.y + ti);
-      z[i1] = make_float2(u.x - tr, u.y - ti);
-    }
-    __syncthreads();
-  }
-}
 
 // X[k] of a 2m-point real frame from a = Z[k mod m], b = Z[(m - k) mod m]
 // of its packed spectrum and w = wk[k]; X[m - k] takes the same pair

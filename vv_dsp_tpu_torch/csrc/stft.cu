@@ -17,10 +17,10 @@
 // Frame f covers x[f*hop, f*hop + nfft), zero past the signal. Its
 // nfft-point real FFT is a packed-real transform: an m = nfft/2 point
 // complex FFT of the even/odd packed, windowed frame, then the Hermitian
-// unpack of bins 0..m (packed.cuh). The spectrum and MFCC kernels run the
-// m-point transform register-resident (fft_reg.cuh), 2048/m frames a block
-// on a persistent grid; the power kernel runs packed.cuh's radix-2
-// transform in shared memory, one (channel, frame) a block.
+// unpack of bins 0..m (packed.cuh). All three kernels run the m-point
+// transform register-resident (fft_reg.cuh), 2048/m frames a block on a
+// persistent grid; the spectrum and power kernels share that walk
+// (packed_spectrum_walk) and differ only in what they write.
 //
 // Bounds. The spectrum kernel writes 8 bytes per bin: 245 MB at the
 // STFT row (16 x 1873 frames x 1024 bins), so it is bound by device-memory
@@ -30,9 +30,11 @@
 // for a 512-point frame, a bit-reversed scatter with 32-way bank conflicts
 // and twiddles read from device memory per butterfly.
 // The power kernel reads 4 bytes a sample and writes 4 bytes a bin (92 MB
-// at 16 x 480000, 1024/256), so it is bound by device memory too; it
-// writes re^2 + im^2 of bins 0..m in natural order, so the TPU kernel's
-// storage-order permutation epilogue has no counterpart.
+// at 16 x 480000, 1024/256: 0.028 ms at 3.35 TB/s), so it is bound by
+// device memory too; it writes re^2 + im^2 of bins 0..m in natural order,
+// the FB rows of a group as one coalesced run, so the TPU kernel's
+// storage-order permutation epilogue has no counterpart. Its radix-2 form,
+// one frame a block, took 12x that bound.
 // The MFCC kernel reads the signal and writes 20 floats a frame; the
 // frames, the spectrum and the power never leave registers and shared
 // memory, which is what the TPU kernel exists for. Its ~1.3 GFLOP at the
@@ -57,36 +59,21 @@
 #include "mel_dct.cuh"
 #include "packed.cuh"
 
-constexpr int STFT_THREADS = 256;
-
-// Frame f of row xc (n samples): its packed spectrum Z[k], natural order
-__device__ __forceinline__ void packed_frame_fft(
-    const float* __restrict__ xc, long long n, int f, int hop,
-    const float* __restrict__ win, const float2* __restrict__ tw, float2* z,
-    int m, int log2m) {
-  packed_load(xc, n, f, hop, win, z, m, log2m);
-  packed_fft(z, m, log2m, tw);
-}
-
-// out: (channels, nf, BINS) interleaved complex; BINS = 2M (two-sided,
-// X[2M-k] = conj X[k]) or M + 1 (one-sided). The register-resident M-point
-// transform of fft_reg.cuh on the packed frame: thread j loads its packed
-// points straight into registers (packed_frame_regs); its 16 window values
-// stay in registers for the whole grid walk. The spectrum Z of FB = 2048/M
-// frames ends in shared memory in natural order; bins 0..M are unpacked
-// from it (unpack_bin, with wk staged in shared memory) and the FB rows,
-// contiguous in out, written as one coalesced run (the division by BINS is
-// by a constant), the mirror bins as conjugates.
-template <int M, bool ONESIDED>
-__global__ void __launch_bounds__(FR_THREADS, 4)
-stft_spectrum_kernel(const float* __restrict__ x,
-                     const float* __restrict__ win,
-                     const float2* __restrict__ tw,
-                     const float2* __restrict__ wk, float2* __restrict__ out,
-                     long long n, int nf, int hop, int groups_per_row,
-                     long long groups) {
-  constexpr int T = M / 8, FB = FR_POINTS / M, NFFT = 2 * M;
-  constexpr int BINS = ONESIDED ? M + 1 : NFFT;
+// The frame walk of the packed spectrum and power kernels: the
+// register-resident M-point transform of fft_reg.cuh on the packed frame,
+// FB = 2048/M frames of one channel a group on a persistent grid. Thread j
+// loads its packed points straight into registers (packed_frame_regs); its
+// 16 window values stay in registers for the whole walk, and the twiddles
+// and wk are staged in shared memory once a block. For each group,
+// store(z, wks, c, f0, nb) gets the group's spectra Z (FB rows of M points
+// in shared memory, natural order), its channel and first frame and the
+// number of its frames below nf; frames past nf run on zeros.
+template <int M, class Store>
+__device__ __forceinline__ void packed_spectrum_walk(
+    const float* __restrict__ x, const float* __restrict__ win,
+    const float2* __restrict__ tw, const float2* __restrict__ wk, long long n,
+    int nf, int hop, int groups_per_row, long long groups, Store store) {
+  constexpr int T = M / 8, FB = FR_POINTS / M;
   extern __shared__ float2 sm[];
   float2* tws = sm;
   float2* wks = tws + fr_table_size(M);
@@ -104,49 +91,77 @@ stft_spectrum_kernel(const float* __restrict__ x,
     float2 v[8];
     packed_frame_regs<M>(v, x + (long long)c * n, n, f0 + fb, nf, hop, j, w);
     fr_fft<M>(v, j, tws, a + fb * M, b + fb * M);
-    const float2* z = fr_result<M>(a, b);
-    const int nb = min(FB, nf - f0);
-    float2* o = out + ((long long)c * nf + f0) * BINS;
-    for (int idx = threadIdx.x; idx < nb * BINS; idx += FR_THREADS) {
-      const int q = idx / BINS, k = idx - q * BINS;
-      float2 val = unpack_bin(z + q * M, wks, k <= M ? k : NFFT - k, M);
-      if (k > M) val.y = -val.y;
-      o[idx] = val;
-    }
+    store(fr_result<M>(a, b), wks, c, f0, min(FB, nf - f0));
     fr_swap_after<M>(a, b);
   }
 }
 
+// out: (channels, nf, BINS) interleaved complex; BINS = 2M (two-sided,
+// X[2M-k] = conj X[k]) or M + 1 (one-sided). Bins 0..M are unpacked from
+// the group's Z (unpack_bin) and the FB rows, contiguous in out, written as
+// one coalesced run (the division by BINS is by a constant), the mirror
+// bins as conjugates.
 template <int M, bool ONESIDED>
-static cudaError_t launch_spectrum(const float* x, const float* win,
-                                   const void* tw, const void* wk, void* out,
-                                   int channels, long long n, int nf, int hop,
-                                   int device, cudaStream_t stream) {
-  constexpr int FB = FR_POINTS / M;
-  const int per_row = (nf + FB - 1) / FB;
-  const size_t smem =
-      (fr_table_size(M) + M + 1 + 2 * FR_POINTS) * sizeof(float2);
-  return fr_launch<stft_spectrum_kernel<M, ONESIDED>>(
-      smem, (long long)per_row * channels, device, stream, x, win,
-      (const float2*)tw, (const float2*)wk, (float2*)out, n, nf, hop, per_row,
-      (long long)per_row * channels);
+__global__ void __launch_bounds__(FR_THREADS, 4)
+stft_spectrum_kernel(const float* __restrict__ x,
+                     const float* __restrict__ win,
+                     const float2* __restrict__ tw,
+                     const float2* __restrict__ wk, float2* __restrict__ out,
+                     long long n, int nf, int hop, int groups_per_row,
+                     long long groups) {
+  constexpr int NFFT = 2 * M, BINS = ONESIDED ? M + 1 : NFFT;
+  packed_spectrum_walk<M>(
+      x, win, tw, wk, n, nf, hop, groups_per_row, groups,
+      [=](const float2* z, const float2* wks, int c, int f0, int nb) {
+        float2* o = out + ((long long)c * nf + f0) * BINS;
+        for (int idx = threadIdx.x; idx < nb * BINS; idx += FR_THREADS) {
+          const int q = idx / BINS, k = idx - q * BINS;
+          float2 val = unpack_bin(z + q * M, wks, k <= M ? k : NFFT - k, M);
+          if (k > M) val.y = -val.y;
+          o[idx] = val;
+        }
+      });
 }
 
-// out: (channels, nf, nfft/2 + 1) |X[k]|^2, natural bin order
-__global__ void __launch_bounds__(STFT_THREADS)
+// out: (channels, nf, M + 1) |X[k]|^2, natural bin order: the spectrum
+// kernel's walk, with re^2 + im^2 of each unpacked bin written where the
+// one-sided spectrum kernel writes the bin, the FB rows as one coalesced
+// run.
+template <int M>
+__global__ void __launch_bounds__(FR_THREADS, 4)
 stft_power_kernel(const float* __restrict__ x, const float* __restrict__ win,
                   const float2* __restrict__ tw,
                   const float2* __restrict__ wk, float* __restrict__ out,
-                  long long n, int nf, int nfft, int hop) {
-  extern __shared__ float2 z[];
-  const int f = blockIdx.x, c = blockIdx.y;
-  const int m = nfft / 2, log2m = __ffs(m) - 1;
-  packed_frame_fft(x + (long long)c * n, n, f, hop, win, tw, z, m, log2m);
-  float* o = out + ((long long)c * nf + f) * (m + 1);
-  for (int k = threadIdx.x; k <= m; k += STFT_THREADS) {
-    const float2 v = unpack_bin(z, wk, k, m);
-    o[k] = v.x * v.x + v.y * v.y;
-  }
+                  long long n, int nf, int hop, int groups_per_row,
+                  long long groups) {
+  constexpr int BINS = M + 1;
+  packed_spectrum_walk<M>(
+      x, win, tw, wk, n, nf, hop, groups_per_row, groups,
+      [=](const float2* z, const float2* wks, int c, int f0, int nb) {
+        float* o = out + ((long long)c * nf + f0) * BINS;
+        for (int idx = threadIdx.x; idx < nb * BINS; idx += FR_THREADS) {
+          const int q = idx / BINS, k = idx - q * BINS;
+          const float2 val = unpack_bin(z + q * M, wks, k, M);
+          o[idx] = val.x * val.x + val.y * val.y;
+        }
+      });
+}
+
+// Launch a kernel on packed_spectrum_walk: a persistent grid over the
+// groups of FB = 2048/M frames of each channel; the dynamic shared memory
+// holds the twiddle table, wk and two exchange buffers.
+template <int M, auto Kernel, class Out>
+static cudaError_t launch_walk(const float* x, const float* win,
+                               const void* tw, const void* wk, Out* out,
+                               int channels, long long n, int nf, int hop,
+                               int device, cudaStream_t stream) {
+  constexpr int FB = FR_POINTS / M;
+  const int per_row = (nf + FB - 1) / FB;
+  return fr_launch<Kernel>(
+      (fr_table_size(M) + M + 1 + 2 * FR_POINTS) * sizeof(float2),
+      (long long)per_row * channels, device, stream, x, win,
+      (const float2*)tw, (const float2*)wk, out, n, nf, hop, per_row,
+      (long long)per_row * channels);
 }
 
 // out: (channels, nf, n_mfcc) MFCCs when FUSE_DCT, else (channels, nf,
@@ -277,13 +292,12 @@ extern "C" int vv_stft_spectrum(const float* x, const float* win,
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = (cudaStream_t)stream;
   const bool one = bins != nfft;
-#define VV_SPECTRUM(M)                                                      \
-  return (int)(one ? launch_spectrum<M, true>(x, win, tw, wk, out,         \
-                                              channels, n, nf, hop, device, \
-                                              s)                           \
-                   : launch_spectrum<M, false>(x, win, tw, wk, out,        \
-                                               channels, n, nf, hop,       \
-                                               device, s))
+  float2* o = (float2*)out;
+#define VV_SPECTRUM(M)                                                       \
+  return (int)(one ? launch_walk<M, stft_spectrum_kernel<M, true>>(         \
+                         x, win, tw, wk, o, channels, n, nf, hop, device, s) \
+                   : launch_walk<M, stft_spectrum_kernel<M, false>>(        \
+                         x, win, tw, wk, o, channels, n, nf, hop, device, s))
   switch (nfft) {
     case 256: VV_SPECTRUM(128);
     case 512: VV_SPECTRUM(256);
@@ -301,11 +315,20 @@ extern "C" int vv_stft_power(const float* x, const float* win, const void* tw,
                              int device, void* stream) {
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const size_t smem = (size_t)(nfft / 2) * sizeof(float2);
-  const dim3 grid((unsigned)nf, (unsigned)channels);
-  stft_power_kernel<<<grid, STFT_THREADS, smem, (cudaStream_t)stream>>>(
-      x, win, (const float2*)tw, (const float2*)wk, out, n, nf, nfft, hop);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+#define VV_POWER(M)                                                   \
+  return (int)launch_walk<M, stft_power_kernel<M>>(x, win, tw, wk, out, \
+                                                   channels, n, nf, hop, \
+                                                   device, s)
+  switch (nfft) {
+    case 256: VV_POWER(128);
+    case 512: VV_POWER(256);
+    case 1024: VV_POWER(512);
+    case 2048: VV_POWER(1024);
+    case 4096: VV_POWER(2048);
+  }
+#undef VV_POWER
+  return (int)cudaErrorInvalidValue;
 }
 
 // smem: the host plan's (fft_plan.mfcc_plan), which the launcher checks

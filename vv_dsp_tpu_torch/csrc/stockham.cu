@@ -1,93 +1,4 @@
 // Full-nfft STFT kernels: the windowed complex spectrum, the one-sided power
-// spectrogram, the fused STFT -> power -> mel (-> log -> DCT) front end and
-// the fused SpectralGate (forward -> per-frame peak gate -> inverse ->
-// overlap-add, one kernel).
-//
-// They replace the unpacked ("Stockham") kernels of
-// vv_dsp_tpu/ops/pallas_fft.py, which the JAX package dispatches where its
-// packed-real kernels refuse the geometry: nfft = 128 at any hop, and
-// hop = 8 (stft_mel_supported and not stft_mel_packed_supported):
-//   stockham_spectrum_kernel replaces _spectrum_kernel (launcher
-//     stft_spectrum_stockham) with its _stockham_natural epilogue;
-//   stockham_power_kernel replaces _power_kernel (stft_power_stockham) with
-//     the same epilogue;
-//   stockham_mel_kernel replaces _stft_mel_kernel (launcher _stft_mel_call,
-//     entries stft_mel_energies_pallas and stft_mfcc_pallas);
-//   stockham_gate_kernel replaces _gate_kernel (stft_gate_pallas) with its
-//     strip-merge epilogue and the w^2 norm division;
-//   istft_stockham_kernel replaces _istft_kernel (istft_stockham) with its
-//     strip-merge epilogue and the division by the exact w^2 norm, which the
-//     JAX launcher applies after the kernel.
-//
-// Per frame f (x[f*hop, f*hop + nfft), zero past the signal): the
-// nfft-point complex FFT of the windowed real frame, float32, with
-// host-built float64 -> f32 twiddles. Bins come out in natural order, so
-// the TPU kernels' bin permutation and the epilogue that undoes it have no
-// counterpart, nor has their DFT-64 matrix tail: the butterflies run to
-// the end. The spectrum kernel and the inverse run the register-resident
-// radix-8 transform of fft_reg.cuh (their own sections below), two real
-// frames per complex transform. The other three run a
-// radix-2 DIT in shared memory on bit-reversed input, twiddles
-// tw[k] = exp(-2 pi i k / nfft), k < nfft/2: a block takes FB =
-// max(1, 2048/nfft) consecutive frames of one channel, so every
-// barrier-separated stage has 1024 butterflies for its 256 threads
-// whatever nfft is (16 frames a block at nfft = 128, where one frame a
-// block would leave 3/4 of the threads idle). Points sit in shared memory
-// with one pad slot per 32 (slot()), so the bit-reversed scatter is free
-// of bank conflicts.
-//
-// Bounds, at the shapes the port's entry points give them on 16 channels
-// of ~480k samples: the spectrum at 512/8 writes 3.93 GB (1.97 GB
-// one-sided), ~1.2 ms at 3.35 TB/s, so its bound is device-memory writes;
-// each block writes its FB frames' rows as one contiguous run. Its radix-2
-// form took 5.5-11x that bound (nine round trips of every point through
-// shared memory, each behind a barrier); the register-resident transform
-// makes two exchanges at 512 points. The power (128/32: 30.7 MB read,
-// 62.3 MB written), mel (12.5 MB written) and gate (31 MB each way)
-// kernels move little: what holds them back is the radix-2 transform, the
-// next to move onto fft_reg.cuh.
-//
-// Mel/MFCC: the power row stays in shared memory; each mel band is summed
-// over its nonzero bin range only (the host's band edges, as
-// stft_mfcc_kernel in stft.cu does), one thread per (frame, band), then log
-// and the liftered DCT-II rows, one thread per (frame, coefficient): at
-// nfft = 128 a band holds 1-9 bins, too few to share among a warp.
-// The TPU kernel runs its mel and DCT dots at _kernel_precision(), float32
-// under the default knob, and takes no dot-algorithm tier, so these are
-// plain float32 products whatever tier the caller names.
-//
-// Gate: the peak and the mask are taken over all nfft bins of the
-// two-sided spectrum, as the TPU kernel takes them, comparing
-// re^2 + im^2 >= thresh2 * peak2 in float32 with no fused multiply-add
-// (power2), as the plain version does. The inverse is an unscaled radix-2
-// DIF with conjugate twiddles (natural order in, bit-reversed out), scaled
-// by 1/nfft (exact: nfft is 2^k); the real part is windowed and
-// overlap-added. Overlap-add across blocks is deterministic, with no
-// atomics: as istft.cu does, block (s, c) owns `seg` consecutive hop-long
-// output segments of channel c, recomputes the q - 1 frames (q = nfft/hop)
-// that reach into the first of them from the left, sums every frame that
-// touches its segments into a shared-memory strip in ascending frame
-// order and writes each output sample once, divided by the guarded w^2
-// norm (the host's float64 table, cast once; the TPU kernel's caller
-// divides by the interior-periodic norm, which equals it on every sample
-// SpectralGate keeps). seg >= 4 (q - 1), so at 1024/8 (q = 128) a block
-// recomputes at most 127 frames for 512 it owns.
-//
-// Inverse STFT: the overlap-add and norm of the gate, on frames read from
-// a spectrum in natural bin order (the TPU kernel's storage permutation,
-// _stockham_storage_from_natural, is TPU layout and has no counterpart).
-// With all nfft bins given, the real part of each frame's complex inverse
-// is kept, whether or not the spectrum is Hermitian; with the one-sided
-// nfft/2 + 1 bins, bin k > nfft/2 is the conjugate of bin nfft - k, and
-// the imaginary parts of the DC and Nyquist bins drop out of the real
-// part, as in irfft. Bound: it reads 8 bytes a bin and writes 4 a sample
-// (123 MB and 31 MB at 1024/256 one-sided on 16 x 1876 frames), so device
-// memory bounds it, and the transform is what keeps it from the bound: so
-// it inverts two real frames per register-resident transform (their
-// Hermitian parts packed as one complex spectrum), reads the output in
-// natural order and, in the overlap-add, visits only the frames covering
-// a sample (at 128 points a block takes 32 frames, 4 of which cover one).
-// Full-nfft STFT kernels: the windowed complex spectrum, the one-sided power
 // spectrogram, the fused STFT -> power -> mel (-> log -> DCT) front end,
 // the fused SpectralGate (forward -> per-frame peak gate -> inverse ->
 // overlap-add, one kernel) and the inverse STFT.
@@ -113,27 +24,25 @@
 // host-built float64 -> f32 twiddles. Bins come out in natural order, so
 // the TPU kernels' bin permutation and the epilogue that undoes it have no
 // counterpart, nor has their DFT-64 matrix tail: the butterflies run to
-// the end. The spectrum, mel, gate and inverse kernels run the
-// register-resident radix-8 transform of fft_reg.cuh (fr_fft), two real
-// frames per N-point complex transform (z = x_f + i x_f+1, whose spectrum
-// Z gives X_f[k] = (Z[k] + conj Z[N-k]) / 2 and X_f+1[k] = (Z[k] - conj
-// Z[N-k]) / 2i; the window carries the 1/2), on a persistent grid that
-// stages the twiddle table once a block and walks groups of FB = 4096/N
-// frames (32 at N = 128). The power kernel still runs a radix-2 DIT in
-// shared memory on bit-reversed input (load_frames, fft_dit), FB =
-// max(1, 2048/nfft) frames a block, one pad slot per 32 points (slot()) so
-// that the bit-reversed scatter is free of bank conflicts.
+// the end. Every kernel runs the register-resident radix-8 transform of
+// fft_reg.cuh (fr_fft), two real frames per N-point complex transform (z =
+// x_f + i x_f+1, whose spectrum Z gives X_f[k] = (Z[k] + conj Z[N-k]) / 2
+// and X_f+1[k] = (Z[k] - conj Z[N-k]) / 2i; the window carries the 1/2), on
+// a persistent grid that stages the twiddle table once a block and walks
+// groups of FB = 4096/N frames (32 at N = 128); the spectrum and power
+// kernels share that walk (paired_spectrum_walk).
 //
 // Bounds, at the shapes the port's entry points give them on 16 channels
 // of ~480k samples: the spectrum at 512/8 writes 3.93 GB (1.97 GB
 // one-sided), ~1.2 ms at 3.35 TB/s, so its bound is device-memory writes;
 // each block writes its FB frames' rows as one contiguous run. The power
-// (128/32: 30.7 MB read, 62.3 MB written), mel (30.7 MB read, 12.5 MB
-// written) and gate (31 MB each way) kernels move little and are bound by
-// bytes too (0.028, 0.013 and 0.019 ms); their radix-2 forms took 10-35x
-// that, seven barrier-separated passes at N = 128 (fourteen and two more
-// in the gate) with twiddles read from device memory per butterfly, where
-// fr_fft makes three passes with one exchange each.
+// (128/32 on 16 x 479232: 30.7 MB read, 62.3 MB written, 93 MB), mel (30.7
+// MB read, 12.5 MB written) and gate (31 MB each way) kernels move little
+// and are bound by bytes too (0.028, 0.013 and 0.019 ms); their radix-2
+// forms took 10-35x that, seven barrier-separated passes at N = 128
+// (fourteen and two more in the gate) with twiddles read from device
+// memory per butterfly, where fr_fft makes three passes with one exchange
+// each.
 //
 // Mel/MFCC: the powers of bins 0..N/2 of a group's frames go into the
 // exchange buffer the transform left free, both frames of a pair from one
@@ -190,67 +99,6 @@
 #include "mel_dct.cuh"
 #include "packed.cuh"
 
-constexpr int SH_THREADS = 256;
-constexpr int SH_POINTS = 2048;  // complex points a block transforms at once
-
-__host__ __device__ inline int frames_per_block(int nfft) {
-  return nfft >= SH_POINTS ? 1 : SH_POINTS / nfft;
-}
-
-__device__ __forceinline__ int brev(int j, int log2n) {
-  return (int)(__brev((unsigned)j) >> (32 - log2n));
-}
-
-// Shared-memory slot of point p of a batch: one float2 of padding after
-// every 32 points. Bit-reversal sends a warp's 32 consecutive points 2^k
-// apart, all to one bank without it; with it they spread over all 32
-// banks, and the butterflies' runs of consecutive points stay contiguous.
-__device__ __forceinline__ int slot(int p) { return p + (p >> 5); }
-
-__host__ __device__ inline size_t batch_floats2(int nfft) {
-  const size_t points = (size_t)frames_per_block(nfft) * nfft;
-  return points + points / 32;
-}
-
-// Frames f0 .. f0 + nb - 1 of row xc (n samples), windowed, into z (nb
-// frames of nfft points, each in bit-reversed order, at slot()).
-__device__ void load_frames(const float* __restrict__ xc, long long n,
-                            long long f0, int nb, int hop,
-                            const float* __restrict__ win, float2* z,
-                            int nfft, int log2n) {
-  for (int idx = threadIdx.x; idx < nb * nfft; idx += SH_THREADS) {
-    const int b = idx >> log2n, j = idx & (nfft - 1);
-    const long long i = (f0 + b) * hop + j;
-    const float v = i < n ? xc[i] : 0.f;
-    z[slot((b << log2n) + brev(j, log2n))] = make_float2(v * win[j], 0.f);
-  }
-  __syncthreads();
-}
-
-// Forward transform of nb frames in place: radix-2 DIT, bit-reversed
-// input, natural-order output.
-__device__ void fft_dit(float2* z, int nb, int nfft, int log2n,
-                        const float2* __restrict__ tw) {
-  const int half_n = nfft >> 1;
-  for (int s = 0; s < log2n; ++s) {
-    const int half = 1 << s, stride = half_n >> s;
-    for (int bi = threadIdx.x; bi < nb * half_n; bi += SH_THREADS) {
-      const int b = bi & (half_n - 1);
-      const int pos = b & (half - 1);
-      const int i0 = ((bi >> (log2n - 1)) << log2n) + ((b >> s) << (s + 1)) +
-                     pos;
-      const int s0 = slot(i0), s1 = slot(i0 + half);
-      const float2 w = tw[pos * stride];
-      const float2 u = z[s0], v = z[s1];
-      const float tr = w.x * v.x - w.y * v.y;
-      const float ti = w.x * v.y + w.y * v.x;
-      z[s0] = make_float2(u.x + tr, u.y + ti);
-      z[s1] = make_float2(u.x - tr, u.y - ti);
-    }
-    __syncthreads();
-  }
-}
-
 // Thread j's window values win[j + s N/8] times 1/2, the unpack's factor
 // (exact: the transform is linear and halving rounds nothing), for
 // paired_frame_regs
@@ -290,27 +138,22 @@ __device__ __forceinline__ void paired_frame_regs(
   }
 }
 
-// out: (channels, nf, BINS) interleaved complex, BINS = N (two-sided) or
-// N/2 + 1 (one-sided). The register-resident transform of fft_reg.cuh,
-// each N-point complex FFT taking two real windowed frames at once:
-// z = x_f + i x_f+1, whose spectrum Z gives X_f[k] = (Z[k] + conj
-// Z[N-k]) / 2 and X_f+1[k] = (Z[k] - conj Z[N-k]) / 2i (unpack_bin's E and
-// O), so a frame costs half a transform; the window carries the 1/2.
-// Thread j loads samples j + s N/8 of both frames straight into registers
-// (paired_frame_regs; its 8 window values stay in registers for the whole
-// grid walk). A group of FB = 4096/N consecutive
-// frames of one channel ends in shared memory in natural order, and its FB
-// rows, contiguous in out, are written as one coalesced run (the division
-// by BINS is by a constant).
-template <int N, bool ONESIDED>
-__global__ void __launch_bounds__(FR_THREADS, 4)
-stockham_spectrum_kernel(const float* __restrict__ x,
-                         const float* __restrict__ win,
-                         const float2* __restrict__ tw,
-                         float2* __restrict__ out, long long n, int nf,
-                         int hop, int groups_per_row, long long groups) {
+// The frame walk of the full-nfft spectrum and power kernels: each N-point
+// complex FFT of fft_reg.cuh takes two real windowed frames at once, so a
+// frame costs half a transform. Thread j loads samples j + s N/8 of both
+// frames straight into registers (paired_frame_regs; its 8 window values
+// stay in registers for the whole grid walk), and the twiddle table is
+// staged in shared memory once a block. For each group of FB = 4096/N
+// consecutive frames of one channel, store(z, c, f0, nb) gets the group's
+// paired spectra (FB/2 rows of N points in shared memory, natural order),
+// its channel and first frame and the number of its frames below nf;
+// frames past nf run on zeros.
+template <int N, class Store>
+__device__ __forceinline__ void paired_spectrum_walk(
+    const float* __restrict__ x, const float* __restrict__ win,
+    const float2* __restrict__ tw, long long n, int nf, int hop,
+    int groups_per_row, long long groups, Store store) {
   constexpr int T = N / 8, FB = 2 * FR_POINTS / N;
-  constexpr int BINS = ONESIDED ? N / 2 + 1 : N;
   extern __shared__ float2 sm[];
   float2* tws = sm;
   float2* a = sm + fr_table_size(N);
@@ -327,55 +170,85 @@ stockham_spectrum_kernel(const float* __restrict__ x,
     paired_frame_regs<N>(v, x + (long long)c * n, n, f0 + 2 * pair, nf, hop, j,
                          w);
     fr_fft<N>(v, j, tws, a + pair * N, b + pair * N);
-    const float2* z = fr_result<N>(a, b);
-    const int nb = min(FB, nf - f0);
-    float2* o = out + ((long long)c * nf + f0) * BINS;
-    for (int idx = threadIdx.x; idx < nb * BINS; idx += FR_THREADS) {
-      const int q = idx / BINS, k = idx - q * BINS;
-      const float2* zp = z + (q >> 1) * N;
-      const float2 p = zp[k], r = zp[(N - k) & (N - 1)];
-      // p +- conj r: exact products by +-1, one rounding each as a sum
-      const float sg = q & 1 ? -1.f : 1.f;
-      const float u = fmaf(sg, r.x, p.x), t = fmaf(-sg, r.y, p.y);
-      o[idx] = q & 1 ? make_float2(t, -u) : make_float2(u, t);
-    }
+    store(fr_result<N>(a, b), c, f0, min(FB, nf - f0));
     fr_swap_after<N>(a, b);
   }
 }
 
-template <int N, bool ONESIDED>
-static cudaError_t launch_spectrum(const float* x, const float* win,
-                                   const void* tw, void* out, int channels,
-                                   long long n, int nf, int hop, int device,
-                                   cudaStream_t stream) {
-  constexpr int FB = 2 * FR_POINTS / N;
-  const int per_row = (nf + FB - 1) / FB;
-  const size_t smem = (fr_table_size(N) + 2 * FR_POINTS) * sizeof(float2);
-  return fr_launch<stockham_spectrum_kernel<N, ONESIDED>>(
-      smem, (long long)per_row * channels, device, stream, x, win,
-      (const float2*)tw, (float2*)out, n, nf, hop, per_row,
-      (long long)per_row * channels);
+// Bin k of frame f0 + q of a group whose paired spectra z holds, as the
+// pair (u, t): X = (u, t) for even q, (t, -u) for odd q. From p = Z[k] and
+// r = Z[(N - k) mod N] of the pair's transform, u = p.x +- r.x and t = p.y
+// -+ r.y: exact products by +-1, one rounding each as a sum.
+template <int N>
+__device__ __forceinline__ float2 paired_bin(const float2* z, int q, int k) {
+  const float2* zp = z + (q >> 1) * N;
+  const float2 p = zp[k], r = zp[(N - k) & (N - 1)];
+  const float sg = q & 1 ? -1.f : 1.f;
+  return make_float2(fmaf(sg, r.x, p.x), fmaf(-sg, r.y, p.y));
 }
 
-// out: (channels, nf, nfft/2 + 1) |X[k]|^2, natural bin order
-__global__ void __launch_bounds__(SH_THREADS)
+// out: (channels, nf, BINS) interleaved complex, BINS = N (two-sided) or
+// N/2 + 1 (one-sided): the group's FB rows, contiguous in out, written as
+// one coalesced run (the division by BINS is by a constant).
+template <int N, bool ONESIDED>
+__global__ void __launch_bounds__(FR_THREADS, 4)
+stockham_spectrum_kernel(const float* __restrict__ x,
+                         const float* __restrict__ win,
+                         const float2* __restrict__ tw,
+                         float2* __restrict__ out, long long n, int nf,
+                         int hop, int groups_per_row, long long groups) {
+  constexpr int BINS = ONESIDED ? N / 2 + 1 : N;
+  paired_spectrum_walk<N>(
+      x, win, tw, n, nf, hop, groups_per_row, groups,
+      [=](const float2* z, int c, int f0, int nb) {
+        float2* o = out + ((long long)c * nf + f0) * BINS;
+        for (int idx = threadIdx.x; idx < nb * BINS; idx += FR_THREADS) {
+          const int q = idx / BINS, k = idx - q * BINS;
+          const float2 ut = paired_bin<N>(z, q, k);
+          o[idx] = q & 1 ? make_float2(ut.y, -ut.x) : ut;
+        }
+      });
+}
+
+// out: (channels, nf, N/2 + 1) |X[k]|^2, natural bin order: the spectrum
+// kernel's walk, with u^2 + t^2 of each bin (paired_bin; frame f + 1's bin
+// (t, -u) has the same power) written where the one-sided spectrum kernel
+// writes the bin, the FB rows as one coalesced run.
+template <int N>
+__global__ void __launch_bounds__(FR_THREADS, 4)
 stockham_power_kernel(const float* __restrict__ x,
                       const float* __restrict__ win,
                       const float2* __restrict__ tw, float* __restrict__ out,
-                      long long n, int nf, int nfft, int hop) {
-  extern __shared__ float2 z[];
-  const int log2n = __ffs(nfft) - 1, fb = frames_per_block(nfft);
-  const int bins = nfft / 2 + 1, c = blockIdx.y;
-  const long long f0 = (long long)blockIdx.x * fb;
-  const int nb = (int)min((long long)fb, nf - f0);
-  load_frames(x + (long long)c * n, n, f0, nb, hop, win, z, nfft, log2n);
-  fft_dit(z, nb, nfft, log2n, tw);
-  float* o = out + ((long long)c * nf + f0) * bins;
-  for (int idx = threadIdx.x; idx < nb * bins; idx += SH_THREADS) {
-    const int b = idx / bins;
-    const float2 v = z[slot((b << log2n) + idx - b * bins)];
-    o[idx] = v.x * v.x + v.y * v.y;
-  }
+                      long long n, int nf, int hop, int groups_per_row,
+                      long long groups) {
+  constexpr int BINS = N / 2 + 1;
+  paired_spectrum_walk<N>(
+      x, win, tw, n, nf, hop, groups_per_row, groups,
+      [=](const float2* z, int c, int f0, int nb) {
+        float* o = out + ((long long)c * nf + f0) * BINS;
+        for (int idx = threadIdx.x; idx < nb * BINS; idx += FR_THREADS) {
+          const int q = idx / BINS, k = idx - q * BINS;
+          const float2 ut = paired_bin<N>(z, q, k);
+          o[idx] = ut.x * ut.x + ut.y * ut.y;
+        }
+      });
+}
+
+// Launch a kernel on paired_spectrum_walk: a persistent grid over the
+// groups of FB = 4096/N frames of each channel; the dynamic shared memory
+// holds the twiddle table and two exchange buffers.
+template <int N, auto Kernel, class Out>
+static cudaError_t launch_walk(const float* x, const float* win,
+                               const void* tw, Out* out, int channels,
+                               long long n, int nf, int hop, int device,
+                               cudaStream_t stream) {
+  constexpr int FB = 2 * FR_POINTS / N;
+  const int per_row = (nf + FB - 1) / FB;
+  return fr_launch<Kernel>(
+      (fr_table_size(N) + 2 * FR_POINTS) * sizeof(float2),
+      (long long)per_row * channels, device, stream, x, win,
+      (const float2*)tw, out, n, nf, hop, per_row,
+      (long long)per_row * channels);
 }
 
 // out: (channels, nf, n_mfcc) MFCCs when FUSE_DCT, else (channels, nf,
@@ -774,18 +647,13 @@ static cudaError_t launch_istft(const void* spec, const float* win,
       (int)per_row, per_row * channels);
 }
 
-// The geometries the launchers take: power-of-two nfft in [4, 2048] (a
-// frame batch and its strip stay within a block's shared memory), hop a
-// divisor of nfft; the Python wrappers narrow this to the JAX package's
-// lattice.
+// The geometries the launchers take: N = nfft a power of two in [128,
+// FR_POINTS] (fr_fft's range; a frame batch and its strip stay within a
+// block's shared memory), hop a divisor of nfft; the Python wrappers narrow
+// this to the JAX package's lattice.
 static bool bad_geometry(int nfft, int hop, int nf, int channels) {
-  return nfft < 4 || nfft > SH_POINTS || (nfft & (nfft - 1)) || hop < 1 ||
+  return nfft < 128 || nfft > FR_POINTS || (nfft & (nfft - 1)) || hop < 1 ||
          nfft % hop || nf < 1 || channels < 1 || channels > 65535;
-}
-
-static dim3 frame_grid(int nf, int nfft, int channels) {
-  const int fb = frames_per_block(nfft);
-  return dim3((unsigned)((nf + fb - 1) / fb), (unsigned)channels);
 }
 
 extern "C" int vv_stockham_spectrum(const float* x, const float* win,
@@ -799,11 +667,12 @@ extern "C" int vv_stockham_spectrum(const float* x, const float* win,
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = (cudaStream_t)stream;
   const bool one = bins != nfft;
-#define VV_SPECTRUM(N)                                                       \
-  return (int)(one ? launch_spectrum<N, true>(x, win, tw, out, channels, n, \
-                                              nf, hop, device, s)           \
-                   : launch_spectrum<N, false>(x, win, tw, out, channels,   \
-                                               n, nf, hop, device, s))
+  float2* o = (float2*)out;
+#define VV_SPECTRUM(N)                                                    \
+  return (int)(one ? launch_walk<N, stockham_spectrum_kernel<N, true>>(  \
+                         x, win, tw, o, channels, n, nf, hop, device, s) \
+                   : launch_walk<N, stockham_spectrum_kernel<N, false>>( \
+                         x, win, tw, o, channels, n, nf, hop, device, s))
   switch (nfft) {
     case 128: VV_SPECTRUM(128);
     case 256: VV_SPECTRUM(256);
@@ -822,15 +691,23 @@ extern "C" int vv_stockham_power(const float* x, const float* win,
   if (bad_geometry(nfft, hop, nf, channels)) return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const size_t smem = batch_floats2(nfft) * sizeof(float2);
-  stockham_power_kernel<<<frame_grid(nf, nfft, channels), SH_THREADS, smem,
-                          (cudaStream_t)stream>>>(
-      x, win, (const float2*)tw, out, n, nf, nfft, hop);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+#define VV_POWER(N)                                                      \
+  return (int)launch_walk<N, stockham_power_kernel<N>>(x, win, tw, out,   \
+                                                       channels, n, nf,   \
+                                                       hop, device, s)
+  switch (nfft) {
+    case 128: VV_POWER(128);
+    case 256: VV_POWER(256);
+    case 512: VV_POWER(512);
+    case 1024: VV_POWER(1024);
+    case 2048: VV_POWER(2048);
+  }
+#undef VV_POWER
+  return (int)cudaErrorInvalidValue;
 }
 
-// The full-nfft kernels on fr_fft take N = nfft in [128, 2048]; the mel
-// kernel's filterbank in its compact form (fbw, fbi, nnz weights) and smem,
+// The mel kernel's filterbank in its compact form (fbw, fbi, nnz weights) and smem,
 // the host plan's (fft_plan.stockham_mel_plan), which the launcher checks
 // against its own reckoning of the layout.
 extern "C" int vv_stockham_mel(const float* x, const float* win,
@@ -840,7 +717,7 @@ extern "C" int vv_stockham_mel(const float* x, const float* win,
                                int hop, int n_mels, int n_mfcc, int nnz,
                                float log_eps, int fuse_dct, int staged,
                                long long smem, int device, void* stream) {
-  if (bad_geometry(nfft, hop, nf, channels) || nfft < 128 || n_mels < 1 ||
+  if (bad_geometry(nfft, hop, nf, channels) || n_mels < 1 ||
       nnz < 0 || (fuse_dct && n_mfcc < 1))
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
@@ -875,8 +752,7 @@ extern "C" int vv_stockham_gate(const float* x, const float* win,
                                 int channels, long long n, int nf, int nfft,
                                 int hop, float thresh2, long long smem,
                                 int device, void* stream) {
-  if (bad_geometry(nfft, hop, nf, channels) || nfft < 128 || hop >= nfft ||
-      n < 1)
+  if (bad_geometry(nfft, hop, nf, channels) || hop >= nfft || n < 1)
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
@@ -902,8 +778,8 @@ extern "C" int vv_istft_stockham(const void* spec, const float* win,
                                  int channels, int nf, int nfft, int hop,
                                  int bins, long long output_len,
                                  long long smem, int device, void* stream) {
-  if (bad_geometry(nfft, hop, nf, channels) || nfft < 128 ||
-      output_len < 1 || (bins != nfft && bins != nfft / 2 + 1))
+  if (bad_geometry(nfft, hop, nf, channels) || output_len < 1 ||
+      (bins != nfft && bins != nfft / 2 + 1))
     return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;

@@ -57,8 +57,10 @@ def packed_gate_supported(nfft: int, hop: int) -> bool:
 @functools.lru_cache(maxsize=16)
 def _fft_tables(nfft: int, device: torch.device):
     """(tw (m/2, 2), wk (m+1, 2)) float32 (cos, sin) tables, built in
-    float64: tw[k] = exp(-2 pi i k / m) for the m-point butterflies and
-    wk[k] = exp(-2 pi i k / nfft) for the Hermitian unpack."""
+    float64: wk[k] = exp(-2 pi i k / nfft) for the Hermitian unpack, and
+    tw[k] = exp(-2 pi i k / m), the JAX package's radix-2 stage twiddles
+    (the tests hold both to its tables; the kernels' butterflies take
+    ``fft_plan.pass_twiddles``)."""
     m = nfft // 2
     a = -2.0 * np.pi * np.arange(m // 2) / m
     b = -2.0 * np.pi * np.arange(m + 1) / nfft
@@ -131,8 +133,9 @@ def stft_power_plain(x: torch.Tensor, nfft: int, hop: int,
 def stft_power(x: torch.Tensor, nfft: int, hop: int,
                window: torch.Tensor) -> torch.Tensor:
     """(c, n) float32 -> (c, frames, nfft//2+1) float32 one-sided power in
-    one kernel pass on a CUDA tensor: the complex spectrum never leaves
-    shared memory."""
+    one kernel pass on a CUDA tensor: ``stft_spectrum``'s register-resident
+    walk, writing re^2 + im^2 where it writes a bin, so the complex
+    spectrum never leaves registers and shared memory."""
     if x.device.type == "cpu":
         return stft_power_plain(x, nfft, hop, window)
     _check_signal(x, window, nfft, hop, "stft_power")
@@ -140,7 +143,8 @@ def stft_power(x: torch.Tensor, nfft: int, hop: int,
     nf = stft_num_frames(n, nfft, hop)
     out = torch.empty((c, nf, nfft // 2 + 1), dtype=torch.float32,
                       device=x.device)
-    tw, wk = _fft_tables(nfft, x.device)
+    tw = fft_plan.pass_twiddles(nfft // 2, x.device)
+    wk = _fft_tables(nfft, x.device)[1]
     err = _build.library().vv_stft_power(
         _build.ptr(x), _build.ptr(window), _build.ptr(tw), _build.ptr(wk),
         _build.ptr(out), c, n, nf, nfft, hop, x.device.index,

@@ -85,12 +85,6 @@ def _check_signal(x: torch.Tensor, window: torch.Tensor, nfft: int,
         raise ValueError(f"channels must be in [1, 65535], got {x.shape[0]}")
 
 
-def _twiddles(nfft: int, device: torch.device) -> torch.Tensor:
-    """exp(-2 pi i k / nfft), k <= nfft/2, float64-built: the Hermitian
-    unpack table of the packed kernels is the full transform's twiddles."""
-    return _sk._fft_tables(nfft, device)[1]
-
-
 stft_spectrum_stockham_plain = _sk.stft_spectrum_plain
 stft_power_stockham_plain = _sk.stft_power_plain
 
@@ -132,8 +126,8 @@ def stft_power_stockham(x: torch.Tensor, nfft: int, hop: int,
                       device=x.device)
     err = _build.library().vv_stockham_power(
         _build.ptr(x), _build.ptr(window),
-        _build.ptr(_twiddles(nfft, x.device)), _build.ptr(out), c, n, nf,
-        nfft, hop, x.device.index, _build.stream_handle(x))
+        _build.ptr(fft_plan.pass_twiddles(nfft, x.device)), _build.ptr(out),
+        c, n, nf, nfft, hop, x.device.index, _build.stream_handle(x))
     _build.check(err, "stft_power_stockham")
     stft_power_stockham.launches += 1
     return out

@@ -5,7 +5,8 @@
 Runs NorthStarChain on (16, 479232) at its default tiers and at f32,
 STFT(1024, 256).process(x, rfft=False) on (16, 480000), SpectralGate() and
 the STFT 1024/256 roundtrip (process(x, rfft=True) -> reconstruct) on
-(16, 479232), and the full-nfft paths: STFT(128, 32).power,
+(16, 479232), STFT(1024, 256).power on (16, 480000) (the packed power
+kernel), and the full-nfft paths: STFT(128, 32).power,
 MFCCFrontend(128, 32, 26 mels, 13 MFCCs, 8 kHz) and SpectralGate(128, 32)
 on (16, 479232) and STFT(512, 8).process on (16, 480000), two- and
 one-sided,
@@ -125,6 +126,7 @@ def main(argv=None) -> int:
     report("SpectralGate 1024/256", lambda: gate(xc), args.calls)
     report("roundtrip 1024/256", lambda: plan.reconstruct(
         plan.process(xc, rfft=True), n, rfft=True), args.calls)
+    report("power 1024/256", lambda: plan.power(xs), args.calls)
     small, dense = STFT(128, 32), STFT(512, 8)
     front = MFCCFrontend(128, 32, 26, 13, 8000.0, device=dev)
     gate128 = SpectralGate(128, 32, device=dev)

@@ -9,7 +9,8 @@ Phases, each fatal on failure:
    (csrc/upfirdn.cu, csrc/dft_power.cu), of the packed MFCC and power
    kernels (csrc/stft.cu), of the full-nfft inverse, fused gate, mel/MFCC
    and power kernels (csrc/stockham.cu), of the packed inverse
-   (csrc/istft.cu) or of the packed fused gate (csrc/gate_packed.cu);
+   (csrc/istft.cu), of the packed fused gate (csrc/gate_packed.cu) or of
+   the per-phase resampler (csrc/filter.cu);
 3. kernels: each kernel of the path against its plain PyTorch version on
    the card, at the shapes the main path gives it (the MFCC kernel at the
    chain's and at MFCCFrontend's geometry), within its tolerance,
@@ -44,9 +45,14 @@ Phases, each fatal on failure:
    not: the fused head at 8/7 (B's slice in column blocks), 16,384 taps
    (B streamed in depth chunks) and 1/1000 (A's rows copied).
    The direct FIR at 16 taps and the per-phase
-   resampler at 4/3 on (16, 479232), with the banded upfirdn kernel timed
-   beside the resampler, then on 2 channels at taps 1, 7, 129, n < taps
-   and ratios 2/1, 1/2, 3/4, 7/5. The windowed-DFT power at 1024/256 on
+   resampler at 4/3 on (16, 479232) beside its plain version, then at 4/3,
+   2/1, 1/2, 3/4 and 7/5 on 16 channels (x cut to a multiple of down),
+   each with its error against the plain version and float64 scipy, its
+   bound, the banded upfirdn and the strided F.conv1d + transpose timed on
+   the same input, and a redesign line (ptxas's registers and spills of
+   every instance, which may not spill, and the plan's shared memory);
+   then on 2 channels at taps 1, 7, 129, n < taps and ratios 2/1, 1/2,
+   3/4, 7/5, 1/25, 24/1, 24/23. The windowed-DFT power at 1024/256 on
    (16, 480000), with the packed power kernel timed beside it, then on 2
    channels at 2048/512, 1024/1024, n < nfft, 384/128, 640/128, 1536/512
    and 4096/128; the full-nfft inverse at
@@ -55,7 +61,9 @@ Phases, each fatal on failure:
    1024) spectrum with all bins inverted, and at 128/32 on (16, 14974,
    65); the packed fused gate at 1024/256 on the COLA-padded (16, 480768)
    input at threshold 0, on the tone probe and at the gate's threshold
-   (SpectralGate's split pair timed beside it). Then tier probes, inputs
+   (SpectralGate's split pair timed beside it). Each of the 14 kernel
+   wrappers at 65,536 rows of a short signal: two launches (65,535 rows
+   and 1), against its plain version. Then tier probes, inputs
    on which a kernel must match the plain version at its own tier and land
    beyond the limit against another tier (the controls);
 4. slice: through the public entry points, each with every launch counter
@@ -154,6 +162,9 @@ RATIOS = ((2, 1), (1, 2), (4, 3), (160, 147))
 # resample_poly and float64 scipy: 1e-5, over 10x its readings (PERF.md)
 FIR_TOL = 2e-5
 POLY_TOL = 1e-5
+# poly_kernel's rows on 16 channels, x cut to a multiple of down
+POLY_RATIOS = ((4, 3), (2, 1), (1, 2), (3, 4), (7, 5))
+ROWS = 65536            # rows_phase: one more than a launch's gridDim.y
 STAGED_TOL = 1e-4       # staged against fused chain (tests/test_models.py)
 # the windowed-DFT power against its plain version (tests/test_pallas.py's
 # pin), of max power; the full-nfft inverse on samples more than nfft from
@@ -281,12 +292,13 @@ def ptxas_usage(log: list[str], kernel: str, n: int, onesided: bool) -> str:
 # (csrc/upfirdn.cu, csrc/dft_power.cu), the packed MFCC and power kernels
 # (csrc/stft.cu), the full-nfft inverse, fused gate, mel/MFCC and power
 # kernels (csrc/stockham.cu), the packed inverse and the packed fused gate
-# (csrc/istft.cu, csrc/gate_packed.cu)
+# (csrc/istft.cu, csrc/gate_packed.cu), the per-phase resampler
+# (csrc/filter.cu)
 NO_SPILL = ("upfirdn_mma_kernel", "dft_power_kernel", "stft_mfcc_kernel",
             "istft_stockham_kernel", "istft_kernel",
             "stft_gate_packed_kernel", "stockham_gate_kernel",
             "stockham_mel_kernel", "stft_power_kernel",
-            "stockham_power_kernel")
+            "stockham_power_kernel", "poly_kernel")
 
 
 def kernel_name(mangled: str) -> str:
@@ -698,10 +710,11 @@ def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
 
     results.update(istft_phase(xc, win, failed, log))
     results.update(stockham_phase(xc, xs, front128, failed, log))
-    results.update(filter_phase(xc, failed))
+    results.update(filter_phase(xc, failed, log))
     results["stft_power_dft"] = dft_power_phase(xs, win, failed, log)
     results["istft_stockham"] = istft_stockham_phase(xc, win, failed, log)
     results["stft_gate_packed"] = gate_packed_phase(xc, win, failed, log)
+    rows_phase(failed)
     tier_probes((up, down, offset, n_out, taps), mfcc_args, failed)
     torch.cuda.synchronize()
     if failed:
@@ -1006,18 +1019,73 @@ def gate_phase(xc, x2, failed: list, log: list[str]) -> dict:
     return r
 
 
-def filter_phase(xc, failed: list) -> dict:
-    """The direct FIR and the per-phase resampler against their plain
-    versions at the shapes fir_apply_best and resample_poly_kernel give
-    them: fir_direct at 16 taps and poly_kernel at 4/3 on (16, 479232), each
-    with its library call (F.conv1d; the strided conv1d of the conv-form
-    upfirdn plus its transpose), cuDNN's TF32 off, and the banded upfirdn
-    kernel timed beside poly_kernel on the same input; then 2-channel checks
-    at other taps, n < taps and other ratios."""
+def poly_ratio_row(xv, up, down, failed: list) -> dict:
+    """poly_kernel at up/down on xv (16 channels): its time, its error
+    against the plain version (untimed: about 0.26 s a call) and against
+    float64 scipy, the banded upfirdn (f32) and the strided F.conv1d (the
+    conv-form upfirdn, cuDNN TF32 off) plus its transpose on the same input,
+    and its bound."""
     import torch.nn.functional as F
+    from scipy import signal as ss
     from vv_dsp_tpu_torch.ops import filter_kernels as fk
     from vv_dsp_tpu_torch.ops import resample as rs
     from vv_dsp_tpu_torch.ops import upfirdn as uf
+
+    c, n = xv.shape
+    hr = rs._resample_poly_filter(up, down)
+    off, n_out = (len(hr) - 1) // 2, -(-n * up // down)
+    table = uf.polyphase_table(hr, up, xv.device)
+    got = fk.resample_poly_kernel(xv, up, down)
+    if not torch.equal(got, fk.resample_poly_kernel(xv, up, down)):
+        failed.append(f"poly_kernel {up}/{down} differs between two runs")
+    err, rel = rel_err(got, fk.resample_poly_plain(xv, up, down))
+    want = ss.resample_poly(xv.double().cpu().numpy(), up, down, axis=-1)
+    rel64 = (np.abs(got.double().cpu().numpy() - want).max()
+             / np.abs(want).max())
+    ok = rel < POLY_TOL and rel64 < POLY_TOL
+    if not ok:
+        failed.append(f"poly_kernel [{up}/{down}, {c} x {n}]")
+    r = {"max_abs_err": err, "ms": cuda_ms(
+        lambda: fk.resample_poly_kernel(xv, up, down))}
+    r["banded_ms"] = cuda_ms(lambda: uf.upfirdn_banded(
+        xv, table, up, down, off, n_out, "f32"))
+    wc, c_lo = rs._upfirdn_conv_plan(tuple(hr), up, down, off)
+    frames = -(-n_out // up)
+    pad_l = max(0, -c_lo)
+    pad_r = max(0, (frames - 1) * down + c_lo + wc.shape[1] - n)
+    xb = F.pad(xv[:, None], (pad_l, pad_r))[..., c_lo + pad_l:].contiguous()
+    wt = torch.as_tensor(wc, dtype=torch.float32, device=xv.device)[:, None]
+    lib = lambda: F.conv1d(xb, wt, stride=down)[..., :frames].transpose(
+        1, 2).reshape(c, frames * up)
+    lib_err = rel_err(lib()[:, :n_out], got)[1]
+    r["library_ms"] = cuda_ms(lib)
+    r.update(bound(4 * (xv.numel() + c * n_out + table.numel()),
+                   2 * c * n_out * table.shape[1], F32_FLOP_PER_S))
+    print(f"kernel poly_kernel [{up}/{down}, {c} x {n} -> {c} x {n_out}]: "
+          f"max_abs_err {err:.3e}, {rel:.3e} of scale (tol {POLY_TOL:g}), "
+          f"{rel64:.3e} from float64 scipy; kernel {r['ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of the bound "
+          f"{r['bound_ms'] / r['ms']:.3f}; upfirdn_banded (f32) "
+          f"{r['banded_ms']:.4f} ms; strided F.conv1d (cuDNN, TF32 off) + "
+          f"transpose {r['library_ms']:.4f} ms, {lib_err:.3e} of scale from "
+          f"the kernel {'ok' if ok else 'FAIL'}")
+    return r
+
+
+def filter_phase(xc, failed: list, log: list[str]) -> dict:
+    """The direct FIR and the per-phase resampler against their plain
+    versions at the shapes fir_apply_best and resample_poly_kernel give
+    them: fir_direct at 16 taps with F.conv1d (cuDNN's TF32 off), and
+    poly_kernel at 4/3 on (16, 479232) timed beside its plain version, then
+    at POLY_RATIOS on 16 channels (x cut to a multiple of down), each with
+    its error against the plain version and float64 scipy, its bound, the
+    strided F.conv1d + transpose and the banded upfirdn on the same input,
+    and a redesign line (ptxas's figures of every instance, the plan's
+    shared memory); then 2-channel checks at other taps, n < taps and
+    other ratios."""
+    import torch.nn.functional as F
+    from vv_dsp_tpu_torch.ops import filter_kernels as fk
+    from vv_dsp_tpu_torch.ops import poly_plan as pp
     from vv_dsp_tpu_torch.ops.fir import design_lowpass_np
 
     assert not torch.backends.cudnn.allow_tf32, "cuDNN TF32 must be off"
@@ -1047,39 +1115,30 @@ def filter_phase(xc, failed: list) -> dict:
     out["fir_direct"] = r
 
     up, down = 4, 3
-    hr = rs._resample_poly_filter(up, down)
-    off, n_out = (len(hr) - 1) // 2, -(-n * up // down)
-    table = uf.polyphase_table(hr, up, dev)
     fast = lambda: fk.resample_poly_kernel(xc, up, down)
     plain = lambda: fk.resample_poly_plain(xc, up, down)
-    got = fast()
-    if not torch.equal(got, fast()):
-        failed.append("poly_kernel differs between two runs")
-    r = record("poly_kernel", f"{up}/{down}", got, plain(), POLY_TOL, fast,
-               plain, failed)
-    banded = lambda: uf.upfirdn_banded(xc, table, up, down, off, n_out,
-                                       "f32")
-    banded_err = rel_err(banded(), got)[1]
-    r["banded_ms"] = cuda_ms(banded)
-    wc, c_lo = rs._upfirdn_conv_plan(tuple(hr), up, down, off)
-    frames = -(-n_out // up)
-    pad_l = max(0, -c_lo)
-    pad_r = max(0, (frames - 1) * down + c_lo + wc.shape[1] - n)
-    xb = F.pad(xc[:, None], (pad_l, pad_r))[..., c_lo + pad_l:].contiguous()
-    wt = torch.as_tensor(wc, dtype=torch.float32, device=dev)[:, None]
-    lib = lambda: F.conv1d(xb, wt, stride=down)[..., :frames].transpose(
-        1, 2).reshape(c, frames * up)
-    lib_err = rel_err(lib()[:, :n_out], got)[1]
-    r["library_ms"] = cuda_ms(lib)
-    r.update(bound(4 * (xc.numel() + c * n_out + table.numel()),
-                   2 * c * n_out * table.shape[1], F32_FLOP_PER_S))
-    faster = "poly_kernel" if r["ms"] < r["banded_ms"] else "upfirdn_banded"
-    print(f"  upfirdn_banded (f32) on the same input: {r['banded_ms']:.4f} ms "
-          f"({faster} is faster), {banded_err:.3e} of scale from the kernel; "
-          f"strided F.conv1d (cuDNN, TF32 off) + transpose: "
-          f"{r['library_ms']:.4f} ms, {lib_err:.3e} of scale; bound "
-          f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    r = record("poly_kernel", f"{up}/{down}", fast(), plain(), POLY_TOL,
+               fast, plain, failed)
+    rows = {}
+    for u, d in POLY_RATIOS:
+        xv = xc[:, :n // d * d].contiguous()
+        rows[u, d] = poly_ratio_row(xv, u, d, failed)
+    for key in ("banded_ms", "library_ms", "bound_ms", "bound_by"):
+        r[key] = rows[up, down][key]
     out["poly_kernel"] = r
+    widest = max(pp.kernel_geometries(), key=lambda g: pp.poly_plan(*g).smem)
+    smem = ", ".join(f"{u}/{d} {pp.poly_plan(u, d).smem} B "
+                     f"({pp.poly_plan(u, d).threads} threads)"
+                     for u, d in POLY_RATIOS)
+    print(f"  redesign poly_kernel: " + "; ".join(
+        f"{u}/{d} {rows[u, d]['ms']:.4f} ms, share of the bound "
+        f"{rows[u, d]['bound_ms'] / rows[u, d]['ms']:.3f}"
+        for u, d in POLY_RATIOS))
+    print(f"  poly_kernel instances: " + instance_registers(
+        log, {f"<K={k}>": f"poly_kernelILi{k}EE" for k in pp.K_INSTANCES}))
+    print(f"  poly_kernel dynamic shared memory a block (the plan's): "
+          f"{smem}; the most of the 377 geometries: {widest[0]}/{widest[1]} "
+          f"{pp.poly_plan(*widest).smem} B")
 
     x2 = xc[:2].contiguous()
     for taps, xv in ((1, x2), (7, x2), (129, x2),
@@ -1089,13 +1148,124 @@ def filter_phase(xc, failed: list) -> dict:
         plain = lambda: fk.fir_direct_plain(h, xv)
         record("fir_direct", f"{taps} taps, 2 x {xv.shape[1]}", fast(),
                plain(), FIR_TOL, fast, plain, failed)
-    for up, down in ((2, 1), (1, 2), (3, 4), (7, 5)):
+    for up, down in ((2, 1), (1, 2), (3, 4), (7, 5), (1, 25), (24, 1),
+                     (24, 23)):
         xv = x2[:, :n // down * down].contiguous()
         fast = lambda: fk.resample_poly_kernel(xv, up, down)
         plain = lambda: fk.resample_poly_plain(xv, up, down)
         record("poly_kernel", f"{up}/{down}, 2 x {xv.shape[1]}", fast(),
                plain(), POLY_TOL, fast, plain, failed)
     return out
+
+
+def rows_phase(failed: list) -> None:
+    """Each kernel wrapper once at ROWS rows of a short signal (two launches:
+    65,535 rows, then 1) against its plain version, and its launch count."""
+    from vv_dsp_tpu_torch.ops import filter_kernels as fk
+    from vv_dsp_tpu_torch.ops import istft_kernels as ik
+    from vv_dsp_tpu_torch.ops import mel
+    from vv_dsp_tpu_torch.ops import resample as rs
+    from vv_dsp_tpu_torch.ops import stft_kernels as sk
+    from vv_dsp_tpu_torch.ops import stockham_kernels as stk
+    from vv_dsp_tpu_torch.ops import upfirdn as uf
+    from vv_dsp_tpu_torch.ops.fir import design_lowpass_np
+    from vv_dsp_tpu_torch.ops.framing import stft_num_frames
+    from vv_dsp_tpu_torch.ops.stft import STFT
+    from vv_dsp_tpu_torch.ops.window import get_window_np
+
+    dev = torch.device("cuda", 0)
+    w256, w128 = STFT(256, 64).win(dev), STFT(128, 32).win(dev)
+    h256, h128 = get_window_np("hann", 256), get_window_np("hann", 128)
+    g = rs._resample_poly_filter(4, 3)
+    taps = uf.polyphase_table(g, 4, dev)
+    off = (len(g) - 1) // 2
+    consts = lambda nfft, n_mels, n_mfcc: mel._mfcc_constants(
+        nfft, n_mels, n_mfcc, 8000.0, 0.0, 4000.0, 0.0, "htk", "hann", None,
+        dev)
+    m256, m128 = consts(256, 24, 12), consts(128, 26, 13)
+    n_ola = ik.ola_norm(h256, 64, 2, 320, dev)
+    n_gate = ik.periodic_norm(h256, 64, 512, dev)
+    n_st = ik.ola_norm(h128, 32, stft_num_frames(256, 128, 32), 256, dev)
+    n_ist = ik.ola_norm(h128, 32, 2, 160, dev)
+    lp = design_lowpass_np(16, 0.3)
+    f32, c64 = torch.float32, torch.complex64
+    cases = (   # wrapper, kernel, plain, row shape, dtype, tol, weight
+        (uf.upfirdn_banded,
+         lambda x: uf.upfirdn_banded(x, taps, 4, 3, off, 128, "f32"),
+         lambda x: uf.upfirdn_tall(x, taps, 4, 3, off, 128, "f32"),
+         (96,), f32, UPFIRDN_TOL, None),
+        (sk.stft_spectrum, lambda x: sk.stft_spectrum(x, 256, 64, w256),
+         lambda x: sk.stft_spectrum_plain(x, 256, 64, w256), (320,), f32,
+         SPECTRUM_TOL, None),
+        (sk.stft_power, lambda x: sk.stft_power(x, 256, 64, w256),
+         lambda x: sk.stft_power_plain(x, 256, 64, w256), (320,), f32,
+         POWER_TOL, None),
+        (sk.stft_mfcc, lambda x: sk.stft_mfcc(
+            x, 256, 64, *m256[:3], None, 1e-10, "f32"),
+         lambda x: sk.stft_mfcc_plain(x, 256, 64, m256[0], m256[1], None,
+                                      1e-10, "f32"), (320,), f32, POWER_TOL,
+         None),
+        (ik.istft, lambda s: ik.istft(s, 256, 64, 320, w256, n_ola),
+         lambda s: ik.istft_plain(s, 256, 64, 320, w256, n_ola), (2, 129),
+         c64, ISTFT_TOL, n_ola),
+        (ik.stft_gate_packed, lambda x: ik.stft_gate_packed(
+            x, 256, 64, 0.0, w256, n_gate),
+         lambda x: ik.stft_gate_packed_plain(x, 256, 64, 0.0, w256, n_gate),
+         (512,), f32, GATE_TOL, n_gate),
+        (stk.stft_spectrum_stockham,
+         lambda x: stk.stft_spectrum_stockham(x, 128, 32, w128),
+         lambda x: stk.stft_spectrum_stockham_plain(x, 128, 32, w128),
+         (160,), f32, STOCKHAM_TOL, None),
+        (stk.stft_power_stockham,
+         lambda x: stk.stft_power_stockham(x, 128, 32, w128),
+         lambda x: stk.stft_power_stockham_plain(x, 128, 32, w128),
+         (160,), f32, STOCKHAM_TOL, None),
+        (stk.stft_mel_stockham,
+         lambda x: stk.stft_mel_stockham(x, 128, 32, *m128[:3]),
+         lambda x: stk.stft_mel_stockham_plain(x, 128, 32, m128[0],
+                                               m128[1]),
+         (160,), f32, STOCKHAM_TOL, None),
+        (stk.stft_gate_stockham, lambda x: stk.stft_gate_stockham(
+            x, 128, 32, w128, n_st, 0.0),
+         lambda x: stk.stft_gate_stockham_plain(x, 128, 32, w128, n_st, 0.0),
+         (256,), f32, GATE_TOL, n_st),
+        (stk.istft_stockham, lambda s: stk.istft_stockham(
+            s, 128, 32, 160, w128, n_ist, rfft=True),
+         lambda s: stk.istft_stockham_plain(s, 128, 32, 160, w128, n_ist,
+                                            rfft=True),
+         (2, 65), c64, ISTFT_TOL, n_ist),
+        (sk.stft_power_dft, lambda x: sk.stft_power_dft(x, 256, 128),
+         lambda x: sk.stft_power_dft_plain(x, 256, 128), (384,), f32,
+         DFT_POWER_TOL, None),
+        (fk.fir_direct, lambda x: fk.fir_direct(lp, x),
+         lambda x: fk.fir_direct_plain(lp, x), (64,), f32, FIR_TOL, None),
+        (fk.resample_poly_kernel, lambda x: fk.resample_poly_kernel(x, 4, 3),
+         lambda x: fk.resample_poly_plain(x, 4, 3), (64,), f32, POLY_TOL,
+         None),
+    )
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for wrapper, fast, plain, shape, dtype, tol, weight in cases:
+        x = torch.randn((ROWS,) + shape, dtype=dtype, device=dev,
+                        generator=gen)
+        if x.is_complex():   # a one-sided spectrum: real DC and Nyquist
+            x[..., 0].imag.zero_()
+            x[..., -1].imag.zero_()
+        before = wrapper.launches
+        got = fast(x)
+        launches = wrapper.launches - before
+        want = plain(x)
+        if weight is not None:
+            got, want = got * weight, want * weight
+        if got.is_complex():
+            got, want = torch.view_as_real(got), torch.view_as_real(want)
+        err, rel = rel_err(got, want)
+        ok = rel < tol and launches == 2 and got.shape == want.shape
+        print(f"rows {wrapper.__name__} [{ROWS} x {'x'.join(map(str, shape))}"
+              f"]: {launches} launches, max_abs_err {err:.3e}, {rel:.3e} of "
+              f"scale (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{wrapper.__name__} at {ROWS} rows")
+    torch.cuda.synchronize()
 
 
 def dft_power_phase(xs, win, failed: list, log: list[str]) -> dict:

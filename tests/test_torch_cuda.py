@@ -11,7 +11,9 @@ launchers' refusal of a plan size not their own;
 the direct FIR and the per-phase resampler at taps 1 to 2048, n < taps and
 every ratio class, with bit-identical reruns, and the banded kernel at the
 filter and resample entry points' geometries; the windowed-DFT power at
-hop | nfft, 128 | hop, n < nfft and extra frames; the full-nfft inverse
+hop | nfft, 128 | hop, n < nfft and extra frames; the per-phase
+resampler at all 377 ratios it takes and one of each of its instances;
+every kernel wrapper at 65,536 rows (two launches); the full-nfft inverse
 with all nfft bins of a non-Hermitian spectrum and with the one-sided
 half, at q = 1 to 128; the packed fused gate at threshold 0 and on the
 tone probe, with bit-identical reruns; the packed inverse and fused gate
@@ -75,6 +77,7 @@ from vv_dsp_tpu_torch.models import MFCCFrontend, NorthStarChain, SpectralGate
 from vv_dsp_tpu_torch.ops import filter_kernels as tfk
 from vv_dsp_tpu_torch.ops import istft_kernels as tik
 from vv_dsp_tpu_torch.ops import mel as tmel
+from vv_dsp_tpu_torch.ops import poly_plan as tpp
 from vv_dsp_tpu_torch.ops import resample as trs
 from vv_dsp_tpu_torch.ops import stft_kernels as tsk
 from vv_dsp_tpu_torch.ops import stockham_kernels as tstk
@@ -820,11 +823,15 @@ def test_fir_direct_refuses_what_the_pallas_kernel_refuses(dev, gen):
 
 
 @pytest.mark.parametrize("up,down", [(2, 1), (1, 2), (4, 3), (3, 4), (7, 5),
-                                     (5, 7), (8, 7), (1, 25), (24, 1)])
+                                     (5, 7), (8, 7), (1, 25), (24, 1),
+                                     (24, 23), (23, 24), (11, 12), (13, 6),
+                                     (5, 4), (2, 3)])
 @pytest.mark.parametrize("channels,n", [(1, 7), (3, 5001), (2, 100)])
 def test_poly_kernel_matches_plain(dev, gen, up, down, channels, n):
     """Every phase layout (up and down each 1 or not, up > down and
-    up < down, the largest down and up under up * taps_pp <= 512), signals
+    up < down, the largest down and up under up * taps_pp <= 512), one
+    geometry of each instance K (ops/poly_plan.py: 24/23 and 23/24 K = 1,
+    11/12 2, 8/7 3, 13/6 4, 7/5 5, 5/4 6, 4/3 7, 2/3 11, 2/1 21), signals
     shorter than a phase's taps, the same bits on a second run."""
     x = torch.as_tensor(gen.standard_normal((channels, n)),
                         dtype=torch.float32, device=dev)
@@ -837,6 +844,23 @@ def test_poly_kernel_matches_plain(dev, gen, up, down, channels, n):
     assert got.shape == want.shape == (channels, -(-n * up // down))
     assert torch.equal(got, again)
     assert _rel(got, want) < POLY_TOL
+
+
+def test_poly_kernel_at_every_geometry(dev, gen):
+    """All 377 reduced ratios resample_poly_kernel sends to the kernel
+    (up * taps_pp <= 512), each one launch, against the plain version."""
+    x = torch.as_tensor(gen.standard_normal((2, 4097)), dtype=torch.float32,
+                        device=dev)
+    geoms = tpp.kernel_geometries()
+    assert len(geoms) == 377
+    for up, down in geoms:
+        before = tfk.resample_poly_kernel.launches
+        got = tfk.resample_poly_kernel(x, up, down)
+        torch.cuda.synchronize()
+        assert tfk.resample_poly_kernel.launches == before + 1, (up, down)
+        want = tfk.resample_poly_plain(x, up, down)
+        assert got.shape == want.shape, (up, down)
+        assert _rel(got, want) < POLY_TOL, (up, down)
 
 
 def test_poly_kernel_rules(dev, gen):
@@ -1530,3 +1554,138 @@ def test_tensor_core_dft_power_on_an_unaligned_signal(dev, gen):
     got = tsk.stft_power_dft(xv, 1024, 256)
     want = tsk.stft_power_dft_plain(xv, 1024, 256)
     assert _rel(got, want) < 1e-5
+
+
+# Rows beyond gridDim.y's 65,535: each wrapper launches once a run of
+# 65,535 rows (_build.row_chunks). ROWS_CASES[name] = (the wrapper, its
+# kernel call on a (rows, ...) input, its plain version, the input's row
+# shape and dtype, the tolerance, a weight both sides are multiplied by
+# before the comparison (the overlap-add norm) or None).
+BIG_ROWS = 65536
+
+
+def _rows_cases(dev):
+    w256, w128 = STFT(256, 64).win(dev), STFT(128, 32).win(dev)
+    h256, h128 = get_window_np("hann", 256), get_window_np("hann", 128)
+    table, up, down, off = _launch_geometry((4, 3))
+    taps = torch.as_tensor(table, device=dev)
+    mfcc = _mfcc_setup(256, 24, 12, 8000.0, dev)
+    mel128 = _mfcc_setup(128, 26, 13, 8000.0, dev)
+    n_ola = tik.ola_norm(h256, 64, 2, 320, dev)
+    n_gate = tik.periodic_norm(h256, 64, 512, dev)
+    n_st = tik.ola_norm(h128, 32, stft_num_frames(256, 128, 32), 256, dev)
+    n_ist = tik.ola_norm(h128, 32, 2, 160, dev)
+    lp = _lowpass(16)
+    f32, c64 = torch.float32, torch.complex64
+    return {
+        "upfirdn_banded": (
+            tuf.upfirdn_banded,
+            lambda x: tuf.upfirdn_banded(x, taps, up, down, off, 128, "f32"),
+            lambda x: tuf.upfirdn_tall(x, taps, up, down, off, 128, "f32"),
+            (96,), f32, 1e-5, None),
+        "stft_spectrum": (
+            tsk.stft_spectrum, lambda x: tsk.stft_spectrum(x, 256, 64, w256),
+            lambda x: tsk.stft_spectrum_plain(x, 256, 64, w256),
+            (320,), f32, 5e-5, None),
+        "stft_power": (
+            tsk.stft_power, lambda x: tsk.stft_power(x, 256, 64, w256),
+            lambda x: tsk.stft_power_plain(x, 256, 64, w256),
+            (320,), f32, 5e-5, None),
+        "stft_mfcc": (
+            tsk.stft_mfcc,
+            lambda x: tsk.stft_mfcc(x, 256, 64, *mfcc[:3], None, 1e-10,
+                                    "f32"),
+            lambda x: tsk.stft_mfcc_plain(x, 256, 64, mfcc[0], mfcc[1],
+                                          None, 1e-10, "f32"),
+            (320,), f32, 5e-5, None),
+        "istft": (
+            tik.istft, lambda s: tik.istft(s, 256, 64, 320, w256, n_ola),
+            lambda s: tik.istft_plain(s, 256, 64, 320, w256, n_ola),
+            (2, 129), c64, 5e-6, n_ola),
+        "stft_gate_packed": (
+            tik.stft_gate_packed,
+            lambda x: tik.stft_gate_packed(x, 256, 64, 0.0, w256, n_gate),
+            lambda x: tik.stft_gate_packed_plain(x, 256, 64, 0.0, w256,
+                                                 n_gate),
+            (512,), f32, 5e-6, n_gate),
+        "stft_spectrum_stockham": (
+            tstk.stft_spectrum_stockham,
+            lambda x: tstk.stft_spectrum_stockham(x, 128, 32, w128),
+            lambda x: tstk.stft_spectrum_stockham_plain(x, 128, 32, w128),
+            (160,), f32, 5e-5, None),
+        "stft_power_stockham": (
+            tstk.stft_power_stockham,
+            lambda x: tstk.stft_power_stockham(x, 128, 32, w128),
+            lambda x: tstk.stft_power_stockham_plain(x, 128, 32, w128),
+            (160,), f32, 5e-5, None),
+        "stft_mel_stockham": (
+            tstk.stft_mel_stockham,
+            lambda x: tstk.stft_mel_stockham(x, 128, 32, *mel128[:3]),
+            lambda x: tstk.stft_mel_stockham_plain(x, 128, 32, mel128[0],
+                                                   mel128[1]),
+            (160,), f32, 5e-5, None),
+        "stft_gate_stockham": (
+            tstk.stft_gate_stockham,
+            lambda x: tstk.stft_gate_stockham(x, 128, 32, w128, n_st, 0.0),
+            lambda x: tstk.stft_gate_stockham_plain(x, 128, 32, w128, n_st,
+                                                    0.0),
+            (256,), f32, 5e-6, n_st),
+        "istft_stockham": (
+            tstk.istft_stockham,
+            lambda s: tstk.istft_stockham(s, 128, 32, 160, w128, n_ist,
+                                          rfft=True),
+            lambda s: tstk.istft_stockham_plain(s, 128, 32, 160, w128, n_ist,
+                                                rfft=True),
+            (2, 65), c64, 5e-6, n_ist),
+        "stft_power_dft": (
+            tsk.stft_power_dft, lambda x: tsk.stft_power_dft(x, 256, 128),
+            lambda x: tsk.stft_power_dft_plain(x, 256, 128),
+            (384,), f32, 1e-5, None),
+        "fir_direct": (
+            tfk.fir_direct, lambda x: tfk.fir_direct(lp, x),
+            lambda x: tfk.fir_direct_plain(lp, x), (64,), f32, FIR_TOL,
+            None),
+        "resample_poly_kernel": (
+            tfk.resample_poly_kernel,
+            lambda x: tfk.resample_poly_kernel(x, 4, 3),
+            lambda x: tfk.resample_poly_plain(x, 4, 3), (64,), f32,
+            POLY_TOL, None),
+    }
+
+
+ROWS_WRAPPERS = ("upfirdn_banded", "stft_spectrum", "stft_power",
+                 "stft_mfcc", "istft", "stft_gate_packed",
+                 "stft_spectrum_stockham", "stft_power_stockham",
+                 "stft_mel_stockham", "stft_gate_stockham",
+                 "istft_stockham", "stft_power_dft", "fir_direct",
+                 "resample_poly_kernel")
+
+
+@pytest.mark.parametrize("name", ROWS_WRAPPERS)
+def test_wrappers_launch_over_more_than_65535_rows(dev, gen, name):
+    """65,536 rows: two launches (65,535 rows and 1), the same bits as the
+    wrapper's own calls on rows [0, 65535) and [65535, 65536), and the
+    plain version's values on the last rows."""
+    wrapper, fast, plain, shape, dtype, tol, weight = _rows_cases(dev)[name]
+    torch.manual_seed(int(gen.integers(1 << 30)))
+    x = torch.randn((BIG_ROWS,) + shape, dtype=dtype, device=dev)
+    if x.is_complex():   # a one-sided spectrum: real DC and Nyquist bins
+        x[..., 0].imag.zero_()
+        x[..., -1].imag.zero_()
+    before = wrapper.launches
+    got = fast(x)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    head, tail = fast(x[:65535]), fast(x[65535:])
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 4
+    assert got.shape[0] == BIG_ROWS
+    assert torch.equal(got[:65535], head) and torch.equal(got[65535:], tail)
+    want = plain(x[-3:])
+    last = got[-3:]
+    if weight is not None:
+        last, want = last * weight, want * weight
+    if last.is_complex():
+        assert _cplx_rel(last, want) < tol
+    else:
+        assert _rel(last, want) < tol

@@ -30,6 +30,13 @@ BUILD_ROOT = (Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvv_dsp_kernels.so"
+MAX_ROWS = 65535             # gridDim.y's limit
+# csrc/filter.cu vv_poly: x, taps, offsets, y, rows, n_in, n_out, up, down,
+# ncls, n_big, k, lo, row_len, q_pitch, p_pitch, frames, threads, smem,
+# device, stream
+POLY_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
+                 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 13
+                 + [ctypes.c_void_p])
 
 
 def _sources() -> list[Path]:
@@ -112,7 +119,7 @@ def load(path) -> ctypes.CDLL:
     lib.vv_stockham_gate.argtypes = [P, P, P, P, P, I, L, I, I, I, F, L, I,
                                      P]
     lib.vv_fir_direct.argtypes = [P, P, P, I, L, I, I, P]
-    lib.vv_poly.argtypes = [P, P, P, I, L, L, I, I, I, I, I, P]
+    lib.vv_poly.argtypes = POLY_ARGTYPES
     lib.vv_dft_power.argtypes = [P, P, P, I, L, I, I, I, I, I, I, I, I, P]
     lib.vv_istft_stockham.argtypes = [P, P, P, P, P, I, I, I, I, I, L, L, I,
                                       P]
@@ -144,8 +151,21 @@ def stream_handle(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t, row: int = 0) -> ctypes.c_void_p:
+    """The address of row `row` (along dim 0) of contiguous tensor t."""
+    return ctypes.c_void_p(t.data_ptr() + row * t.stride(0) * t.element_size())
+
+
+def row_chunks(rows: int) -> list[tuple[int, int]]:
+    """(first row, rows) of each launch over `rows` rows (rows >= 1): runs
+    of at most MAX_ROWS, the rows a kernel entry takes in one launch (its
+    rows go on gridDim.y, or it checks that limit). A wrapper launches once
+    a chunk, with pointers to the chunk's first rows, and counts each
+    launch; up to MAX_ROWS rows it launches once, as before."""
+    if rows < 1:
+        raise ValueError(f"channels must be positive, got {rows}")
+    return [(r0, min(MAX_ROWS, rows - r0))
+            for r0 in range(0, rows, MAX_ROWS)]
 
 
 def require(t, name: str, device, shape=None, dtype=None) -> None:

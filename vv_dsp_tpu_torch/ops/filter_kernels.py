@@ -7,10 +7,11 @@ versions, and the best-path dispatch of FIR and resampling (counterpart of
   tensor and its plain version ``fir_direct_plain`` (``fir.fir_apply``) on
   a CPU tensor.
 - ``resample_poly_kernel`` runs ``csrc/filter.cu::poly_kernel`` on a CUDA
-  tensor and ``resample_poly_plain`` (``resample.resample_poly``) on a CPU
-  tensor.
+  tensor, in the layout of its host plan ``ops/poly_plan.py``, and
+  ``resample_poly_plain`` (``resample.resample_poly``) on a CPU tensor.
 
-On a CUDA tensor each wrapper launches its kernel or raises. The best
+On a CUDA tensor each wrapper launches its kernel (once per 65,535 rows,
+``_build.row_chunks``) or raises. The best
 paths route as the JAX package routes on the TPU, on every device:
 
 - ``fir_apply_best``: up to 16 taps the direct kernel; from 512 host taps
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from vv_dsp_tpu_torch import _build, config
+from vv_dsp_tpu_torch.ops import poly_plan
 from vv_dsp_tpu_torch.ops.fir import fir_apply, fir_apply_mxu, taps_like
 from vv_dsp_tpu_torch.ops.resample import (_reduce, _resample_poly_filter,
                                            resample_poly, resample_poly_mxu)
@@ -45,7 +47,8 @@ BANDED_MIN_TAPS = 512     # ... and its banded route
 # fir_apply_pallas's limit: its tile, 8 MiB over taps x 8 channels x 4
 # bytes, falls below 128 samples past 2048 taps
 KERNEL_MAX_TAPS = 2048
-POLY_MAX_WEIGHTS = 512    # resample_poly_pallas's up * taps_pp limit
+# resample_poly_pallas's up * taps_pp limit
+POLY_MAX_WEIGHTS = poly_plan.POLY_MAX_WEIGHTS
 
 
 def _check_cuda(x: torch.Tensor, name: str) -> None:
@@ -53,8 +56,6 @@ def _check_cuda(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.ndim != 2:
         raise ValueError(f"{name} expects (channels, n)")
-    if not 0 < x.shape[0] <= 65535:
-        raise ValueError(f"channels must be in [1, 65535], got {x.shape[0]}")
 
 
 def fir_direct_plain(h, x: torch.Tensor) -> torch.Tensor:
@@ -80,14 +81,17 @@ def fir_direct(h, x: torch.Tensor) -> torch.Tensor:
     _build.require(x, "x", x.device)
     _build.require(h, "h", x.device, (taps,))
     c, n = x.shape
+    chunks = _build.row_chunks(c)
     y = torch.empty_like(x)
     if n == 0:
         return y
-    err = _build.library().vv_fir_direct(
-        _build.ptr(x), _build.ptr(h), _build.ptr(y), c, n, taps,
-        x.device.index, _build.stream_handle(x))
-    _build.check(err, "fir_direct")
-    fir_direct.launches += 1
+    lib = _build.library()
+    for r0, rows in chunks:
+        err = lib.vv_fir_direct(
+            _build.ptr(x, r0), _build.ptr(h), _build.ptr(y, r0), rows, n,
+            taps, x.device.index, _build.stream_handle(x))
+        _build.check(err, "fir_direct")
+        fir_direct.launches += 1
     return y
 
 
@@ -121,17 +125,22 @@ def resample_poly_kernel(x: torch.Tensor, up: int,
     _check_cuda(x, "resample_poly_kernel")
     _build.require(x, "x", x.device)
     c, n_in = x.shape
+    chunks = _build.row_chunks(c)
     n_out = -(-n_in * up // down)
     y = torch.empty((c, n_out), dtype=torch.float32, device=x.device)
     if n_out == 0:
         return y
-    table = polyphase_table(h, up, x.device)   # hpp[p, i] = h[p + i*up]
-    err = _build.library().vv_poly(
-        _build.ptr(x), _build.ptr(table), _build.ptr(y), c, n_in, n_out, up,
-        down, (len(h) - 1) // 2, table.shape[1], x.device.index,
-        _build.stream_handle(x))
-    _build.check(err, "resample_poly_kernel")
-    resample_poly_kernel.launches += 1
+    p = poly_plan.poly_plan(up, down)
+    weights, offsets = poly_plan.poly_tables(up, down, x.device)
+    lib = _build.library()
+    for r0, rows in chunks:
+        err = lib.vv_poly(
+            _build.ptr(x, r0), _build.ptr(weights), _build.ptr(offsets),
+            _build.ptr(y, r0), rows, n_in, n_out, up, down, p.ncls, p.n_big,
+            p.k, p.lo, p.row_len, p.q_pitch, p.p_pitch, p.frames, p.threads,
+            p.smem, x.device.index, _build.stream_handle(x))
+        _build.check(err, "resample_poly_kernel")
+        resample_poly_kernel.launches += 1
     return y
 
 

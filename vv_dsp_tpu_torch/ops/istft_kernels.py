@@ -130,8 +130,7 @@ def istft(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
         raise ValueError(f"istft: unsupported geometry nfft={nfft} hop={hop};"
                          f" check istft_supported()")
     c, nf, _ = spec.shape
-    if not 0 < c <= 65535:
-        raise ValueError(f"channels must be in [1, 65535], got {c}")
+    chunks = _build.row_chunks(c)
     if output_len < 1:
         raise ValueError(f"output_len must be positive, got {output_len}")
     _build.require(spec, "spec", spec.device, (c, nf, nfft // 2 + 1),
@@ -144,13 +143,16 @@ def istft(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
     wk = _sk._fft_tables(nfft, spec.device)[1]
     gate = gate_threshold is not None
     thresh2 = float(gate_threshold) ** 2 if gate else 0.0
-    err = _build.library().vv_istft(
-        _build.ptr(spec), _build.ptr(window), _build.ptr(tw), _build.ptr(wk),
-        _build.ptr(norm), _build.ptr(out), c, nf, nfft, hop, output_len,
-        int(gate), thresh2, fft_plan.packed_istft_smem(nfft, hop),
-        spec.device.index, _build.stream_handle(spec))
-    _build.check(err, "istft")
-    istft.launches += 1
+    lib = _build.library()
+    for r0, rows in chunks:
+        err = lib.vv_istft(
+            _build.ptr(spec, r0), _build.ptr(window), _build.ptr(tw),
+            _build.ptr(wk), _build.ptr(norm), _build.ptr(out, r0), rows, nf,
+            nfft, hop, output_len, int(gate), thresh2,
+            fft_plan.packed_istft_smem(nfft, hop), spec.device.index,
+            _build.stream_handle(spec))
+        _build.check(err, "istft")
+        istft.launches += 1
     return out
 
 
@@ -229,22 +231,23 @@ def stft_gate_packed(x: torch.Tensor, nfft: int, hop: int, threshold: float,
         raise ValueError(f"stft_gate_packed: unsupported geometry nfft={nfft}"
                          f" hop={hop}; check packed_gate_supported()")
     c, n = x.shape
-    if not 0 < c <= 65535:
-        raise ValueError(f"channels must be in [1, 65535], got {c}")
+    chunks = _build.row_chunks(c)
     _build.require(x, "x", x.device)
     _build.require(window, "window", x.device, (nfft,))
     _build.require(norm, "norm", x.device, (n,))
     out = torch.empty_like(x)
     tw = fft_plan.pass_twiddles(nfft // 2, x.device)
     wk = _sk._fft_tables(nfft, x.device)[1]
-    err = _build.library().vv_stft_gate_packed(
-        _build.ptr(x), _build.ptr(window), _build.ptr(tw), _build.ptr(wk),
-        _build.ptr(norm), _build.ptr(out), c, n,
-        framing.stft_num_frames(n, nfft, hop), nfft, hop,
-        float(threshold) ** 2, fft_plan.gate_packed_smem(nfft, hop),
-        x.device.index, _build.stream_handle(x))
-    _build.check(err, "stft_gate_packed")
-    stft_gate_packed.launches += 1
+    lib = _build.library()
+    for r0, rows in chunks:
+        err = lib.vv_stft_gate_packed(
+            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+            _build.ptr(wk), _build.ptr(norm), _build.ptr(out, r0), rows, n,
+            framing.stft_num_frames(n, nfft, hop), nfft, hop,
+            float(threshold) ** 2, fft_plan.gate_packed_smem(nfft, hop),
+            x.device.index, _build.stream_handle(x))
+        _build.check(err, "stft_gate_packed")
+        stft_gate_packed.launches += 1
     return out
 
 

@@ -81,8 +81,6 @@ def _check_signal(x: torch.Tensor, window: torch.Tensor, nfft: int,
     if not stft_supported(nfft, hop):
         raise ValueError(f"{name}: unsupported geometry nfft={nfft} "
                          f"hop={hop}; check stft_supported()")
-    if not 0 < x.shape[0] <= 65535:
-        raise ValueError(f"channels must be in [1, 65535], got {x.shape[0]}")
 
 
 def stft_spectrum_plain(x: torch.Tensor, nfft: int, hop: int,
@@ -105,17 +103,20 @@ def stft_spectrum(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
         return stft_spectrum_plain(x, nfft, hop, window, onesided)
     _check_signal(x, window, nfft, hop, "stft_spectrum")
     c, n = x.shape
+    chunks = _build.row_chunks(c)
     nf = stft_num_frames(n, nfft, hop)
     bins = nfft // 2 + 1 if onesided else nfft
     out = torch.empty((c, nf, bins), dtype=torch.complex64, device=x.device)
     tw = fft_plan.pass_twiddles(nfft // 2, x.device)
     wk = _fft_tables(nfft, x.device)[1]
-    err = _build.library().vv_stft_spectrum(
-        _build.ptr(x), _build.ptr(window), _build.ptr(tw), _build.ptr(wk),
-        _build.ptr(out), c, n, nf, nfft, hop, bins, x.device.index,
-        _build.stream_handle(x))
-    _build.check(err, "stft_spectrum")
-    stft_spectrum.launches += 1
+    lib = _build.library()
+    for r0, rows in chunks:
+        err = lib.vv_stft_spectrum(
+            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+            _build.ptr(wk), _build.ptr(out, r0), rows, n, nf, nfft, hop,
+            bins, x.device.index, _build.stream_handle(x))
+        _build.check(err, "stft_spectrum")
+        stft_spectrum.launches += 1
     return out
 
 
@@ -140,17 +141,20 @@ def stft_power(x: torch.Tensor, nfft: int, hop: int,
         return stft_power_plain(x, nfft, hop, window)
     _check_signal(x, window, nfft, hop, "stft_power")
     c, n = x.shape
+    chunks = _build.row_chunks(c)
     nf = stft_num_frames(n, nfft, hop)
     out = torch.empty((c, nf, nfft // 2 + 1), dtype=torch.float32,
                       device=x.device)
     tw = fft_plan.pass_twiddles(nfft // 2, x.device)
     wk = _fft_tables(nfft, x.device)[1]
-    err = _build.library().vv_stft_power(
-        _build.ptr(x), _build.ptr(window), _build.ptr(tw), _build.ptr(wk),
-        _build.ptr(out), c, n, nf, nfft, hop, x.device.index,
-        _build.stream_handle(x))
-    _build.check(err, "stft_power")
-    stft_power.launches += 1
+    lib = _build.library()
+    for r0, rows in chunks:
+        err = lib.vv_stft_power(
+            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+            _build.ptr(wk), _build.ptr(out, r0), rows, n, nf, nfft, hop,
+            x.device.index, _build.stream_handle(x))
+        _build.check(err, "stft_power")
+        stft_power.launches += 1
     return out
 
 
@@ -237,6 +241,7 @@ def stft_mfcc(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
         n_out = dct.shape[0]
         _build.require(dct, "dct", x.device, (n_out, n_mels))
     c, n = x.shape
+    chunks = _build.row_chunks(c)
     nf = stft_num_frames(n, nfft, hop)
     weights, index = _mel_tables(mel_fb, bands)
     plan = fft_plan.mfcc_plan(nfft, n_mels, n_out, weights.numel(),
@@ -244,16 +249,19 @@ def stft_mfcc(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
     out = torch.empty((c, nf, n_out), dtype=torch.float32, device=x.device)
     tw = fft_plan.pass_twiddles(nfft // 2, x.device)
     wk = _fft_tables(nfft, x.device)[1]
-    err = _build.library().vv_stft_mfcc(
-        _build.ptr(x), _build.ptr(window), _build.ptr(tw), _build.ptr(wk),
-        _build.ptr(weights), _build.ptr(index),
-        _build.ptr(dct if dct is not None else weights), _build.ptr(out), c,
-        n, nf, nfft, hop, n_mels, n_out, weights.numel(), float(log_eps),
-        config.ALGORITHMS.index(algorithm), int(dct is not None),
-        int(plan.staged), plan.smem, x.device.index,
-        _build.stream_handle(x))
-    _build.check(err, "stft_mfcc")
-    stft_mfcc.launches += 1
+    lib = _build.library()
+    for r0, rows in chunks:
+        err = lib.vv_stft_mfcc(
+            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+            _build.ptr(wk), _build.ptr(weights), _build.ptr(index),
+            _build.ptr(dct if dct is not None else weights),
+            _build.ptr(out, r0), rows, n, nf, nfft, hop, n_mels, n_out,
+            weights.numel(), float(log_eps),
+            config.ALGORITHMS.index(algorithm), int(dct is not None),
+            int(plan.staged), plan.smem, x.device.index,
+            _build.stream_handle(x))
+        _build.check(err, "stft_mfcc")
+        stft_mfcc.launches += 1
     return out
 
 
@@ -361,8 +369,7 @@ def stft_power_dft(x: torch.Tensor, nfft: int, hop: int,
         raise ValueError("stft_power_dft expects (channels, n)")
     _build.require(x, "x", x.device)
     c, n = x.shape
-    if not 0 < c <= 65535:
-        raise ValueError(f"channels must be in [1, 65535], got {c}")
+    chunks = _build.row_chunks(c)
     if n_frames is None:
         n_frames = stft_num_frames(n, nfft, hop)
     if n_frames < 1:
@@ -372,12 +379,14 @@ def stft_power_dft(x: torch.Tensor, nfft: int, hop: int,
     bparts = _dft_parts_on(nfft, window, window_param, x.device)
     out = torch.empty((c, n_frames, bins), dtype=torch.float32,
                       device=x.device)
-    err = _build.library().vv_dft_power(
-        _build.ptr(x), _build.ptr(bparts), _build.ptr(out), c, n, n_frames,
-        nfft, hop, bins, mma_plan.dft_cols(nfft), plan.tiles, plan.smem,
-        x.device.index, _build.stream_handle(x))
-    _build.check(err, "stft_power_dft")
-    stft_power_dft.launches += 1
+    lib = _build.library()
+    for r0, rows in chunks:
+        err = lib.vv_dft_power(
+            _build.ptr(x, r0), _build.ptr(bparts), _build.ptr(out, r0), rows,
+            n, n_frames, nfft, hop, bins, mma_plan.dft_cols(nfft),
+            plan.tiles, plan.smem, x.device.index, _build.stream_handle(x))
+        _build.check(err, "stft_power_dft")
+        stft_power_dft.launches += 1
     return out
 
 

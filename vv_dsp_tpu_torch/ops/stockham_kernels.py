@@ -81,8 +81,6 @@ def _check_signal(x: torch.Tensor, window: torch.Tensor, nfft: int,
     if not supported(nfft, hop):
         raise ValueError(f"{name}: unsupported geometry nfft={nfft} "
                          f"hop={hop}; check {supported.__name__}()")
-    if not 0 < x.shape[0] <= 65535:
-        raise ValueError(f"channels must be in [1, 65535], got {x.shape[0]}")
 
 
 stft_spectrum_stockham_plain = _sk.stft_spectrum_plain
@@ -98,15 +96,19 @@ def stft_spectrum_stockham(x: torch.Tensor, nfft: int, hop: int,
         return stft_spectrum_stockham_plain(x, nfft, hop, window, onesided)
     _check_signal(x, window, nfft, hop, "stft_spectrum_stockham")
     c, n = x.shape
+    chunks = _build.row_chunks(c)
     nf = stft_num_frames(n, nfft, hop)
     bins = nfft // 2 + 1 if onesided else nfft
     out = torch.empty((c, nf, bins), dtype=torch.complex64, device=x.device)
-    err = _build.library().vv_stockham_spectrum(
-        _build.ptr(x), _build.ptr(window),
-        _build.ptr(fft_plan.pass_twiddles(nfft, x.device)), _build.ptr(out),
-        c, n, nf, nfft, hop, bins, x.device.index, _build.stream_handle(x))
-    _build.check(err, "stft_spectrum_stockham")
-    stft_spectrum_stockham.launches += 1
+    tw = fft_plan.pass_twiddles(nfft, x.device)
+    lib = _build.library()
+    for r0, rows in chunks:
+        err = lib.vv_stockham_spectrum(
+            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+            _build.ptr(out, r0), rows, n, nf, nfft, hop, bins,
+            x.device.index, _build.stream_handle(x))
+        _build.check(err, "stft_spectrum_stockham")
+        stft_spectrum_stockham.launches += 1
     return out
 
 
@@ -121,15 +123,19 @@ def stft_power_stockham(x: torch.Tensor, nfft: int, hop: int,
         return stft_power_stockham_plain(x, nfft, hop, window)
     _check_signal(x, window, nfft, hop, "stft_power_stockham")
     c, n = x.shape
+    chunks = _build.row_chunks(c)
     nf = stft_num_frames(n, nfft, hop)
     out = torch.empty((c, nf, nfft // 2 + 1), dtype=torch.float32,
                       device=x.device)
-    err = _build.library().vv_stockham_power(
-        _build.ptr(x), _build.ptr(window),
-        _build.ptr(fft_plan.pass_twiddles(nfft, x.device)), _build.ptr(out),
-        c, n, nf, nfft, hop, x.device.index, _build.stream_handle(x))
-    _build.check(err, "stft_power_stockham")
-    stft_power_stockham.launches += 1
+    tw = fft_plan.pass_twiddles(nfft, x.device)
+    lib = _build.library()
+    for r0, rows in chunks:
+        err = lib.vv_stockham_power(
+            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+            _build.ptr(out, r0), rows, n, nf, nfft, hop, x.device.index,
+            _build.stream_handle(x))
+        _build.check(err, "stft_power_stockham")
+        stft_power_stockham.launches += 1
     return out
 
 
@@ -168,21 +174,25 @@ def stft_mel_stockham(x: torch.Tensor, nfft: int, hop: int,
         n_out = dct.shape[0]
         _build.require(dct, "dct", x.device, (n_out, n_mels))
     c, n = x.shape
+    chunks = _build.row_chunks(c)
     nf = stft_num_frames(n, nfft, hop)
     weights, index = _sk._mel_tables(mel_fb, bands)
     plan = fft_plan.stockham_mel_plan(nfft, n_mels, n_out, weights.numel(),
                                       dct is not None)
     out = torch.empty((c, nf, n_out), dtype=torch.float32, device=x.device)
-    err = _build.library().vv_stockham_mel(
-        _build.ptr(x), _build.ptr(window),
-        _build.ptr(fft_plan.pass_twiddles(nfft, x.device)),
-        _build.ptr(weights), _build.ptr(index),
-        _build.ptr(dct if dct is not None else weights), _build.ptr(out), c,
-        n, nf, nfft, hop, n_mels, n_out, weights.numel(), float(log_eps),
-        int(dct is not None), int(plan.staged), plan.smem, x.device.index,
-        _build.stream_handle(x))
-    _build.check(err, "stft_mel_stockham")
-    stft_mel_stockham.launches += 1
+    tw = fft_plan.pass_twiddles(nfft, x.device)
+    lib = _build.library()
+    for r0, rows in chunks:
+        err = lib.vv_stockham_mel(
+            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+            _build.ptr(weights), _build.ptr(index),
+            _build.ptr(dct if dct is not None else weights),
+            _build.ptr(out, r0), rows, n, nf, nfft, hop, n_mels, n_out,
+            weights.numel(), float(log_eps), int(dct is not None),
+            int(plan.staged), plan.smem, x.device.index,
+            _build.stream_handle(x))
+        _build.check(err, "stft_mel_stockham")
+        stft_mel_stockham.launches += 1
     return out
 
 
@@ -215,16 +225,20 @@ def stft_gate_stockham(x: torch.Tensor, nfft: int, hop: int,
     _check_signal(x, window, nfft, hop, "stft_gate_stockham",
                   stockham_gate_supported)
     c, n = x.shape
+    chunks = _build.row_chunks(c)
     _build.require(norm, "norm", x.device, (n,))
     out = torch.empty_like(x)
-    err = _build.library().vv_stockham_gate(
-        _build.ptr(x), _build.ptr(window),
-        _build.ptr(fft_plan.pass_twiddles(nfft, x.device)), _build.ptr(norm),
-        _build.ptr(out), c, n, stft_num_frames(n, nfft, hop), nfft, hop,
-        float(threshold) ** 2, fft_plan.stockham_gate_smem(nfft, hop),
-        x.device.index, _build.stream_handle(x))
-    _build.check(err, "stft_gate_stockham")
-    stft_gate_stockham.launches += 1
+    tw = fft_plan.pass_twiddles(nfft, x.device)
+    lib = _build.library()
+    for r0, rows in chunks:
+        err = lib.vv_stockham_gate(
+            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+            _build.ptr(norm), _build.ptr(out, r0), rows, n,
+            stft_num_frames(n, nfft, hop), nfft, hop, float(threshold) ** 2,
+            fft_plan.stockham_gate_smem(nfft, hop), x.device.index,
+            _build.stream_handle(x))
+        _build.check(err, "stft_gate_stockham")
+        stft_gate_stockham.launches += 1
     return out
 
 
@@ -271,8 +285,7 @@ def istft_stockham(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
         raise ValueError(f"istft_stockham: unsupported geometry nfft={nfft} "
                          f"hop={hop}; check stockham_supported()")
     c, nf, _ = spec.shape
-    if not 0 < c <= 65535:
-        raise ValueError(f"channels must be in [1, 65535], got {c}")
+    chunks = _build.row_chunks(c)
     if output_len < 1:
         raise ValueError(f"output_len must be positive, got {output_len}")
     _build.require(spec, "spec", spec.device, (c, nf, bins), torch.complex64)
@@ -280,14 +293,16 @@ def istft_stockham(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
     _build.require(norm, "norm", spec.device, (output_len,))
     out = torch.empty((c, output_len), dtype=torch.float32,
                       device=spec.device)
-    err = _build.library().vv_istft_stockham(
-        _build.ptr(spec), _build.ptr(window),
-        _build.ptr(fft_plan.pass_twiddles(nfft, spec.device)),
-        _build.ptr(norm), _build.ptr(out), c, nf, nfft, hop, bins, output_len,
-        fft_plan.istft_smem(nfft, hop), spec.device.index,
-        _build.stream_handle(spec))
-    _build.check(err, "istft_stockham")
-    istft_stockham.launches += 1
+    tw = fft_plan.pass_twiddles(nfft, spec.device)
+    lib = _build.library()
+    for r0, rows in chunks:
+        err = lib.vv_istft_stockham(
+            _build.ptr(spec, r0), _build.ptr(window), _build.ptr(tw),
+            _build.ptr(norm), _build.ptr(out, r0), rows, nf, nfft, hop,
+            bins, output_len, fft_plan.istft_smem(nfft, hop),
+            spec.device.index, _build.stream_handle(spec))
+        _build.check(err, "istft_stockham")
+        istft_stockham.launches += 1
     return out
 
 

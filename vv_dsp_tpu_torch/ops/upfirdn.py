@@ -151,7 +151,9 @@ def upfirdn_banded(x: torch.Tensor, taps: torch.Tensor, up: int, down: int,
     host plan (``ops/mma_plan.py``) gives the kernel its frame group, its
     tile layout (B resident, or streamed in depth chunks for long filters)
     and B's bf16 parts, cached per table; the kernel entry refuses a
-    geometry it cannot run (up, down or taps_pp < 1, offset < 0)."""
+    geometry it cannot run (up, down or taps_pp < 1, offset < 0). Rows
+    beyond 65,535 take one launch a run of 65,535 (``_build.row_chunks``).
+    """
     algorithm = config.dot_algorithm(algorithm)
     if x.device.type == "cpu":
         return upfirdn_tall(x, taps, up, down, offset, n_out, algorithm)
@@ -163,8 +165,7 @@ def upfirdn_banded(x: torch.Tensor, taps: torch.Tensor, up: int, down: int,
     _build.require(x, "x", x.device)
     _build.require(taps, "taps", x.device, (up, taps_pp))
     c, n_in = x.shape
-    if not 0 < c <= 65535:
-        raise ValueError(f"channels must be in [1, 65535], got {c}")
+    chunks = _build.row_chunks(c)
     y = torch.empty((c, n_out), dtype=torch.float32, device=x.device)
     if n_out == 0:
         return y
@@ -172,14 +173,17 @@ def upfirdn_banded(x: torch.Tensor, taps: torch.Tensor, up: int, down: int,
         _build.check(_EINVAL, "upfirdn_banded")
     p = mma_plan.upfirdn_plan(up, down, taps_pp, offset, algorithm)
     bparts = mma_plan.band_parts(taps, p, algorithm)
-    err = _build.library().vv_upfirdn(
-        _build.ptr(x), _build.ptr(bparts), _build.ptr(y), c, n_in, n_out,
-        up, down, offset, taps_pp, p.n_real, p.n_tiles, p.n_pad, p.stride,
-        p.k_pad, p.k_chunk, p.m_tiles, p.a_pitch, p.win, p.flush, p.smem,
-        p.c_lo, config.ALGORITHMS.index(algorithm), x.device.index,
-        _build.stream_handle(x))
-    _build.check(err, "upfirdn_banded")
-    upfirdn_banded.launches += 1
+    lib = _build.library()
+    for r0, rows in chunks:
+        err = lib.vv_upfirdn(
+            _build.ptr(x, r0), _build.ptr(bparts), _build.ptr(y, r0), rows,
+            n_in, n_out, up, down, offset, taps_pp, p.n_real, p.n_tiles,
+            p.n_pad, p.stride, p.k_pad, p.k_chunk, p.m_tiles, p.a_pitch,
+            p.win, p.flush, p.smem, p.c_lo,
+            config.ALGORITHMS.index(algorithm), x.device.index,
+            _build.stream_handle(x))
+        _build.check(err, "upfirdn_banded")
+        upfirdn_banded.launches += 1
     return y
 
 

@@ -10,8 +10,9 @@ kernel), and the full-nfft paths: STFT(128, 32).power,
 MFCCFrontend(128, 32, 26 mels, 13 MFCCs, 8 kHz) and SpectralGate(128, 32)
 on (16, 479232) and STFT(512, 8).process on (16, 480000), two- and
 one-sided,
-and the staged NorthStarChain(fused_head=False) and fir_apply_best at 16
-taps on (16, 479232), and the last three kernels' paths: stft_power_dft
+and the staged NorthStarChain(fused_head=False), fir_apply_best at 16
+taps and resample_poly_kernel (the per-phase kernel) at 4/3 and 3/4 on
+(16, 479232), and the last three kernels' paths: stft_power_dft
 at 1024/256 on (16, 480000), the STFT 128/32 roundtrip on (16, 479232),
 and istft_stockham and stft_gate_packed at 1024/256 on the COLA-padded
 (16, 480768) input (the inverse of its one-sided spectrum), and
@@ -99,7 +100,8 @@ def main(argv=None) -> int:
         raise SystemExit("profile_path: no CUDA device")
     from vv_dsp_tpu_torch.models import (MFCCFrontend, NorthStarChain,
                                          SpectralGate)
-    from vv_dsp_tpu_torch.ops.filter_kernels import fir_apply_best
+    from vv_dsp_tpu_torch.ops.filter_kernels import (fir_apply_best,
+                                                     resample_poly_kernel)
     from vv_dsp_tpu_torch.ops.fir import design_lowpass_np
     from vv_dsp_tpu_torch.ops.stft import STFT
 
@@ -141,6 +143,9 @@ def main(argv=None) -> int:
     report("chain, staged head", lambda: staged(xc), args.calls)
     report("fir_apply_best 16 taps", lambda: fir_apply_best(h16, xc),
            args.calls)
+    for up, down in ((4, 3), (3, 4)):
+        report(f"resample_poly_kernel {up}/{down}",
+               lambda: resample_poly_kernel(xc, up, down), args.calls)
     from vv_dsp_tpu_torch.ops import istft_kernels as ik
     from vv_dsp_tpu_torch.ops import stft_kernels as sk
     from vv_dsp_tpu_torch.ops import stockham_kernels as stk

@@ -63,7 +63,15 @@ Phases, each fatal on failure:
    input at threshold 0, on the tone probe and at the gate's threshold
    (SpectralGate's split pair timed beside it). Each of the 14 kernel
    wrappers at 65,536 rows of a short signal: two launches (65,535 rows
-   and 1), against its plain version. Then tier probes, inputs
+   and 1), against its plain version. Savitzky-Golay's kernel path, the
+   banded upfirdn at 1/1 and offset wl - 1, at savgol_filter(x, 31, 3)'s
+   shapes against its plain version (the shift-add correlation), with
+   F.conv1d, the bound, ptxas's figures and float64 scipy, then at wl 5,
+   101, 257 and deriv 1 on 2 channels; the filter tier at 1,024 taps
+   (fir_apply_os, fir_apply_fft and F.conv1d timed beside fir_apply_best,
+   each held to float64 lfilter; filtfilt_fir to a float64 oracle of its
+   form); the core API (DCTs, statistics, framing, FFT extras) against its
+   CPU results. Then tier probes, inputs
    on which a kernel must match the plain version at its own tier and land
    beyond the limit against another tier (the controls);
 4. slice: through the public entry points, each with every launch counter
@@ -82,6 +90,13 @@ Phases, each fatal on failure:
    (16, 480000), the STFT 128/32 roundtrip on (16, 479232), istft_stockham
    at 1024/256 in both forms and stft_gate_packed at 1024/256 on the
    COLA-padded input, and STFT(1024, 256).spectrogram on (16, 480000);
+   savgol_filter(x, 31, 3) on (16, 479232); and the calls the JAX package
+   runs on XLA, which the port runs on the card by its "torch" route and
+   which must launch no kernel: STFT(64, 16).process and power, an
+   nfft-1000 spectrogram, complex input, reconstruct at 1024/384,
+   SpectralGate at 128/128 and 128/24 (on a tone probe), MFCCFrontend at
+   128/24 and a fused head under a plan budget where no layout fits, each
+   held to its own CPU result on 2 channels;
    each path's launch counts equal to the
    kernels it must run, output shapes, finite values, float64 numpy/scipy
    oracles on 2 channels (SpectralGate on a probe input whose every bin
@@ -95,6 +110,7 @@ CUDA device or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -173,6 +189,23 @@ STAGED_TOL = 1e-4       # staged against fused chain (tests/test_models.py)
 # absolute on the retained samples (tests/test_tpu_hardware.py's pin)
 DFT_POWER_TOL = 1e-5
 ISTFT_ALL_TOL = 1e-2
+# savgol_filter's main-path window and order (the kernel path: the banded
+# upfirdn at 1/1, offset wl - 1), the window lengths and the derivative it
+# is also held at on 2 channels, and the filter tier's taps
+SAVGOL = (31, 3)
+SAVGOL_OTHERS = ((5, 3, 0), (101, 3, 0), (257, 3, 0), (31, 3, 1))
+FILTER_TIER_TAPS = 1024
+# the core API on the card against its CPU result, as its CPU test holds
+# it (tests/test_torch_core_api.py), of max |value|: the DCTs and the
+# statistics 1e-5 (the excess kurtosis, near 0 on Gaussian input, 1e-5
+# absolute), the frames equal, the overlap-add and phase unwrap 1e-6 and
+# 1e-5 (a 479,232-sample cumulative sum), the FFT class 5e-5
+CORE_TOL = 1e-5
+# the plan budget under which no upfirdn layout fits a block (the least
+# takes 1,296 bytes: a Hankel window of stride 8 at the bf16 tier): the
+# fused head's "torch" route, which no geometry of realistic size reaches
+# at the card's 232,448 bytes
+REFUSING_BUDGET = 1024
 
 
 def device_phase() -> str:
@@ -711,6 +744,7 @@ def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
     results.update(istft_phase(xc, win, failed, log))
     results.update(stockham_phase(xc, xs, front128, failed, log))
     results.update(filter_phase(xc, failed, log))
+    results["upfirdn_banded"].update(core_phase(xc, failed, log))
     results["stft_power_dft"] = dft_power_phase(xs, win, failed, log)
     results["istft_stockham"] = istft_stockham_phase(xc, win, failed, log)
     results["stft_gate_packed"] = gate_packed_phase(xc, win, failed, log)
@@ -1155,6 +1189,153 @@ def filter_phase(xc, failed: list, log: list[str]) -> dict:
         plain = lambda: fk.resample_poly_plain(xv, up, down)
         record("poly_kernel", f"{up}/{down}, 2 x {xv.shape[1]}", fast(),
                plain(), POLY_TOL, fast, plain, failed)
+    return out
+
+
+def core_phase(xc, failed: list, log: list[str]) -> dict:
+    """Savitzky-Golay's kernel path, the banded upfirdn at 1/1 and offset
+    wl - 1, against its plain version (the shift-add correlation) at
+    savgol_filter's shapes: (31, 3) on (16, 479232), with F.conv1d (cuDNN,
+    TF32 off), the bound and ptxas's figures of the instance, and float64
+    scipy (mode "mirror") on 2 channels; then wl 5, 101, 257 and deriv 1
+    on 2 channels. Then the filter tier at 1,024 taps: fir_apply_os and
+    fir_apply_fft timed beside fir_apply_best (the banded kernel) and
+    F.conv1d, each held to float64 lfilter, and filtfilt_fir to a float64
+    oracle of its own form; then the core API on the card against its CPU
+    result. Returns the savgol row's and fir_1024_best's numbers."""
+    import torch.nn.functional as F
+    from scipy import signal as ss
+    from vv_dsp_tpu_torch import config
+    from vv_dsp_tpu_torch.ops import dct as dc
+    from vv_dsp_tpu_torch.ops import fft as ff
+    from vv_dsp_tpu_torch.ops import filter_kernels as fk
+    from vv_dsp_tpu_torch.ops import fir
+    from vv_dsp_tpu_torch.ops import framing as fr
+    from vv_dsp_tpu_torch.ops import savgol as sg
+    from vv_dsp_tpu_torch.ops import stats
+    from vv_dsp_tpu_torch.ops import upfirdn as uf
+
+    assert not torch.backends.cudnn.allow_tf32, "cuDNN TF32 must be off"
+    c, n = xc.shape
+    x2 = xc[:2].contiguous()
+    x64 = x2.double().cpu().numpy()
+    tier = config.dot_algorithm(None)
+    out = {}
+    for wl, order, deriv in (SAVGOL + (0,),) + SAVGOL_OTHERS:
+        xv = xc if (wl, order, deriv) == SAVGOL + (0,) else x2
+        w_np = sg.savgol_coeffs_np(wl, order, deriv)
+        xp = sg._pad(xv, wl // 2, "reflect")
+        table = uf.polyphase_table(w_np[::-1], 1, xv.device)
+        w = torch.as_tensor(w_np, dtype=torch.float32, device=xv.device)
+        fast = lambda: uf.upfirdn_banded(xp, table, 1, 1, wl - 1, n, tier)
+        plain = lambda: sg.correlate_plain(xp, w, n)
+        got = fast()
+        r = record("upfirdn_banded", f"savgol_filter {wl}/{order} deriv "
+                   f"{deriv}, {tier}, {xv.shape[0]} x {n}", got, plain(),
+                   UPFIRDN_TOL, fast, plain, failed)
+        if xv is x2:
+            continue
+        lib = lambda: F.conv1d(xp[:, None], w.reshape(1, 1, wl))
+        lib_err = rel_err(lib()[:, 0], got)[1]
+        r["library_ms"] = cuda_ms(lib)
+        macs = c * n * wl
+        io = 4 * (xp.numel() + c * n + wl)
+        r.update(min((bound(io, 2 * macs, F32_FLOP_PER_S),
+                      bound(io, 6 * 2 * macs, BF16_FLOP_PER_S)),
+                     key=lambda b: b["bound_ms"]))
+        entry = lambda: sg.savgol_filter(xc, wl, order)
+        r["entry_ms"] = cuda_ms(entry)
+        print(f"  savgol_filter({wl}, {order}) on {c} x {n}: entry "
+              f"{r['entry_ms']:.4f} ms; F.conv1d (cuDNN, TF32 off) on the "
+              f"padded input {r['library_ms']:.4f} ms, {lib_err:.3e} of "
+              f"scale from the kernel; bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+        mma_line("upfirdn_banded", f"savgol {wl}/{order}, {tier}", r["ms"],
+                 r["bound_ms"], r["bound_by"], log,
+                 *upfirdn_instance(1, 1, wl, wl - 1, tier))
+        oracle_check(f"savgol_filter({wl}, {order}) vs float64 scipy "
+                     f"(mode mirror, 2 ch)", entry()[:2].cpu().numpy(),
+                     ss.savgol_filter(x64, wl, order, mode="mirror",
+                                      axis=-1), FIR_TOL)
+        out.update({f"savgol_{k}": v for k, v in r.items()})
+
+    taps = FILTER_TIER_TAPS
+    h = fir.design_lowpass_np(taps, 0.3)
+    want = ss.oaconvolve(x64, h[None], axes=-1)[:, :n]
+    wt = torch.as_tensor(h[::-1].copy(), dtype=torch.float32,
+                         device=xc.device).reshape(1, 1, taps)
+    xpad = F.pad(xc[:, None], (taps - 1, 0))
+    lib = lambda: F.conv1d(xpad, wt)
+    out["fir_1024_best_library_ms"] = cuda_ms(lib)
+    macs, io = c * n * taps, 4 * (2 * xc.numel() + taps)
+    b = min((bound(io, 2 * macs, F32_FLOP_PER_S),
+             bound(io, 6 * 2 * macs, BF16_FLOP_PER_S)),
+            key=lambda v: v["bound_ms"])
+    out["fir_1024_best_bound_ms"] = b["bound_ms"]
+    print(f"filter tier bound at {taps} taps, the banded kernel's f32 tier: "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    forms = (("fir_apply_best (banded kernel)",
+              lambda: fk.fir_apply_best(h, xc)),
+             ("fir_apply_os", lambda: fir.fir_apply_os(h, xc)),
+             ("fir_apply_fft", lambda: fir.fir_apply_fft(h, xc)),
+             ("F.conv1d (cuDNN, TF32 off)", lambda: lib()[:, 0]))
+    for name, fn in forms:
+        ms = cuda_ms(fn)
+        if name.startswith("fir_apply_best"):
+            out["fir_1024_best_ms"] = ms
+        print(f"filter tier {name}, {taps} taps, {c} x {n}: {ms:.4f} ms | "
+              f"the conv1d's {out['fir_1024_best_library_ms']:.4f} ms")
+        oracle_check(f"filter tier {name} vs float64 lfilter (2 ch)",
+                     fn()[:2].cpu().numpy(), want, FIR_TOL)
+    pad = taps - 1
+    ext = np.pad(x64, ((0, 0), (pad, pad)), mode="symmetric")
+    fwd = ss.oaconvolve(ext, h[None], axes=-1)[:, :ext.shape[-1]]
+    back = ss.oaconvolve(fwd[:, ::-1], h[None], axes=-1)[:, :ext.shape[-1]]
+    want = back[:, ::-1][:, pad:-pad]
+    fn = lambda: fir.filtfilt_fir(h, xc)
+    print(f"filter tier filtfilt_fir, {taps} taps, {c} x {n}: "
+          f"{cuda_ms(fn):.4f} ms")
+    oracle_check("filter tier filtfilt_fir vs float64 symmetric pad + "
+                 "lfilter forward and back (2 ch)", fn()[:2].cpu().numpy(),
+                 want, FIR_TOL)
+
+    frames = xc.reshape(c, -1, 1024)
+    rng = np.random.default_rng(5)
+    true_phase = np.cumsum(0.3 * rng.standard_normal((c, n)), axis=-1)
+    wrapped = ff.phase_wrap(torch.as_tensor(true_phase, dtype=torch.float32))
+    win = torch.hann_window(1024, periodic=False, device=xc.device)
+    fetched = fr.fetch_frames(xc, 1024, 256, True, win)
+    core = [(f"dct type {t}{' inverse' if inv else ''}, 1024 points",
+             lambda v, t=t, inv=inv: dc.dct(v, t, inv), frames, CORE_TOL)
+            for t in (2, 3, 4) for inv in (False, True)]
+    core += [
+        ("stats.rms", stats.rms, xc, CORE_TOL),
+        ("stats.kurtosis (absolute)", stats.kurtosis, xc, CORE_TOL),
+        ("stats.autocorrelation, 1024 lags",
+         lambda v: stats.autocorrelation(v, 1024), xc, SPECTRUM_TOL),
+        ("framing.fetch_frames, 1024/256 centred",
+         lambda v: fr.fetch_frames(v, 1024, 256, True, win.to(v.device)),
+         xc, 0.0),
+        ("framing.overlap_add, 1024/256",
+         lambda v: fr.overlap_add(v, 256, n), fetched, 1e-6),
+        ("fft.rfft_power, 1024 points", ff.rfft_power, frames,
+         SPECTRUM_TOL),
+        ("fft.phase_unwrap", ff.phase_unwrap, wrapped.to(xc.device),
+         CORE_TOL)]
+    for name, fn, v, tol in core:
+        got = fn(v)[:2].cpu()
+        want = fn(v[:2].cpu())
+        err = (got - want).abs().max().item()
+        absolute = "absolute" in name
+        if not absolute:
+            err /= want.abs().max().item()
+        ok = err <= tol
+        print(f"core API {name}: {cuda_ms(lambda: fn(v)):.4f} ms on "
+              f"{tuple(v.shape)}, {err:.3e}{'' if absolute else ' of scale'} "
+              f"from the CPU result (2 ch; limit {tol:g}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"core API {name}")
     return out
 
 
@@ -1689,6 +1870,115 @@ def last_slice_oracles(xc, xs, outs, want) -> None:
                  ORACLE_TOL)
 
 
+@contextlib.contextmanager
+def plan_budget(nbytes: int):
+    """Run with the upfirdn plan's shared-memory budget set to nbytes (its
+    cached searches dropped before and after)."""
+    from vv_dsp_tpu_torch.ops import mma_plan as mp
+    old = mp.SMEM_BYTES
+    mp._upfirdn_search.cache_clear()
+    mp.SMEM_BYTES = nbytes
+    try:
+        yield
+    finally:
+        mp.SMEM_BYTES = old
+        mp._upfirdn_search.cache_clear()
+
+
+def route_paths(xc, xs, chain) -> list:
+    """The calls the JAX package runs on XLA, which the port runs on the
+    card by its "torch" route and which launch no kernel: (name, call on
+    the card, the same call on the CPU for 2 channels, input samples a
+    channel, tolerance of scale, samples cut at each end before the
+    comparison). The gates run on a tone probe whose every bin clears the
+    threshold by 10x or more (checked here), so no bin can flip between
+    cuFFT and the CPU's FFT; the inverse's spectrum comes from the forward
+    kernel, which takes 1024/384, before the counters are zeroed; the
+    fused head runs under REFUSING_BUDGET. The gates are compared before
+    their norm is divided out."""
+    from vv_dsp_tpu_torch.models import MFCCFrontend, SpectralGate
+    from vv_dsp_tpu_torch.ops import istft_kernels as ik
+    from vv_dsp_tpu_torch.ops import resample as rs
+    from vv_dsp_tpu_torch.ops.stft import STFT
+    from vv_dsp_tpu_torch.ops.window import get_window_np
+
+    probe = gate_probe(N_CHAIN, 4, 128, (10, 25, 45), CHANNELS)
+    for hop in (128, 24):
+        factor = gate_oracle(probe[:2].astype(np.float64), GATE_T, 128,
+                             hop)[1]
+        print(f"gate probe 128/{hop}: every bin of the frames inside the "
+              f"signal clears the threshold by {factor:.2f}x or more")
+        if not factor >= 10:
+            raise AssertionError(f"gate probe 128/{hop} too close to the "
+                                 f"threshold: {factor:.2f}x")
+    probe = torch.as_tensor(probe, device=xc.device)
+    z = torch.complex(xs, xs.flip(-1))
+    inv = STFT(1024, 384)
+    spec = inv.process(xc, rfft=True)
+    h = chain.fir_coeffs
+    on = {d: (SpectralGate(128, 128, GATE_T, device=d),
+              SpectralGate(128, 24, GATE_T, device=d),
+              MFCCFrontend(128, 24, device=d)) for d in (xc.device, "cpu")}
+
+    # the gates' outputs times their w^2 norm: compared before the norm is
+    # divided out, whose 1/w^2 amplifies float32 rounding without bound
+    # where a frame's edge alone covers a sample (at hop == nfft)
+    norms = {hop: ik.ola_norm(get_window_np("hann", 128), hop,
+                              1 + (N_CHAIN + 2 * (128 - hop) - 128 + hop)
+                              // hop, N_CHAIN + 2 * (128 - hop),
+                              xc.device)[128 - hop:128 - hop + N_CHAIN]
+             for hop in (128, 24)}
+
+    def head(x):
+        with plan_budget(REFUSING_BUDGET):
+            return rs.fir_resample_fused(h, x, 4, 3)
+
+    return [
+        ("route STFT(64, 16).process", lambda: STFT(64, 16).process(xs),
+         lambda: STFT(64, 16).process(xs[:2].cpu()), N_STFT, SPECTRUM_TOL,
+         0),
+        ("route STFT(64, 16).power", lambda: STFT(64, 16).power(xs),
+         lambda: STFT(64, 16).power(xs[:2].cpu()), N_STFT, POWER_TOL, 0),
+        ("route STFT(1000, 250).spectrogram",
+         lambda: STFT(1000, 250).spectrogram(xs),
+         lambda: STFT(1000, 250).spectrogram(xs[:2].cpu()), N_STFT,
+         SPECTRUM_TOL, 0),
+        ("route complex STFT(1024, 256).process",
+         lambda: STFT(1024, 256).process(z),
+         lambda: STFT(1024, 256).process(z[:2].cpu()), N_STFT,
+         SPECTRUM_TOL, 0),
+        ("route STFT(1024, 384).reconstruct",
+         lambda: inv.reconstruct(spec, N_CHAIN, rfft=True),
+         lambda: inv.reconstruct(spec[:2].cpu(), N_CHAIN, rfft=True),
+         N_CHAIN, SPECTRUM_TOL, 1024),
+        ("route SpectralGate(128, 128)",
+         lambda: on[xc.device][0](probe) * norms[128],
+         lambda: on["cpu"][0](probe[:2].cpu()) * norms[128].cpu(), N_CHAIN,
+         SPECTRUM_TOL, 0),
+        ("route SpectralGate(128, 24)",
+         lambda: on[xc.device][1](probe) * norms[24],
+         lambda: on["cpu"][1](probe[:2].cpu()) * norms[24].cpu(), N_CHAIN,
+         SPECTRUM_TOL, 0),
+        ("route MFCCFrontend(128, 24)", lambda: on[xc.device][2](xc),
+         lambda: on["cpu"][2](xc[:2].cpu()), N_CHAIN, MFCC_TOL, 0),
+        ("route fir_resample_fused 4/3, refused head", lambda: head(xc),
+         lambda: head(xc[:2].cpu()), N_CHAIN, POLY_TOL, 0)]
+
+
+def route_checks(routes, outs) -> None:
+    """Each routed call's output on the card against its CPU result on 2
+    channels (MFCCs against their scale: sum |dct| (|log mel| + 1) bounds
+    them, so their max |value| stands in)."""
+    for name, _, on_cpu, _, tol, cut in routes:
+        got, want = outs[name][:2].cpu(), on_cpu()
+        if got.is_complex():
+            got, want = torch.view_as_real(got), torch.view_as_real(want)
+        if cut:
+            got, want = got[..., cut:-cut], want[..., cut:-cut]
+        oracle_check(f"{name} on the card vs its CPU result (2 ch)",
+                     got.double().numpy(), want.double().numpy(), tol)
+
+
 def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
     """Drive every entry point of the slice once, each with the launch
     counters zeroed just before it and read just after, then check and
@@ -1697,6 +1987,7 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
     from vv_dsp_tpu_torch.ops import filter_kernels as fk
     from vv_dsp_tpu_torch.ops import istft_kernels as ik
     from vv_dsp_tpu_torch.ops import resample as rs
+    from vv_dsp_tpu_torch.ops import savgol as sg
     from vv_dsp_tpu_torch.ops import stft_kernels as sk
     from vv_dsp_tpu_torch.ops import stockham_kernels as stk
     from vv_dsp_tpu_torch.ops import upfirdn as uf
@@ -1769,8 +2060,13 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
          N_CHAIN),
         ("resample_poly_kernel_4_3",
          lambda: fk.resample_poly_kernel(xc, 4, 3), {"poly_kernel": 1},
+         N_CHAIN),
+        (f"savgol_{SAVGOL[0]}_{SAVGOL[1]}",
+         lambda: sg.savgol_filter(xc, *SAVGOL), {"upfirdn_banded": 1},
          N_CHAIN)]
     paths += tuple(p[:3] for p in filter_paths)
+    routes = route_paths(xc, xs, chain)
+    paths += tuple((name, fn, {}) for name, fn, *_ in routes)
     # the last slice: the windowed-DFT power, the 128-point roundtrip, the
     # full-nfft inverse (both forms) of the COLA-padded input's spectra, the
     # packed fused gate on that input and the magnitude spectrogram
@@ -1854,6 +2150,9 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
              (CHANNELS, -(-N_CHAIN * 160 // 147)), torch.float32),
             ("resample_poly_kernel_4_3", outs["resample_poly_kernel_4_3"],
              (CHANNELS, N_CHAIN * 4 // 3), torch.float32),
+            (f"savgol_{SAVGOL[0]}_{SAVGOL[1]}",
+             outs[f"savgol_{SAVGOL[0]}_{SAVGOL[1]}"], (CHANNELS, N_CHAIN),
+             torch.float32),
             ("stft_power_pallas_1024_256", outs["stft_power_pallas_1024_256"],
              (CHANNELS, 1873, NFFT // 2 + 1), torch.float32),
             *((name, outs[name], (CHANNELS, n_pad), torch.float32)
@@ -1879,6 +2178,7 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
                  outs["staged chain"].cpu().numpy(),
                  feats.double().cpu().numpy(), STAGED_TOL)
     filter_oracles(x2, outs)
+    route_checks(routes, outs)
     want = spectrum_oracle(xs[:2].double().cpu().numpy(), NFFT, HOP)
     oracle_check("STFT 1024/256 vs float64 oracle (2 ch)",
                  spec[:2].cpu().numpy(), want, 5e-5)
@@ -1927,7 +2227,8 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
             ("northstar_chain_staged_throughput", lambda: staged(xc),
              N_CHAIN),
             *((name, fn, n) for name, fn, _, n in filter_paths),
-            *((name, fn, n) for name, fn, _, n in last_paths))
+            *((name, fn, n) for name, fn, _, n in last_paths),
+            *((name, fn, n) for name, fn, _, n, *_ in routes))
     for name, fn, n in rows:
         ms = cuda_ms(fn)
         print(f"{name} {CHANNELS * n / ms / 1e3:.2f} Msamples/s "

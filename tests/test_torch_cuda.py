@@ -77,8 +77,10 @@ from vv_dsp_tpu_torch.models import MFCCFrontend, NorthStarChain, SpectralGate
 from vv_dsp_tpu_torch.ops import filter_kernels as tfk
 from vv_dsp_tpu_torch.ops import istft_kernels as tik
 from vv_dsp_tpu_torch.ops import mel as tmel
+from vv_dsp_tpu_torch.ops import mma_plan as tmp
 from vv_dsp_tpu_torch.ops import poly_plan as tpp
 from vv_dsp_tpu_torch.ops import resample as trs
+from vv_dsp_tpu_torch.ops import savgol as tsg
 from vv_dsp_tpu_torch.ops import stft_kernels as tsk
 from vv_dsp_tpu_torch.ops import stockham_kernels as tstk
 from vv_dsp_tpu_torch.ops import upfirdn as tuf
@@ -114,6 +116,32 @@ def _rel(got, want):
 
 def _cplx_rel(got, want):
     return _rel(torch.view_as_real(got), torch.view_as_real(want))
+
+
+def _gate_norm(nfft, hop, n, device):
+    """SpectralGate's w^2 overlap-add norm on its output's n samples."""
+    pad = nfft - hop
+    return tik.ola_norm(get_window_np("hann", nfft), hop,
+                        stft_num_frames(n + 2 * pad, nfft, hop), n + 2 * pad,
+                        device)[pad:pad + n]
+
+
+def _gate_rel(got, want, nfft, hop):
+    """SpectralGate's outputs compared before the norm is divided out, as
+    the inverse's pin holds them (after it, 1/w^2 amplifies float32
+    rounding without bound where a frame's edge alone covers a sample)."""
+    norm = _gate_norm(nfft, hop, want.shape[-1], "cpu")
+    return _rel(got.cpu() * norm, want.cpu() * norm)
+
+
+def _counters():
+    """The 14 kernel wrappers, each counting its launches."""
+    return (tuf.upfirdn_banded, tsk.stft_mfcc, tsk.stft_spectrum,
+            tsk.stft_power, tik.istft, tstk.stft_power_stockham,
+            tstk.stft_mel_stockham, tstk.stft_gate_stockham,
+            tstk.stft_spectrum_stockham, tfk.fir_direct,
+            tfk.resample_poly_kernel, tsk.stft_power_dft,
+            tstk.istft_stockham, tik.stft_gate_packed)
 
 
 @pytest.mark.parametrize("up,down", [(4, 3), (7, 5), (2, 1), (1, 2), (3, 4)])
@@ -408,19 +436,26 @@ def test_mfcc_tier_probe(dev, gen, algorithm):
 
 
 def test_unsupported_geometry_raises_on_card(dev, gen):
-    """On a CUDA tensor the entry points launch the kernel or raise; none
-    falls back to the plain version."""
+    """Where no kernel takes the geometry (the JAX package runs XLA there)
+    the entry points take the "torch" route on the card, launch nothing
+    and return the CPU result; a refusal inside a kernel's own lattice
+    still raises."""
     x = torch.as_tensor(gen.standard_normal((2, 30000)), dtype=torch.float32,
                         device=dev)
+    counters = _counters()
+    before = [f.launches for f in counters]
     for nfft, hop in ((128, 24), (1000, 250), (8192, 2048)):
-        with pytest.raises(ValueError):
-            STFT(nfft, hop).process(x)
-    with pytest.raises(ValueError):
-        tmel.mfcc_stft(x, 128, 24, 20, 13, 16000.0)
-    with pytest.raises(ValueError):
-        tmel.mfcc_stft(x, 8192, 2048, 80, 20, 64000.0)
-    with pytest.raises(TypeError):
-        STFT(1024, 256).process(x.to(torch.complex64))
+        assert _cplx_rel(STFT(nfft, hop).process(x),
+                         STFT(nfft, hop).process(x.cpu())) < 5e-5
+    for args in ((128, 24, 20, 13, 16000.0), (8192, 2048, 80, 20, 64000.0)):
+        err = (tmel.mfcc_stft(x, *args).cpu()
+               - tmel.mfcc_stft(x.cpu(), *args)).abs().max()
+        assert err.item() < 5e-4
+    z = x.to(torch.complex64)
+    assert _cplx_rel(STFT(1024, 256).process(z),
+                     STFT(1024, 256).process(z.cpu())) < 5e-5
+    torch.cuda.synchronize()
+    assert [f.launches for f in counters] == before
     h = NorthStarChain(device=dev).fir_coeffs
     g, off = trs._fused_fir_resample_filter(tuple(h), 4, 3)
     taps = tuf.polyphase_table(g, 4, dev)
@@ -551,16 +586,28 @@ def test_synthesis_entry_points_on_card_match_cpu(dev):
 
 
 def test_synthesis_refuses_what_the_kernels_do_not_take(dev, gen):
+    """1024/384 (hop not dividing nfft): the forward kernel takes it, the
+    inverse and the gate take the "torch" route, deterministic on the card;
+    128/24 power too. Calls the wrappers refuse still raise."""
     x = torch.as_tensor(gen.standard_normal((2, 9000)), dtype=torch.float32,
                         device=dev)
-    with pytest.raises(ValueError):
-        SpectralGate(1024, 384, device=dev)(x)
+    counters = _counters()
+    before = [f.launches for f in counters]
+    gate = SpectralGate(1024, 384, device=dev)(x)
+    assert _gate_rel(gate, SpectralGate(1024, 384, device="cpu")(x.cpu()),
+                     1024, 384) < 5e-6
     plan = STFT(1024, 384)
     spec = plan.process(x, rfft=True)        # the forward kernel takes it
-    with pytest.raises(ValueError):
-        plan.reconstruct(spec, 9000, rfft=True)
-    with pytest.raises(ValueError):
-        STFT(128, 24).power(x)
+    got = plan.reconstruct(spec, 9000, rfft=True)
+    assert torch.equal(got, plan.reconstruct(spec, 9000, rfft=True))
+    assert _rel(got[:, 1024:-1024], plan.reconstruct(
+        spec.cpu(), 9000, rfft=True)[:, 1024:-1024]) < 5e-6
+    assert _rel(STFT(128, 24).power(x), STFT(128, 24).power(x.cpu())) < 5e-5
+    torch.cuda.synchronize()
+    after = [f.launches for f in counters]
+    # the forward call's one spectrum launch
+    assert [a - b for a, b in zip(after, before)] == [
+        1 if f is tsk.stft_spectrum else 0 for f in counters]
     with pytest.raises(TypeError):
         tik.istft(torch.zeros(2, 5, 513, dtype=torch.complex128, device=dev),
                   1024, 256, 2048, STFT(1024, 256).win(dev),
@@ -765,10 +812,16 @@ def test_stockham_wrappers_refuse_what_they_do_not_take(dev, gen):
     with pytest.raises(ValueError):   # the gate needs hop < nfft
         tstk.stft_gate_stockham(x, 128, 128, win, torch.ones(9000,
                                                               device=dev), 0.1)
-    with pytest.raises(ValueError):   # SpectralGate at 128/128: no kernel
-        SpectralGate(128, 128, device=dev)(x)
-    with pytest.raises(ValueError):   # 128/24: off every kernel's lattice
-        STFT(128, 24).process(x)
+    before = [f.launches for f in _counters()]
+    # SpectralGate at 128/128 and STFT at 128/24: no kernel takes them, the
+    # "torch" route runs on the card
+    assert _gate_rel(SpectralGate(128, 128, device=dev)(x),
+                     SpectralGate(128, 128, device="cpu")(x.cpu()),
+                     128, 128) < 5e-6
+    assert _cplx_rel(STFT(128, 24).process(x),
+                     STFT(128, 24).process(x.cpu())) < 5e-5
+    torch.cuda.synchronize()
+    assert [f.launches for f in _counters()] == before
     with pytest.raises(TypeError):
         tstk.stft_power_stockham(x.double(), 128, 32, STFT(128, 32).win(dev))
 
@@ -1689,3 +1742,134 @@ def test_wrappers_launch_over_more_than_65535_rows(dev, gen, name):
         assert _cplx_rel(last, want) < tol
     else:
         assert _rel(last, want) < tol
+
+
+# Savitzky-Golay through kernel 1 (the banded upfirdn at 1/1, offset
+# wl - 1), at the window lengths of its range, against its plain version
+# (the shift-add correlation) at the upfirdn limit, 1e-5 of max |y|
+@pytest.mark.parametrize("wl", [5, 11, 31, 101, 257])
+@pytest.mark.parametrize("deriv", [0, 1])
+def test_savgol_runs_the_banded_kernel(dev, gen, wl, deriv):
+    x = torch.as_tensor(gen.standard_normal((3, 20011)), dtype=torch.float32,
+                        device=dev)
+    before = [f.launches for f in _counters()]
+    got = tsg.savgol_filter(x, wl, 3, deriv)
+    torch.cuda.synchronize()
+    after = [f.launches for f in _counters()]
+    assert [a - b for a, b in zip(after, before)] == [
+        1 if f is tuf.upfirdn_banded else 0 for f in _counters()]
+    xp = tsg._pad(x, wl // 2, "reflect")
+    w = torch.as_tensor(tsg.savgol_coeffs_np(wl, 3, deriv),
+                        dtype=torch.float32, device=dev)
+    want = tsg.correlate_plain(xp, w, x.shape[-1])
+    assert _rel(got, want) < 1e-5
+    assert _rel(got, tsg.savgol_filter(x.cpu(), wl, 3, deriv)) < 1e-5
+
+
+def _budget(monkeypatch, nbytes):
+    """Lower the upfirdn plan's shared-memory budget (and drop its cached
+    searches), so that no layout fits a block."""
+    tmp._upfirdn_search.cache_clear()
+    monkeypatch.setattr(tmp, "SMEM_BYTES", nbytes)
+
+
+def test_upfirdn_fits_agrees_with_the_plan_and_the_kernel(dev, gen,
+                                                          monkeypatch):
+    x = torch.as_tensor(gen.standard_normal((2, 5000)), dtype=torch.float32,
+                        device=dev)
+    table = tuf.polyphase_table(np.hanning(31), 1, dev)
+    try:
+        for small in (False, True):
+            if small:
+                _budget(monkeypatch, 1024)
+            for algorithm in ALGORITHMS:
+                fits = tmp.upfirdn_fits(1, 1, 31, 30, algorithm)
+                assert fits == (not small)
+                if fits:
+                    tmp.upfirdn_plan(1, 1, 31, 30, algorithm)
+                    y = tuf.upfirdn_banded(x, table, 1, 1, 30, 5000,
+                                           algorithm)
+                    assert _rel(y, tuf.upfirdn_tall(x, table, 1, 1, 30, 5000,
+                                                    algorithm)) < 1e-5
+                    continue
+                with pytest.raises(ValueError):
+                    tmp.upfirdn_plan(1, 1, 31, 30, algorithm)
+                with pytest.raises(ValueError):
+                    tuf.upfirdn_banded(x, table, 1, 1, 30, 5000, algorithm)
+    finally:
+        tmp._upfirdn_search.cache_clear()
+
+
+def _routed_calls():
+    """The calls the JAX package runs on XLA, each as (name, call on a
+    tensor, tolerance of scale): the port's "torch" route. The inverse's
+    spectrum is made on the CPU: the forward kernel takes 1024/384. The
+    gates' outputs are compared before their norm is divided out
+    (``_gate_rel``)."""
+    return [
+        ("STFT(64, 16).process", lambda x, d: STFT(64, 16).process(x), 5e-5),
+        ("STFT(64, 16).power", lambda x, d: STFT(64, 16).power(x), 5e-5),
+        ("STFT(1000, 250).spectrogram",
+         lambda x, d: STFT(1000, 250).spectrogram(x), 5e-5),
+        ("complex STFT(1024, 256).process",
+         lambda x, d: STFT(1024, 256).process(x.to(torch.complex64)), 5e-5),
+        ("STFT(1024, 384).reconstruct", lambda x, d: STFT(1024, 384)
+         .reconstruct(STFT(1024, 384).process(x.cpu(), rfft=True).to(x.device),
+                      x.shape[-1], rfft=True)[:, 1024:-1024], 5e-6),
+        ("SpectralGate(128, 128)", lambda x, d: SpectralGate(
+            128, 128, device=d)(x) * _gate_norm(128, 128, x.shape[-1], d),
+         5e-6),
+        ("SpectralGate(128, 24)", lambda x, d: SpectralGate(
+            128, 24, device=d)(x) * _gate_norm(128, 24, x.shape[-1], d),
+         5e-6),
+        ("MFCCFrontend(128, 24)", lambda x, d: MFCCFrontend(
+            128, 24, device=d)(x), 5e-4),
+    ]
+
+
+@pytest.mark.parametrize("index", range(8))
+def test_xla_routes_run_on_card(dev, gen, index):
+    """Each call of the "torch" route on the card: its CPU result, and no
+    kernel launched (MFCCs: 5e-4 absolute)."""
+    name, call, tol = _routed_calls()[index]
+    x = torch.as_tensor(gen.standard_normal((2, 9000)), dtype=torch.float32)
+    before = [f.launches for f in _counters()]
+    got = call(x.to(dev), dev)
+    torch.cuda.synchronize()
+    assert [f.launches for f in _counters()] == before, name
+    want = call(x, "cpu")
+    if got.is_complex():
+        got, want = torch.view_as_real(got), torch.view_as_real(want)
+    if name.startswith("MFCC"):
+        assert (got.cpu() - want).abs().max().item() < tol, name
+    else:
+        assert _rel(got, want) < tol, name
+
+
+def test_fused_head_torch_route_on_card(dev, gen, monkeypatch):
+    """A head the plan finds no layout for (a 1 KiB budget) runs
+    upfirdn_tall on the card, launches nothing and gives the CPU result
+    (the resampler limit, 1e-5 of max |y|)."""
+    x = torch.as_tensor(gen.standard_normal((2, 9000)), dtype=torch.float32)
+    h = NorthStarChain(device="cpu").fir_coeffs
+    try:
+        _budget(monkeypatch, 1024)
+        before = [f.launches for f in _counters()]
+        got = trs.fir_resample_fused(h, x.to(dev), 4, 3)
+        torch.cuda.synchronize()
+        assert [f.launches for f in _counters()] == before
+        assert _rel(got, trs.fir_resample_fused(h, x, 4, 3)) < 1e-5
+    finally:
+        tmp._upfirdn_search.cache_clear()
+
+
+def test_reconstruct_off_the_lattice_is_deterministic_on_card(dev, gen):
+    """1024/384 takes the dense overlap-add: two calls, the same bits."""
+    x = torch.as_tensor(gen.standard_normal((4, 48000)), dtype=torch.float32,
+                        device=dev)
+    plan = STFT(1024, 384)
+    spec = plan.process(x, rfft=True)
+    a = plan.reconstruct(spec, 48000, rfft=True)
+    b = plan.reconstruct(spec, 48000, rfft=True)
+    assert torch.equal(a, b)
+    assert (a - x)[:, 1024:-1024].abs().max().item() < 3e-5

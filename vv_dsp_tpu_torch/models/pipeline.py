@@ -156,6 +156,15 @@ class NorthStarChain(nn.Module):
                                    self.stft_algorithm)
 
 
+def gate_route(nfft: int, hop: int) -> str:
+    """SpectralGate's route: "full_nfft" (the fused full-nfft gate
+    kernel), "split" (the packed spectrum kernel, then the inverse kernel
+    with the gate) or "torch"."""
+    if _stk.takes_stockham_gate(nfft, hop):
+        return "full_nfft"
+    return "split" if _ik.istft_supported(nfft, hop) else "torch"
+
+
 class SpectralGate(nn.Module):
     """The reference's end-to-end benchmark pipeline: frame -> window ->
     FFT -> spectral magnitude gate -> IFFT -> OLA
@@ -166,14 +175,16 @@ class SpectralGate(nn.Module):
     sample of the signal has full window coverage (at the edges the w^2
     norm goes to 0, and dividing a gated frame by it would amplify the
     error without bound), and the output is cut back to the input's
-    length. On a CUDA tensor it runs the spectrum kernel (one-sided) and
-    then the inverse kernel with the gate; where the JAX package takes its
-    fused full-nfft gate kernel (``stockham_kernels.takes_stockham_gate``:
-    nfft = 128, or hop = 8) it runs the one fused gate kernel, whose peak
-    and mask cover all nfft bins of the two-sided spectrum, as there.
-    params: ``{"window": float64
-    (nfft,)}``, e.g. ``convert.gate_params_from_reference``; the named
-    window when None.
+    length. The route is ``gate_route``'s: on a CUDA tensor the spectrum
+    kernel (one-sided) and then the inverse kernel with the gate; where
+    the JAX package takes its fused full-nfft gate kernel
+    (``stockham_kernels.takes_stockham_gate``: nfft = 128, or hop = 8) the
+    one fused gate kernel, whose peak and mask cover all nfft bins of the
+    two-sided spectrum, as there; where neither kernel takes the geometry
+    (128/128, 128/24, a hop not dividing nfft), the plain version on any
+    device, as the JAX package runs XLA there. params: ``{"window":
+    float64 (nfft,)}``, e.g. ``convert.gate_params_from_reference``; the
+    named window when None.
     """
 
     def __init__(self, nfft: int = 1024, hop: int = 256,
@@ -214,7 +225,8 @@ class SpectralGate(nn.Module):
                             stft_num_frames(n_pad, nfft, hop), n_pad,
                             x.device)
 
-        if _stk.takes_stockham_gate(nfft, hop):
+        route = gate_route(nfft, hop)
+        if route == "full_nfft":
             fast = lambda xv: _stk.stft_gate_stockham(xv, nfft, hop, win,
                                                       norm, t)
             plain = lambda xv: _stk.stft_gate_stockham_plain(xv, nfft, hop,
@@ -229,7 +241,10 @@ class SpectralGate(nn.Module):
                                                onesided=True)
                 return _ik.istft_plain(spec, nfft, hop, n_pad, win, norm, t)
 
-        out = kernel_with_torch_vjp(fast, plain)(xp)
+        if route == "torch":
+            out = plain(xp)
+        else:
+            out = kernel_with_torch_vjp(fast, plain)(xp)
         return out[..., pad:pad + n]
 
 

@@ -1,13 +1,18 @@
 """FIR design and application (counterpart of ``vv_dsp_tpu/ops/fir.py``):
 the windowed-sinc lowpass h[n] = 2 fc sinc(2 fc (n - (N-1)/2)) * w[n], built
 on the host in float64, and causal filtering y[i] = sum_k h[k] x[i-k] with
-zero initial history (``scipy.signal.lfilter(h, [1], x)``) in two plain
-forms with the same numbers:
+zero initial history (``scipy.signal.lfilter(h, [1], x)``) in four forms
+with the same function:
 
 - ``fir_apply``: one ``conv1d`` (a cross-correlation with the taps flipped,
   after taps-1 left zeros), TF32 pinned off by ``config``;
 - ``fir_apply_mxu``: block-Toeplitz matmuls, the JAX package's middle route
-  of ``fir_apply_best`` (``ops/filter_kernels.py``).
+  of ``fir_apply_best`` (``ops/filter_kernels.py``);
+- ``fir_apply_fft``: one rfft product over the whole signal;
+- ``fir_apply_os``: blocked overlap-save rfft products.
+
+``filtfilt_fir`` is the zero-phase form: symmetric padding, the causal
+conv forward and then backward.
 
 Taps come as numpy (a host constant) or as a tensor; a tensor that requires
 grad stays differentiable through both.
@@ -20,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from vv_dsp_tpu_torch import config
+from vv_dsp_tpu_torch.ops import fft as _fft
 from vv_dsp_tpu_torch.ops.window import get_window_np
 
 
@@ -35,6 +41,15 @@ def design_lowpass_np(num_taps: int, cutoff: float,
     m = n - alpha
     h = 2.0 * cutoff * np.sinc(2.0 * cutoff * m)  # np.sinc is sin(pi x)/(pi x)
     return h * get_window_np(window, num_taps)
+
+
+def design_lowpass(num_taps: int, cutoff: float, window: str = "hamming",
+                   dtype=None, device="cuda") -> torch.Tensor:
+    """Windowed-sinc lowpass (vv_dsp_fir_design_lowpass,
+    src/filter/fir.c:47-73) as a tensor on `device`, the card unless the
+    caller names another; cutoff in (0, 1), unit gain at DC."""
+    return torch.as_tensor(design_lowpass_np(num_taps, cutoff, window),
+                           dtype=config.real_dtype(dtype), device=device)
 
 
 def taps_like(h, x: torch.Tensor) -> torch.Tensor:
@@ -112,3 +127,56 @@ def fir_apply_mxu(h, x: torch.Tensor, chunk: int = 128) -> torch.Tensor:
             term = F.pad(term[..., :nb - j, :], (0, 0, j, 0))
         y = term if y is None else y + term
     return y.reshape(batch + (nb * c,))[..., :n]
+
+
+def fir_apply_fft(h, x: torch.Tensor) -> torch.Tensor:
+    """Whole-signal linear convolution by rfft, cut to len(x)
+    (vv_dsp_fir_apply_fft, src/filter/fir.c:75-135)."""
+    x = config.as_compute(x)
+    h = taps_like(h, x)
+    n = x.shape[-1]
+    nfft = _fft.next_pow2(n + h.shape[-1] - 1)
+    y = _fft.irfft(_fft.rfft(x, nfft) * _fft.rfft(h, nfft), nfft)
+    return y[..., :n]
+
+
+def fir_apply_os(h, x: torch.Tensor,
+                 block_size: int | None = None) -> torch.Tensor:
+    """Overlap-save blocked rfft convolution, the function of fir_apply:
+    each block of `block_size` outputs comes from a segment of
+    block_size + taps - 1 inputs (taps - 1 of history), transformed at
+    nfft = next_pow2(block_size + taps - 1). The default block fills a
+    transform of max(4096, next_pow2(2 taps)) points, the JAX package's."""
+    x = config.as_compute(x)
+    h = taps_like(h, x)
+    taps = h.shape[-1]
+    n = x.shape[-1]
+    if block_size is None:
+        block_size = max(4096, _fft.next_pow2(2 * taps)) - taps + 1
+    nfft = _fft.next_pow2(block_size + taps - 1)
+    n_blocks = -(-n // block_size)
+    xp = F.pad(x, (taps - 1, n_blocks * block_size - n))
+    segs = xp.unfold(-1, block_size + taps - 1, block_size)
+    y = _fft.irfft(_fft.rfft(segs, nfft) * _fft.rfft(h, nfft), nfft)
+    y = y[..., taps - 1:taps - 1 + block_size]     # each block's valid part
+    return y.reshape(x.shape[:-1] + (n_blocks * block_size,))[..., :n]
+
+
+def filtfilt_fir(h, x: torch.Tensor) -> torch.Tensor:
+    """Zero-phase FIR (vv_dsp_filtfilt_fir, src/filter/common.c:23-80):
+    pad taps - 1 samples at each end by symmetric reflection (numpy's
+    'symmetric'), filter forward, filter the reversed result, reverse it
+    back and cut the padding."""
+    x = config.as_compute(x)
+    taps = taps_like(h, x).shape[-1]
+    pad = taps - 1
+    if pad and x.shape[-1] < pad:
+        raise ValueError(
+            f"filtfilt_fir needs len(x) >= num_taps - 1 = {pad} "
+            f"(got {x.shape[-1]}); scipy.filtfilt has the same padlen rule")
+    ext = x
+    if pad:
+        ext = torch.cat([x[..., :pad].flip(-1), x, x[..., -pad:].flip(-1)],
+                        dim=-1)
+    y = fir_apply(h, fir_apply(h, ext).flip(-1)).flip(-1)
+    return y[..., pad:y.shape[-1] - pad]

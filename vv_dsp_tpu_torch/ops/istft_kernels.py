@@ -81,14 +81,9 @@ def overlap_add_normalized(time: torch.Tensor, window: torch.Tensor,
                            hop: int, output_len: int,
                            norm: torch.Tensor) -> torch.Tensor:
     """(..., frames, nfft) inverse frames -> (..., output_len): window,
-    overlap-add, divide by the guarded norm. Where hop divides nfft (every
-    geometry the kernel takes) the overlap-add is the strided form: dense
-    adds, deterministic on a CUDA tensor (the scatter-add's index_add_ is
-    not) and differentiable without a scatter. Other geometries, which
-    only CPU tensors reach, take the scatter-add."""
-    ola = (framing.overlap_add_strided if time.shape[-1] % hop == 0
-           else framing.overlap_add)
-    return ola(time * window, hop, output_len) / norm
+    overlap-add (``framing.overlap_add``: shifted dense adds at any hop,
+    deterministic on a CUDA tensor), divide by the guarded norm."""
+    return framing.overlap_add(time * window, hop, output_len) / norm
 
 
 def gate_plain(spec: torch.Tensor, gate_threshold: float) -> torch.Tensor:
@@ -188,8 +183,9 @@ def periodic_norm(window, hop: int, n: int, device) -> torch.Tensor:
 
 
 def _gate_tier(algorithm: str | None) -> None:
-    """The fused gate computes float32; it names no other tier."""
-    if config.dot_algorithm(algorithm) != "f32":
+    """The fused gate computes float32, under any matmul-precision knob;
+    naming another tier raises."""
+    if algorithm is not None and config.dot_algorithm(algorithm) != "f32":
         raise ValueError(f"stft_gate_packed computes float32; tier "
                          f"{algorithm!r} is not available")
 

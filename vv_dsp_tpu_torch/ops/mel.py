@@ -7,8 +7,9 @@ numpy float64 builders. ``mfcc_stft`` goes through the fused STFT -> mel
 -> log -> DCT kernel wrapper (ops/stft_kernels.py, or
 ops/stockham_kernels.py on the JAX package's full-nfft route), wrapped
 so that its gradient is the plain version's: a CPU tensor runs the plain
-version, a CUDA tensor the kernel, which raises at a geometry it does not
-take.
+version, a CUDA tensor the kernel. Where neither kernel takes the
+geometry (``mel_route``), it runs the plain version on any device, as the
+JAX package runs XLA there.
 """
 
 from __future__ import annotations
@@ -201,6 +202,15 @@ def _mfcc_constants(nfft: int, n_mels: int, n_coeffs: int, sample_rate: float,
                           window, window_param, device) + (dct,)
 
 
+def mel_route(nfft: int, hop: int) -> str:
+    """The fused mel/MFCC route: "full_nfft" where the JAX package takes
+    its full-nfft kernel (``stockham_kernels.takes_stockham``), "packed"
+    where the packed kernel takes the geometry, else "torch"."""
+    if _stk.takes_stockham(nfft, hop):
+        return "full_nfft"
+    return "packed" if _sk.stft_supported(nfft, hop) else "torch"
+
+
 def mfcc_stft_with(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
                    mel_fb: torch.Tensor, bands: torch.Tensor,
                    dct: torch.Tensor | None, log_epsilon: float = 1e-10,
@@ -212,7 +222,9 @@ def mfcc_stft_with(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
     (..., frames, n_mels) when dct is None. Where the JAX package takes its
     full-nfft kernel (``stockham_kernels.takes_stockham``: nfft = 128, or
     hop = 8) the port does too, and the contractions are float32 whatever
-    `algorithm` names, as there; elsewhere the packed kernel honours it."""
+    `algorithm` names, as there; the packed kernel honours it; the "torch"
+    route (``mel_route``) runs its products at the knob's tier, as the
+    JAX package's XLA route does."""
     x = config.as_compute(x)
     if x.is_complex():
         raise TypeError("mfcc_stft requires real input")
@@ -223,7 +235,11 @@ def mfcc_stft_with(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
         return y.reshape(lead + y.shape[-2:])
     if x.dtype != torch.float32:
         x = x.float()
-    if _stk.takes_stockham(nfft, hop):
+    route = mel_route(nfft, hop)
+    if route == "torch":
+        return _sk.stft_mfcc_plain(x, nfft, hop, window, mel_fb, dct,
+                                   log_epsilon, None)
+    if route == "full_nfft":
         # the JAX package's full-nfft route takes no tier: float32
         fast = lambda xv: _stk.stft_mel_stockham(xv, nfft, hop, window,
                                                  mel_fb, bands, dct,

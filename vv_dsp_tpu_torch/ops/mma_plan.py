@@ -183,10 +183,30 @@ def _largest_k_chunk(parts, n_tiles, stride, m_tiles, hankel, k16):
     return 0
 
 
-@functools.lru_cache(maxsize=64)
 def upfirdn_plan(up: int, down: int, taps_pp: int, offset: int,
                  algorithm: str) -> UpfirdnPlan:
-    """The kernel's tile geometry for one launch.
+    """The kernel's tile geometry for one launch (``_upfirdn_search``);
+    raises where no layout fits a block (``upfirdn_fits`` is False)."""
+    p = _upfirdn_search(up, down, taps_pp, offset, algorithm)
+    if p is None:
+        raise ValueError(f"upfirdn_plan: no layout of {up}/{down} with "
+                         f"{taps_pp} taps a phase fits a block")
+    return p
+
+
+def upfirdn_fits(up: int, down: int, taps_pp: int, offset: int,
+                 algorithm: str) -> bool:
+    """Whether the kernel has a layout for this geometry: the search of
+    ``upfirdn_plan``, without raising. Every geometry of realistic size
+    has one (at worst one column tile a block, a 16-deep chunk and A's rows
+    copied: 9,936 bytes of shared memory at the f32 tier)."""
+    return _upfirdn_search(up, down, taps_pp, offset, algorithm) is not None
+
+
+@functools.lru_cache(maxsize=64)
+def _upfirdn_search(up: int, down: int, taps_pp: int, offset: int,
+                    algorithm: str) -> UpfirdnPlan | None:
+    """The kernel's tile geometry for one launch, or None.
 
     Frames: A's rows must start on 16-byte boundaries for ldmatrix, so
     stride = group * down is a multiple of 8; an odd multiple keeps the 8
@@ -263,8 +283,7 @@ def upfirdn_plan(up: int, down: int, taps_pp: int, offset: int,
     pick = next((i for i, d in enumerate(depths) if d >= min(256, k16)),
                 int(np.argmax(depths)))
     if depths[pick] == 0:
-        raise ValueError(f"upfirdn_plan: no layout of {up}/{down} with "
-                         f"{taps_pp} taps a phase fits a block")
+        return None
     n_tiles, col_blocks, hankel, _ = options[pick]
     chunks = -(-k16 // depths[pick])
     k_chunk = _round_up(-(-k16 // chunks), 16)

@@ -1,5 +1,13 @@
-"""Polyphase resampling and the fused FIR + resample head (counterpart of
-``vv_dsp_tpu/ops/resample.py``).
+"""Resampling (counterpart of ``vv_dsp_tpu/ops/resample.py``): the
+reference's linear and windowed-sinc resamplers, polyphase resampling and
+the fused FIR + resample head.
+
+The reference's resamplers (src/resample/resampler.c) give
+floor((n-1) L/M) + 1 outputs; output k reads input position k M / L with
+the edge samples held (``interpolate_linear``, ``interpolate_catmull_rom``);
+``resample_sinc`` weighs ``taps`` inputs around floor(k M / L) by the
+windowed sinc of its phase k mod L (``_sinc_phase_table``), a gather and a
+per-phase dot.
 
 Host constants (``_resample_poly_filter``, ``_fused_fir_resample_filter``,
 ``_staged_tail_matrix``, ``_upfirdn_conv_plan``, ``_factor_stages``) are
@@ -15,8 +23,9 @@ y[k] = sum_j x[j] h[offset + k*down - j*up] with the same numbers:
   ``up``.
 
 ``fir_resample_fused`` runs one banded upfirdn (ops/upfirdn.py) with the
-composite filter, then recomputes the last outputs exactly as the staged
-pair resample_poly(fir_apply(h, x)) defines them.
+composite filter (``upfirdn_tall`` where ``head_route`` finds the kernel
+no layout), then recomputes the last outputs exactly as the staged pair
+resample_poly(fir_apply(h, x)) defines them.
 """
 
 from __future__ import annotations
@@ -29,12 +38,102 @@ import torch
 import torch.nn.functional as F
 
 from vv_dsp_tpu_torch import config
+from vv_dsp_tpu_torch.ops import mma_plan
 from vv_dsp_tpu_torch.ops.fir import fir_apply, fir_apply_mxu
 from vv_dsp_tpu_torch.ops.upfirdn import (polyphase_table, upfirdn_banded,
                                           upfirdn_tall)
 from vv_dsp_tpu_torch.ops.window import get_window_np
 from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
 from vv_dsp_tpu_torch.utils.shapes import collapse_leading
+
+
+def _positions(pos, x: torch.Tensor) -> torch.Tensor:
+    """Fractional positions as a tensor of x's dtype on x's device, held to
+    [0, n-1]."""
+    pos = torch.as_tensor(pos, dtype=x.dtype, device=x.device)
+    return pos.clamp(0.0, float(x.shape[-1] - 1))
+
+
+def interpolate_linear(x: torch.Tensor, pos) -> torch.Tensor:
+    """Linear interpolation at fractional positions; pos <= 0 -> x[0],
+    pos >= n-1 -> x[-1] (src/resample/interpolate.c:4-21)."""
+    x = config.as_compute(x)
+    n = x.shape[-1]
+    pos = _positions(pos, x)
+    i0 = torch.floor(pos).long()
+    i1 = torch.clamp(i0 + 1, max=n - 1)
+    frac = pos - i0
+    return x[..., i0] * (1 - frac) + x[..., i1] * frac
+
+
+def interpolate_catmull_rom(x: torch.Tensor, pos) -> torch.Tensor:
+    """Catmull-Rom cubic with the neighbours held at the edges
+    (src/resample/interpolate.c:23-64)."""
+    x = config.as_compute(x)
+    n = x.shape[-1]
+    pos = _positions(pos, x)
+    i1 = torch.floor(pos).long()
+    t = pos - i1
+    p0, p1, p2, p3 = (x[..., torch.clamp(i1 + d, 0, n - 1)]
+                      for d in (-1, 0, 1, 2))
+    t2 = t * t
+    t3 = t2 * t
+    return 0.5 * (2 * p1 + (-p0 + p2) * t
+                  + (2 * p0 - 5 * p1 + 4 * p2 - p3) * t2
+                  + (-p0 + 3 * p1 - 3 * p2 + p3) * t3)
+
+
+def output_length(n: int, l: int, m: int) -> int:
+    """floor((n-1) * L/M) + 1 (src/resample/resampler.c:73)."""
+    return (n - 1) * l // m + 1
+
+
+def resample_linear(x: torch.Tensor, l: int, m: int) -> torch.Tensor:
+    """Linear-interpolation rational resampler (the reference's linear
+    path)."""
+    x = config.as_compute(x)
+    k = np.arange(output_length(x.shape[-1], l, m), dtype=np.float64)
+    return interpolate_linear(x, k * m / l)
+
+
+@functools.lru_cache(maxsize=64)
+def _sinc_phase_table(l: int, m: int, taps: int) -> np.ndarray:
+    """(L, taps) float64 windowed-sinc weights of the L fractional phases:
+    output k has phase k mod L, whose fraction frac(k M / L) =
+    (k M mod L) / L depends on it alone. Weights as
+    src/resample/resampler.c:95-118: t = idx - in_pos, sinc(t cutoff) times
+    a Hann window over the taps (N-1 denominator), cutoff = min(1, L/M),
+    normalized by their sum."""
+    cutoff = min(1.0, l / m)
+    half = taps // 2
+    win = get_window_np("hann", taps)
+    rows = np.zeros((l, taps), dtype=np.float64)
+    offs = np.arange(-half, taps - half, dtype=np.float64)
+    for r in range(l):
+        w = np.sinc((offs - (r * m % l) / l) * cutoff) * win
+        s = w.sum()
+        rows[r] = w / s if s != 0.0 else w
+    return rows
+
+
+def resample_sinc(x: torch.Tensor, l: int, m: int,
+                  taps: int = 32) -> torch.Tensor:
+    """Windowed-sinc rational resampler, the reference's semantics
+    (src/resample/resampler.c:88-119): taps held to an even count in
+    [4, 128], input indices held to [0, n-1]; a gather of each output's
+    taps and a dot with its phase's weights."""
+    x = config.as_compute(x)
+    taps = int(np.clip(taps, 4, 128))
+    taps += taps % 2
+    n = x.shape[-1]
+    k = np.arange(output_length(n, l, m))
+    half = taps // 2
+    idx = np.clip((k * m // l)[:, None]
+                  + np.arange(-half, taps - half)[None, :], 0, n - 1)
+    w = torch.as_tensor(_sinc_phase_table(l, m, taps)[k % l], dtype=x.dtype,
+                        device=x.device)
+    gathered = x[..., torch.as_tensor(idx, device=x.device)]
+    return torch.einsum("...ot,ot->...o", gathered, w)
 
 
 @functools.lru_cache(maxsize=64)
@@ -239,6 +338,19 @@ def _tail_weights(fir_key: bytes, up: int, down: int, offset: int, n_in: int,
     return torch.as_tensor(wt, device=device), jw0
 
 
+def head_route(up: int, down: int, taps_pp: int, offset: int,
+               algorithm: str | None) -> str:
+    """The fused head's route: "banded" (kernel 1 on a CUDA tensor, its
+    plain version on the CPU) wherever ``mma_plan.upfirdn_fits`` finds the
+    kernel a layout, which covers ``banded_supported``'s geometries and
+    beyond; else "torch", ``upfirdn_tall`` in the JAX package's frame
+    group."""
+    if mma_plan.upfirdn_fits(up, down, taps_pp, offset,
+                             config.dot_algorithm(algorithm)):
+        return "banded"
+    return "torch"
+
+
 def fir_resample_fused(h_fir, x: torch.Tensor, up: int, down: int,
                        algorithm: str | None = None,
                        taps: torch.Tensor | None = None) -> torch.Tensor:
@@ -268,11 +380,17 @@ def fir_resample_fused(h_fir, x: torch.Tensor, up: int, down: int,
     staged_tail = 0 < n_tail <= 1024 and m0 > 0
     if taps is None:
         taps = polyphase_table(gf, up, x.device)
-    y = kernel_with_torch_vjp(
-        lambda xv: upfirdn_banded(xv, taps, up, down, offset, n_out,
-                                  algorithm),
-        lambda xv: upfirdn_tall(xv, taps, up, down, offset, n_out, "f32"),
-    )(x)
+    taps_pp = taps.shape[1]
+    if head_route(up, down, taps_pp, offset, algorithm) == "banded":
+        y = kernel_with_torch_vjp(
+            lambda xv: upfirdn_banded(xv, taps, up, down, offset, n_out,
+                                      algorithm),
+            lambda xv: upfirdn_tall(xv, taps, up, down, offset, n_out, "f32"),
+        )(x)
+    else:
+        # the JAX package's XLA route: the tall-frames matmul in its frame
+        # group (``upfirdn.default_group``), at the knob's tier
+        y = upfirdn_tall(x, taps, up, down, offset, n_out, None)
     if staged_tail:
         # the staged definition for the few outputs whose window crosses the
         # FIR's end collapses to a small dense matmul over the input's tail

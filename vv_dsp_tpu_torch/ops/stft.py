@@ -7,18 +7,22 @@ forward transform is the unscaled FFT of the windowed frame. The inverse
 is the 1/nfft-scaled inverse of each frame, windowed, overlap-added and
 divided by the w^2 overlap-add norm (values <= 1e-12 replaced by 1).
 
-Each entry point goes through its kernel wrapper (``process`` and
-``process_packed``: the spectrum kernel; ``power``: the power kernel;
-``reconstruct`` and ``reconstruct_packed``: the inverse kernel), wrapped
-so that its gradient is the plain version's: a CPU tensor runs the plain
-version, a CUDA tensor the kernel, which raises at a geometry or dtype it
-does not take (complex input to the forward kernels included). ``process``
-and ``power`` pick the kernel as the JAX package does on the TPU: the
-full-nfft kernels (``stockham_kernels``) where ``takes_stockham`` holds
-(nfft = 128 for ``power``, hop = 8), the packed ones everywhere else.
-At nfft = 128, where the JAX package runs ``process`` and ``reconstruct``
-on XLA and the packed kernels do not reach, both take the full-nfft
-kernels (``takes_stockham_128``): the same numbers, on the card.
+Each entry point picks its route from the geometry alone
+(``spectrum_route``, ``power_route``, ``inverse_route``), as the JAX
+package does on the TPU: the full-nfft kernels (``stockham_kernels``)
+where ``takes_stockham`` holds (nfft = 128 for ``power``, hop = 8), the
+packed kernels where they take the geometry, and "torch" where the JAX
+package runs XLA: the plain version, ``torch.fft`` and dense adds, on
+any device (a non-power-of-two nfft, one off both kernels' lattices,
+complex input, an inverse whose hop does not divide nfft). A kernel route
+goes through the kernel wrapper, wrapped so that its gradient is the
+plain version's: a CPU tensor runs the plain version, a CUDA tensor the
+kernel, which raises at what it does not take. Two routes reach past the
+JAX package's kernels: at nfft = 128, where it runs ``process`` and
+``reconstruct`` on XLA, both take the full-nfft kernels
+(``takes_stockham_128``), and the packed forward and inverse kernels take
+every hop of their nfft range (``stft_kernels.stft_supported``,
+``istft_kernels.istft_supported``): the same numbers, on the card.
 
 The framing-free parts (``power_parts``, ``reconstruct_parts``, and the
 mel functions of ``ops/mel.py`` built on them) are plain matrix products
@@ -46,6 +50,33 @@ from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
 @functools.lru_cache(maxsize=32)
 def _window_on(name: str, n: int, param, device: torch.device) -> torch.Tensor:
     return get_window(name, n, param, device=device)
+
+
+def spectrum_route(nfft: int, hop: int, is_complex: bool) -> str:
+    """``process``'s route: "full_nfft", "packed" or "torch"."""
+    if is_complex:
+        return "torch"
+    if (_stk.takes_stockham(nfft, hop, min_nfft=512)
+            or _stk.takes_stockham_128(nfft, hop)):
+        return "full_nfft"
+    return "packed" if _sk.stft_supported(nfft, hop) else "torch"
+
+
+def power_route(nfft: int, hop: int, is_complex: bool) -> str:
+    """``power``'s route: "full_nfft", "packed" or "torch" (which raises
+    on complex input, as the JAX package's does)."""
+    if is_complex:
+        return "torch"
+    if _stk.takes_stockham(nfft, hop):
+        return "full_nfft"
+    return "packed" if _sk.stft_supported(nfft, hop) else "torch"
+
+
+def inverse_route(nfft: int, hop: int) -> str:
+    """``reconstruct``'s route: "full_nfft", "packed" or "torch"."""
+    if _stk.takes_stockham_128(nfft, hop):
+        return "full_nfft"
+    return "packed" if _ik.istft_supported(nfft, hop) else "torch"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,12 +116,11 @@ class STFT:
             y = self.process(x.reshape(-1, x.shape[-1]), rfft)
             return y.reshape(lead + y.shape[-2:])
         win = self.win(x.device)
-        # the JAX package's route: packed kernels, else the full-nfft one
-        # from nfft 512 up (and at nfft 128), else the packed kernels (which
-        # raise on a CUDA tensor where they do not take the geometry)
-        full = (_stk.takes_stockham(self.nfft, self.hop, min_nfft=512)
-                or _stk.takes_stockham_128(self.nfft, self.hop))
-        spectrum = (_stk.stft_spectrum_stockham if full
+        route = spectrum_route(self.nfft, self.hop, x.is_complex())
+        if route == "torch":
+            return _sk.stft_spectrum_plain(x, self.nfft, self.hop, win,
+                                           onesided=rfft)
+        spectrum = (_stk.stft_spectrum_stockham if route == "full_nfft"
                     else _sk.stft_spectrum)
         return kernel_with_torch_vjp(
             lambda xv: spectrum(xv, self.nfft, self.hop, win, onesided=rfft),
@@ -108,8 +138,10 @@ class STFT:
             y = self.power(x.reshape(-1, x.shape[-1]))
             return y.reshape(lead + y.shape[-2:])
         win = self.win(x.device)
-        power = (_stk.stft_power_stockham
-                 if _stk.takes_stockham(self.nfft, self.hop)
+        route = power_route(self.nfft, self.hop, x.is_complex())
+        if route == "torch":
+            return _sk.stft_power_plain(x, self.nfft, self.hop, win)
+        power = (_stk.stft_power_stockham if route == "full_nfft"
                  else _sk.stft_power)
         return kernel_with_torch_vjp(
             lambda xv: power(xv, self.nfft, self.hop, win),
@@ -161,9 +193,11 @@ class STFT:
         -> (..., output_len), bins = nfft//2+1 with rfft=True, else nfft.
         Only bins 0..nfft//2 are read, as the JAX package's packed inverse
         does, so with rfft=False the spectrum is taken to be Hermitian
-        (the spectrum of a real signal). At nfft = 128 the full-nfft
-        inverse (``stockham_kernels.istft_stockham``) takes the half
-        spectrum in its rfft=True form; elsewhere the packed inverse."""
+        (the spectrum of a real signal), on every route. At nfft = 128 the
+        full-nfft inverse (``stockham_kernels.istft_stockham``) takes the
+        half spectrum in its rfft=True form; where hop divides a power of
+        two nfft in [256, 4096], the packed inverse; elsewhere the plain
+        version (irfft, then the deterministic overlap-add)."""
         if spec.ndim != 3:
             lead = spec.shape[:-2]
             out = self.reconstruct(spec.reshape((-1,) + spec.shape[-2:]),
@@ -178,7 +212,11 @@ class STFT:
         half = (spec if rfft else spec[..., :m + 1]).contiguous()
         win = self.win(spec.device)
         norm = self._norm(spec.shape[-2], output_len, spec.device)
-        if _stk.takes_stockham_128(self.nfft, self.hop):
+        route = inverse_route(self.nfft, self.hop)
+        if route == "torch":
+            return _ik.istft_plain(half, self.nfft, self.hop, output_len,
+                                   win, norm)
+        if route == "full_nfft":
             fast = lambda sp: _stk.istft_stockham(
                 sp, self.nfft, self.hop, output_len, win, norm, rfft=True)
         else:

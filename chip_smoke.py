@@ -102,7 +102,28 @@ Phases, each fatal on failure:
    oracles on 2 channels (SpectralGate on a probe input whose every bin
    lies far from the threshold, and the packed fused gate on the same
    probe), the staged chain against the fused one, the roundtrips and
-   both inverses against their input; then the throughput of each row.
+   both inverses against their input; then the throughput of each row;
+5. analysis and streaming: the tier the JAX package runs without a Pallas
+   kernel, in plain PyTorch on the card, each path with the counters
+   zeroed just before it and read just after, launching no kernel:
+   iir_apply of butter_sos(4, 0.2) (the block state-space path) and of
+   butter_sos(18, 0.2) (9 sections: the per-section scan), filtfilt_sos,
+   lfilter at order 2 (one biquad scan) and 6, the IIR stream in blocks
+   of 1,536, the analytic signal and the envelope on (16, 479232), the
+   instantaneous frequency of a 1 kHz tone, the CZT at m = 4,096 on
+   (16, 4096) and on the 479,232 samples cut into (1872, 4096) segments,
+   a 512-point zoom CZT, cepstrum_real on (16, 4096), lpc(x, 16), and
+   StreamingNorthStar() on (16, 491520) in blocks of 1,536, 6,144 and
+   24,576 with its flush; then its offline composition (fir_apply ->
+   resample_poly of the zero-led signal -> STFT(2048, 512).power -> mfcc),
+   which launches the packed power kernel once. Each is held to float64
+   scipy/numpy on 2 channels (the IIR at scipy's 3e-3, the analytic
+   signal at 1e-4 absolute, the CZT at tests/test_czt.py's tolerances),
+   the IIR stream and the streamed chain also to their offline forms on
+   the card; a checkpoint of the stream's state saved half way and loaded
+   back on the card must continue bit for bit. Each row prints its
+   CUDA-event time, its wall time (a block's, for the streams), input-rate
+   Msamples/s and the device's idle share under torch.profiler.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, without a
 CUDA device or outside a checkout of the repository.
@@ -201,6 +222,29 @@ FILTER_TIER_TAPS = 1024
 # absolute), the frames equal, the overlap-add and phase unwrap 1e-6 and
 # 1e-5 (a 479,232-sample cumulative sum), the FFT class 5e-5
 CORE_TOL = 1e-5
+# the analysis, IIR and streaming phase: plain PyTorch on the card (no
+# kernel of the port, as the JAX package runs no Pallas kernel there). The
+# streamed chain takes 491,520 samples a channel in blocks of 1,536, 6,144
+# and 24,576 (benchmarks/bench_streaming.py); CZT rows at m = 4,096 on 16
+# rows and on the 479,232 samples cut into 117 segments a channel
+N_STREAM = 491520
+STREAM_BLOCKS = (1536, 6144, 24576)
+CZT_M = 4096
+# against float64 scipy/numpy, of max |value| unless named otherwise: the
+# IIR's scipy contract (tests/test_iir.py), a stream against the offline op
+# (tests/test_streaming.py), the analytic signal 1e-4 absolute on
+# unit-variance input (tests/test_hilbert.py), the CZT's rtol and atol (of
+# max) on the DFT contour and on a zoom band (tests/test_czt.py), LPC at
+# order 16 1e-4 (tests/test_torch_analysis.py), the streamed chain at rtol
+# and atol 2e-3 against its offline composition (tests/test_streaming.py)
+# and ORACLE_TOL against float64
+IIR_TOL = 3e-3
+IIR_STREAM_TOL = 2e-4
+HILBERT_TOL = 1e-4
+CZT_DFT_TOL = (1e-3, 2e-4)
+CZT_ZOOM_TOL = (2e-3, 2e-3)
+LPC_TOL = 1e-4
+STREAM_TOL = 2e-3
 # the plan budget under which no upfirdn layout fits a block (the least
 # takes 1,296 bytes: a Hankel window of stride 8 at the bf16 tier): the
 # fused head's "torch" route, which no geometry of realistic size reaches
@@ -1990,23 +2034,11 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
     from vv_dsp_tpu_torch.ops import savgol as sg
     from vv_dsp_tpu_torch.ops import stft_kernels as sk
     from vv_dsp_tpu_torch.ops import stockham_kernels as stk
-    from vv_dsp_tpu_torch.ops import upfirdn as uf
     from vv_dsp_tpu_torch.ops.fir import design_lowpass_np
     from vv_dsp_tpu_torch.ops.stft import STFT
     from vv_dsp_tpu_torch.ops.window import get_window_np
 
-    counters = {"upfirdn_banded": uf.upfirdn_banded,
-                "stft_mfcc": sk.stft_mfcc, "stft_spectrum": sk.stft_spectrum,
-                "stft_power": sk.stft_power, "istft": ik.istft,
-                "stft_power_stockham": stk.stft_power_stockham,
-                "stft_mel_stockham": stk.stft_mel_stockham,
-                "stft_gate_stockham": stk.stft_gate_stockham,
-                "stft_spectrum_stockham": stk.stft_spectrum_stockham,
-                "fir_direct": fk.fir_direct,
-                "poly_kernel": fk.resample_poly_kernel,
-                "stft_power_dft": sk.stft_power_dft,
-                "istft_stockham": stk.istft_stockham,
-                "stft_gate_packed": ik.stft_gate_packed}
+    counters = kernel_counters()
     plan = STFT(NFFT, HOP)
     gate = SpectralGate()
     firs = {taps: design_lowpass_np(taps, 0.3) for taps in FIR_TAPS}
@@ -2236,6 +2268,368 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
     return launches
 
 
+def kernel_counters() -> dict:
+    """The 14 kernel wrappers by name, each counting its launches."""
+    from vv_dsp_tpu_torch.ops import filter_kernels as fk
+    from vv_dsp_tpu_torch.ops import istft_kernels as ik
+    from vv_dsp_tpu_torch.ops import stft_kernels as sk
+    from vv_dsp_tpu_torch.ops import stockham_kernels as stk
+    from vv_dsp_tpu_torch.ops import upfirdn as uf
+    return {"upfirdn_banded": uf.upfirdn_banded,
+            "stft_mfcc": sk.stft_mfcc, "stft_spectrum": sk.stft_spectrum,
+            "stft_power": sk.stft_power, "istft": ik.istft,
+            "stft_power_stockham": stk.stft_power_stockham,
+            "stft_mel_stockham": stk.stft_mel_stockham,
+            "stft_gate_stockham": stk.stft_gate_stockham,
+            "stft_spectrum_stockham": stk.stft_spectrum_stockham,
+            "fir_direct": fk.fir_direct,
+            "poly_kernel": fk.resample_poly_kernel,
+            "stft_power_dft": sk.stft_power_dft,
+            "istft_stockham": stk.istft_stockham,
+            "stft_gate_packed": ik.stft_gate_packed}
+
+
+def stream_oracle(x64: np.ndarray, chain) -> np.ndarray:
+    """StreamingNorthStar's frames after its warm-up, flush included, in
+    float64 numpy/scipy: the FIR, the resampler's delay_in zeros before the
+    signal (its fixed lead-in), resample_poly, the framed rfft power, the
+    mel filterbank at the output rate, log, DCT-II."""
+    from scipy import signal as ss
+    from vv_dsp_tpu_torch.ops.mel import mel_filterbank_np, mfcc_dct_np
+    from vv_dsp_tpu_torch.ops.window import get_window_np
+
+    h = np.asarray(chain.fir_coeffs, np.float64)
+    y = ss.oaconvolve(x64, h[None], axes=-1)[:, :x64.shape[-1]]
+    y = np.pad(y, ((0, 0), (chain._resampler._geometry[3], 0)))
+    yr = ss.resample_poly(y, chain.up, chain.down, axis=-1)
+    yr = yr[:, :-(-y.shape[-1] * chain.up // chain.down)]
+    nfft, hop = chain.nfft, chain.hop
+    pw = np.abs(np.fft.rfft(frames64(yr, nfft, hop)
+                            * get_window_np(chain.window, nfft),
+                            axis=-1)) ** 2
+    sr = chain.sample_rate * chain.up / chain.down
+    fb = mel_filterbank_np(nfft, chain.n_mels, sr, 0.0, sr / 2, "htk")
+    return (np.log(pw @ fb.T + 1e-10)
+            @ mfcc_dct_np(chain.n_mels, chain.n_mfcc).T)
+
+
+def lpc64(x64: np.ndarray, order: int) -> np.ndarray:
+    """The reference's LPC (lpc.c:7-41) in float64: the autocorrelation
+    sum_i x[i] x[i+k], then the Levinson-Durbin recursion."""
+    n = x64.shape[-1]
+    spec = np.fft.rfft(x64, 2 * n)
+    r = np.fft.irfft(spec * np.conj(spec), 2 * n)[:, :order + 1]
+    out = np.zeros((len(x64), order + 1))
+    for c in range(len(x64)):
+        a, e = np.zeros(order + 1), r[c, 0]
+        a[0] = 1.0
+        for m in range(1, order + 1):
+            k = -(r[c, m] + a[1:m] @ r[c, m - 1:0:-1]) / e
+            a[1:m] = a[1:m] + k * a[m - 1:0:-1]
+            a[m] = k
+            e *= 1.0 - k * k
+        out[c] = a
+    return out
+
+
+def analysis_paths(xc, xst, tone, chain) -> list:
+    """The analysis, IIR and streaming tier's paths: (name, call, the
+    launches it must make). Each runs plain PyTorch on the card and
+    launches no kernel of the port, as the JAX package runs no Pallas
+    kernel there, except the streamed chain's offline composition, whose
+    STFT(2048, 512).power takes the packed power kernel."""
+    from scipy import signal as ss
+    from vv_dsp_tpu_torch import streaming as st
+    from vv_dsp_tpu_torch.ops import czt, envelope, fir, hilbert, iir, mel
+    from vv_dsp_tpu_torch.ops import resample as rs
+    from vv_dsp_tpu_torch.ops.stft import STFT
+
+    sos4, sos18 = iir.butter_sos(4, 0.2), iir.butter_sos(18, 0.2)
+    b6, a6 = ss.butter(6, 0.25)
+    w = np.exp(-2j * np.pi / CZT_M)
+    zoom = czt.czt_params_for_freq_range(800.0, 1200.0, 512, 48000.0)
+    segs = xc.reshape(-1, CZT_M)
+
+    def iir_stream():
+        state = st.iir_stream_init(sos4, (CHANNELS,), device=xc.device)
+        return st.scan_stream(lambda s, b: st.iir_stream_process(sos4, s, b),
+                              state, xc, STREAM_BLOCKS[0])[0]
+
+    def streamed(block):
+        def run():
+            feats, state = chain.process_blocks(
+                chain.init((CHANNELS,), device=xst.device), xst, block)
+            return torch.cat([feats, chain.flush(state)], dim=-2)
+        return run
+
+    def offline():
+        y = fir.fir_apply(chain.fir_coeffs, xst)
+        y = rs.resample_poly(torch.nn.functional.pad(
+            y, (chain._resampler._geometry[3], 0)), chain.up, chain.down)
+        return mel.mfcc(STFT(chain.nfft, chain.hop).power(y), chain.nfft,
+                        chain.n_mels, chain.n_mfcc,
+                        chain.sample_rate * chain.up / chain.down)
+
+    def phase_and_frequency():
+        phase = hilbert.instantaneous_phase(hilbert.hilbert_analytic(tone))
+        return torch.stack([phase,
+                            hilbert.instantaneous_frequency(phase, 48000.0)])
+
+    return [
+        ("iir_butter4", lambda: iir.iir_apply(sos4, xc), {}),
+        ("iir_butter18_scan", lambda: iir.iir_apply(sos18, xc), {}),
+        ("filtfilt_sos_butter4", lambda: iir.filtfilt_sos(sos4, xc), {}),
+        ("lfilter_order2", lambda: iir.lfilter(
+            [0.2, 0.3, 0.1], [1.0, -0.5, 0.2], xc), {}),
+        ("lfilter_order6", lambda: iir.lfilter(b6, a6, xc), {}),
+        (f"iir_stream_block{STREAM_BLOCKS[0]}", iir_stream, {}),
+        ("hilbert_analytic", lambda: hilbert.hilbert_analytic(xc), {}),
+        ("hilbert_envelope", lambda: hilbert.envelope(xc), {}),
+        ("instantaneous_frequency_tone", phase_and_frequency, {}),
+        ("czt_4096_dft_equiv", lambda: czt.czt(xc[:, :CZT_M], CZT_M, w), {}),
+        ("czt_4096_batched", lambda: czt.czt(segs, CZT_M, w), {}),
+        ("czt_zoom_512", lambda: czt.czt(xc[:, :CZT_M], 512, *zoom), {}),
+        ("cepstrum_4096", lambda: envelope.cepstrum_real(xc[:, :CZT_M]), {}),
+        ("lpc_16", lambda: envelope.lpc(xc, 16)[0], {}),
+        *((f"streaming_north_star_block{b}", streamed(b), {})
+          for b in STREAM_BLOCKS),
+        ("streaming_offline_composition", offline, {"stft_power": 1}),
+    ]
+
+
+def allclose_check(name: str, got, want, rtol: float, atol: float) -> None:
+    """numpy's assert_allclose(got, want, rtol, atol), as the JAX tests
+    hold these functions: |got - want| <= atol + rtol |want| everywhere."""
+    diff = np.abs(got - want)
+    err = (diff - rtol * np.abs(want)).max()
+    print(f"{name}: max(|err| - {rtol:g} |want|) {err:.3e} (limit atol "
+          f"{atol:.3e}); max |err| {diff.max():.3e}, "
+          f"{diff.max() / np.abs(want).max():.3e} of scale")
+    if not err <= atol:
+        raise AssertionError(f"{name}: {err:.3e} > {atol:.3e}")
+
+
+def czt_check(name: str, got, want, tol) -> None:
+    """tests/test_czt.py's contract: rtol tol[0], atol tol[1] of max."""
+    allclose_check(name, got, want, tol[0], tol[1] * np.abs(want).max())
+
+
+def analysis_checks(outs, xc, xst, tone, chain) -> None:
+    """Every output of analysis_paths against float64 scipy/numpy on 2
+    channels; the IIR stream and the streamed chain also against their
+    offline forms on the card, on all 16."""
+    from scipy import signal as ss
+    from vv_dsp_tpu_torch.ops import iir
+    from vv_dsp_tpu_torch.ops.czt import czt_params_for_freq_range
+
+    x2 = xc[:2].double().cpu().numpy()
+    sos4, sos18 = iir.butter_sos(4, 0.2), iir.butter_sos(18, 0.2)
+    b6, a6 = ss.butter(6, 0.25)
+    assert iir._block_path_ok(iir.normalize_sos(sos4), N_CHAIN)
+    assert iir._block_path_ok(iir.normalize_sos(iir.tf2sos(b6, a6)), N_CHAIN)
+    assert not iir._block_path_ok(iir.normalize_sos(sos18), N_CHAIN)
+    for name, want in (
+            ("iir_butter4", ss.sosfilt(sos4, x2)),
+            ("iir_butter18_scan", ss.sosfilt(sos18, x2)),
+            ("filtfilt_sos_butter4", ss.sosfiltfilt(sos4, x2)),
+            ("lfilter_order2", ss.lfilter([0.2, 0.3, 0.1], [1.0, -0.5, 0.2],
+                                          x2)),
+            ("lfilter_order6", ss.lfilter(b6, a6, x2))):
+        oracle_check(f"{name} vs float64 scipy (2 ch)",
+                     outs[name][:2].cpu().numpy(), want, IIR_TOL)
+    name = f"iir_stream_block{STREAM_BLOCKS[0]}"
+    oracle_check(f"{name} vs iir_apply offline (16 ch, on the card)",
+                 outs[name].cpu().numpy(),
+                 outs["iir_butter4"].double().cpu().numpy(), IIR_STREAM_TOL)
+
+    z64 = ss.hilbert(x2)
+    oracle_check("hilbert_analytic vs float64 scipy (2 ch)",
+                 outs["hilbert_analytic"][:2].cpu().numpy(), z64,
+                 HILBERT_TOL, absolute=True)
+    oracle_check("hilbert_envelope vs float64 scipy (2 ch)",
+                 outs["hilbert_envelope"][:2].cpu().numpy(), np.abs(z64),
+                 HILBERT_TOL, absolute=True)
+    # a 1 kHz tone at 48 kHz: the float32 phase reaches ~6e4 rad, so its
+    # difference is quantized to the phase's spacing; the mean frequency
+    # within 0.5 Hz (tests/test_hilbert.py), each sample within two
+    # spacings of float64's
+    fs = 48000.0
+    phase, freq = outs["instantaneous_frequency_tone"][:, :2].cpu().numpy()
+    phase64 = np.unwrap(np.angle(ss.hilbert(
+        tone[:2].double().cpu().numpy())), axis=-1)
+    oracle_check("instantaneous_phase of a tone vs float64 (2 ch)", phase,
+                 phase64, ORACLE_TOL)
+    inner = slice(1000, -1000)
+    spacing = float(np.spacing(np.abs(phase).max())) * fs / (2 * np.pi)
+    err = np.abs(freq[:, 1:][:, inner]
+                 - (np.diff(phase64, axis=-1) * fs / (2 * np.pi))[:, inner])
+    mean = freq[:, inner].mean(axis=-1)
+    print(f"instantaneous_frequency of a 1 kHz tone (2 ch): mean "
+          f"{mean.tolist()} Hz (limit 0.5 Hz off), {err.max():.3f} Hz from "
+          f"float64 (limit two phase spacings, {2 * spacing:.3f} Hz)")
+    if not (np.abs(mean - 1000.0).max() < 0.5 and err.max() < 2 * spacing):
+        raise AssertionError("instantaneous_frequency of the tone")
+
+    xs2 = xc[:2, :CZT_M].double().cpu().numpy()
+    czt_check("czt_4096_dft_equiv vs float64 scipy (2 ch)",
+              outs["czt_4096_dft_equiv"][:2].cpu().numpy(),
+              ss.czt(xs2, CZT_M, np.exp(-2j * np.pi / CZT_M)), CZT_DFT_TOL)
+    czt_check("czt_4096_batched vs float64 FFT (2 segments)",
+              outs["czt_4096_batched"][:2].cpu().numpy(),
+              np.fft.fft(xc.reshape(-1, CZT_M)[:2].double().cpu().numpy()),
+              CZT_DFT_TOL)
+    czt_check("czt_zoom_512 (800-1200 Hz at 48 kHz) vs float64 scipy (2 ch)",
+              outs["czt_zoom_512"][:2].cpu().numpy(),
+              ss.czt(xs2, 512, *czt_params_for_freq_range(
+                  800.0, 1200.0, 512, 48000.0)), CZT_ZOOM_TOL)
+    oracle_check("cepstrum_4096 vs float64 numpy (2 ch)",
+                 outs["cepstrum_4096"][:2].cpu().numpy(),
+                 np.fft.ifft(np.log(np.abs(np.fft.fft(xs2)) + 1e-12)).real,
+                 ORACLE_TOL)
+    oracle_check("lpc_16 vs float64 numpy (2 ch)",
+                 outs["lpc_16"][:2].cpu().numpy(), lpc64(x2, 16), LPC_TOL)
+
+    offline = outs["streaming_offline_composition"].double().cpu().numpy()
+    want = stream_oracle(xst[:2].double().cpu().numpy(), chain)
+    oracle_check("streaming offline composition vs float64 oracle (2 ch)",
+                 offline[:2], want, ORACLE_TOL)
+    warm = chain.nfft // chain.hop - 1
+    for block in STREAM_BLOCKS:
+        name = f"streaming_north_star_block{block}"
+        got = outs[name][..., warm:, :].cpu().numpy()
+        assert got.shape == offline.shape, (name, got.shape, offline.shape)
+        allclose_check(f"{name} + flush vs the offline composition (16 "
+                       "ch, on the card)", got, offline, STREAM_TOL,
+                       STREAM_TOL)
+        oracle_check(f"{name} + flush vs float64 oracle (2 ch)", got[:2],
+                     want, ORACLE_TOL)
+
+
+def checkpoint_check(xst, chain) -> None:
+    """The stream's state saved half way through the signal on the card
+    and loaded back: the continuation equals the unbroken stream's bit for
+    bit."""
+    import tempfile
+    from vv_dsp_tpu_torch.utils import checkpoint
+
+    block = STREAM_BLOCKS[1]
+    half = N_STREAM // 2 // block * block
+    _, mid = chain.process_blocks(chain.init((CHANNELS,), device=xst.device),
+                                  xst[:, :half], block)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stream.npz")
+        checkpoint.save(path, mid)
+        restored = checkpoint.load(path, chain.init((CHANNELS,),
+                                                    device=xst.device))
+    assert all(v.device == xst.device for v in restored.values())
+    want, end = chain.process_blocks(mid, xst[:, half:], block)
+    got, end2 = chain.process_blocks(restored, xst[:, half:], block)
+    same = torch.equal(got, want) and all(torch.equal(end[k], end2[k])
+                                          for k in end)
+    print(f"checkpoint at sample {half} of {N_STREAM}, saved and loaded on "
+          f"the card: the continuation's {got.shape[-2]} frames bit-equal "
+          f"to the unbroken stream's: {same}")
+    if not same:
+        raise AssertionError("the checkpointed stream diverges")
+
+
+def analysis_rows(paths, card: str) -> None:
+    """Each row's CUDA-event time, wall time a call (and a block for the
+    streams), input-rate Msamples/s, and the device's busy time and idle
+    share under torch.profiler (the union of its kernel, memcpy and memset
+    intervals, against the wall time of the profiled calls)."""
+    from vv_dsp_tpu_torch.tools.profile_path import busy_us, device_events
+
+    rows = {"iir_butter4": (CHANNELS, N_CHAIN, 1),
+            "hilbert_envelope": (CHANNELS, N_CHAIN, 1),
+            "czt_4096_dft_equiv": (CHANNELS, CZT_M, 1),
+            "czt_4096_batched": (CHANNELS * N_CHAIN // CZT_M, CZT_M, 1),
+            "cepstrum_4096": (CHANNELS, CZT_M, 1),
+            "lpc_16": (CHANNELS, N_CHAIN, 1),
+            **{f"streaming_north_star_block{b}": (CHANNELS, N_STREAM,
+                                                   N_STREAM // b)
+               for b in STREAM_BLOCKS}}
+    fns = {name: fn for name, fn, _ in paths}
+    for name, (rows_, n, blocks) in rows.items():
+        fn = fns[name]
+        ms = cuda_ms(fn, reps=3 if blocks > 1 else REPS)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(walls)
+        calls = 2 if blocks > 1 else 10
+        prof_wall, events = device_events(fn, calls)
+        busy = busy_us(events) / 1e3 / calls
+        idle = 1 - busy / (prof_wall * 1e3 / calls)
+        per = (f", {wall / blocks:.4f} ms a block of {n // blocks}"
+               if blocks > 1 else "")
+        print(f"{name} {rows_ * n / ms / 1e3:.2f} Msamples/s (event "
+              f"{ms:.4f} ms, wall {wall:.4f} ms{per}, device busy "
+              f"{busy:.4f} ms, idle share {idle:.4f}, {rows_} x {n}) | "
+              f"{card}")
+        if blocks > 1 and idle > 0.5:
+            print(f"  {name} is bound by the host: the device idles "
+                  f"{idle:.2f} of the wall time, {wall / blocks:.4f} ms of "
+                  f"host time a block of {n // blocks} samples")
+
+
+def analysis_phase(xc, card: str) -> dict:
+    """The analysis, IIR and streaming tier: drive each path with every
+    launch counter zeroed just before it and read just after, check the
+    outputs and a checkpoint, and time the rows. Returns each kernel's
+    launches summed over the paths."""
+    from vv_dsp_tpu_torch.models import StreamingNorthStar
+
+    counters = kernel_counters()
+    rng = np.random.default_rng(14)
+    xst = torch.as_tensor(rng.standard_normal((CHANNELS, N_STREAM)),
+                          dtype=torch.float32, device=xc.device)
+    t = np.arange(N_CHAIN) / 48000.0
+    tone = torch.as_tensor(np.cos(2 * np.pi * 1000.0 * t[None]
+                                  + rng.uniform(0, 2 * np.pi, (CHANNELS, 1))),
+                           dtype=torch.float32, device=xc.device)
+    chain = StreamingNorthStar()
+    for block in STREAM_BLOCKS:
+        chain.validate_block(block)
+    paths = analysis_paths(xc, xst, tone, chain)
+    outs, launches = {}, dict.fromkeys(counters, 0)
+    for name, fn, want in paths:
+        for counted in counters.values():
+            counted.launches = 0
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        got = {k: f.launches for k, f in counters.items() if f.launches}
+        print(f"launches [{name}]: {got}")
+        if got != want:
+            raise AssertionError(f"{name} launched {got}, expected {want}")
+        for k, count in got.items():
+            launches[k] += count
+        vals = outs[name]
+        vals = torch.view_as_real(vals) if vals.is_complex() else vals
+        assert torch.isfinite(vals).all().item(), f"non-finite {name}"
+    frames = 1 + (-(-(N_STREAM + chain._resampler._geometry[3])
+                    * chain.up // chain.down) - chain.nfft
+                  + chain.hop) // chain.hop
+    for name, shape in (("iir_butter4", (CHANNELS, N_CHAIN)),
+                        ("czt_4096_batched",
+                         (CHANNELS * N_CHAIN // CZT_M, CZT_M)),
+                        ("cepstrum_4096", (CHANNELS, CZT_M)),
+                        ("lpc_16", (CHANNELS, 17)),
+                        ("streaming_offline_composition",
+                         (CHANNELS, frames, chain.n_mfcc))):
+        assert tuple(outs[name].shape) == shape, (name, outs[name].shape)
+    print(f"analysis launches, summed over the paths: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    analysis_checks(outs, xc, xst, tone, chain)
+    checkpoint_check(xst, chain)
+    analysis_rows(paths, card)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2259,6 +2653,9 @@ def main() -> None:
     kernels = kernel_phase(xc, xs, chain, front, front128, log)
     torch.cuda.synchronize()
     launches = slice_phase(xc, xs, chain, staged, front, front128, card)
+    torch.cuda.synchronize()
+    for name, count in analysis_phase(xc, card).items():
+        launches[name] += count
     torch.cuda.synchronize()
 
     sources = {

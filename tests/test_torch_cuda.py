@@ -1873,3 +1873,101 @@ def test_reconstruct_off_the_lattice_is_deterministic_on_card(dev, gen):
     b = plan.reconstruct(spec, 48000, rfft=True)
     assert torch.equal(a, b)
     assert (a - x)[:, 1024:-1024].abs().max().item() < 3e-5
+
+
+# ---- the analysis, IIR and streaming tier: plain PyTorch on the card ----
+
+def _analysis_calls():
+    """(name, call of a CPU or CUDA tensor, tolerance of scale)."""
+    from vv_dsp_tpu_torch.ops import czt as tczt
+    from vv_dsp_tpu_torch.ops import envelope as tenv
+    from vv_dsp_tpu_torch.ops import hilbert as thil
+    from vv_dsp_tpu_torch.ops import iir as tiir
+    w = np.exp(-2j * np.pi / 4096)
+    zoom = tczt.czt_params_for_freq_range(800.0, 1200.0, 512, 48000.0)
+    sos4, sos18 = tiir.butter_sos(4, 0.2), tiir.butter_sos(18, 0.2)
+    return [
+        ("hilbert_analytic", thil.hilbert_analytic, 5e-5),
+        ("envelope", thil.envelope, 5e-5),
+        ("czt dft", lambda x: tczt.czt(x[..., :4096], 4096, w), 5e-5),
+        ("czt zoom", lambda x: tczt.czt(x, 512, *zoom), 5e-5),
+        ("cepstrum_real", tenv.cepstrum_real, 5e-5),
+        ("lpc 16", lambda x: tenv.lpc(x, 16)[0], 1e-4),
+        ("iir_apply block", lambda x: tiir.iir_apply(sos4, x), 1e-5),
+        ("iir_apply scan", lambda x: tiir.iir_apply(sos18, x), 1e-5),
+        ("iir_apply short", lambda x: tiir.iir_apply(sos4, x[..., :1000]),
+         1e-5),
+        ("filtfilt_sos", lambda x: tiir.filtfilt_sos(sos4, x), 1e-5),
+        ("lfilter order 2", lambda x: tiir.lfilter(
+            [0.2, 0.3, 0.1], [1.0, -0.5, 0.2], x), 1e-5),
+    ]
+
+
+@pytest.mark.parametrize("index", range(11))
+def test_analysis_and_iir_on_card(dev, gen, index):
+    """Each call on the card against its CPU result, launching no kernel
+    (a plain PyTorch tier: cuFFT, cuBLAS and elementwise ops)."""
+    name, call, tol = _analysis_calls()[index]
+    x = torch.as_tensor(gen.standard_normal((2, 20000)), dtype=torch.float32)
+    before = [f.launches for f in _counters()]
+    got = call(x.to(dev))
+    torch.cuda.synchronize()
+    assert [f.launches for f in _counters()] == before, name
+    want = call(x)
+    if got.is_complex():
+        got, want = torch.view_as_real(got), torch.view_as_real(want)
+    assert got.device.type == "cuda"
+    assert _rel(got, want) < tol, name
+
+
+def test_streams_on_card(dev, gen, tmp_path):
+    """StreamingNorthStar at a small configuration on the card against
+    the CPU (1e-4 of max|MFCC|), no kernel launched; its checkpoint loads
+    onto the card and resumes bit for bit."""
+    from vv_dsp_tpu_torch.models import StreamingNorthStar
+    from vv_dsp_tpu_torch.utils import checkpoint as tck
+    chain = StreamingNorthStar(fir_taps=64, nfft=256, hop=64, n_mels=32,
+                               n_mfcc=13)
+    x = torch.as_tensor(gen.standard_normal((2, 6 * 768)),
+                        dtype=torch.float32)
+    before = [f.launches for f in _counters()]
+    got, state = chain.process_blocks(chain.init((2,), device=dev), x.to(dev),
+                                      768)
+    tail = chain.flush(state)
+    torch.cuda.synchronize()
+    assert [f.launches for f in _counters()] == before
+    want, cpu_state = chain.process_blocks(chain.init((2,), device="cpu"),
+                                           x, 768)
+    scale = want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() < 1e-4 * scale
+    assert ((tail.cpu() - chain.flush(cpu_state)).abs().max().item()
+            < 1e-4 * scale)
+    path = str(tmp_path / "state.npz")
+    tck.save(path, state)
+    restored = tck.load(path, chain.init((2,), device=dev))
+    assert all(v.device.type == "cuda" for v in restored.values())
+    a, _ = chain.process(state, x[:, :768].to(dev))
+    b, _ = chain.process(restored, x[:, :768].to(dev))
+    assert torch.equal(a, b)
+
+
+def test_entry_points_take_strided_input_on_card(dev, gen):
+    """A strided view (a slice of every other sample, or the transposed
+    output of an einsum) reaches the kernels as contiguous rows: each entry
+    point gives the result of the same values made contiguous."""
+    from vv_dsp_tpu_torch.ops import resample as trs_
+    x = torch.as_tensor(gen.standard_normal((2, 40000)), dtype=torch.float32,
+                        device=dev)[:, ::2]
+    assert not x.is_contiguous()
+    xc = x.contiguous()
+    h = NorthStarChain(device="cpu").fir_coeffs
+    calls = (lambda v: STFT(1024, 256).power(v),
+             lambda v: STFT(1024, 256).process(v, rfft=True),
+             lambda v: STFT(128, 32).power(v),
+             lambda v: tmel.mfcc_stft(v, 1024, 256, 26, 13, 16000.0),
+             lambda v: trs_.fir_resample_fused(h, v, 4, 3, "f32"),
+             lambda v: NorthStarChain(device=dev)(v))
+    for call in calls:
+        got, want = call(x), call(xc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)

@@ -6,9 +6,10 @@ hand-written CUDA kernel (``csrc/``), built with nvcc on first use
 This package never imports jax.
 
 The top level re-exports what ``vv_dsp_tpu`` does, as far as the port has
-it. ``config`` and the NaN policy load with the package; the ops and the
-subpackages (``models``, ``ops``, ``tools``) load on first access, so
-``import vv_dsp_tpu_torch`` builds no kernel and loads no op module.
+it. ``config`` and the NaN policy load with the package; the ops,
+``streaming`` and the subpackages (``models``, ``ops``, ``tools``) load on
+first access, so ``import vv_dsp_tpu_torch`` builds no kernel and loads no
+op module.
 """
 
 import importlib
@@ -21,10 +22,12 @@ __version__ = "0.1.0"
 _SUBMODULES = {
     "models": "vv_dsp_tpu_torch.models",
     "ops": "vv_dsp_tpu_torch.ops",
+    "streaming": "vv_dsp_tpu_torch.streaming",
     "tools": "vv_dsp_tpu_torch.tools",
     **{name: f"vv_dsp_tpu_torch.ops.{name}" for name in (
         "window", "complex_ops", "stats", "framing", "fft", "stft", "dct",
-        "fir", "savgol", "resample", "mel")},
+        "czt", "hilbert", "fir", "iir", "savgol", "resample", "envelope",
+        "mel")},
 }
 _NAMES = {
     "get_window": ("window", "get_window"),

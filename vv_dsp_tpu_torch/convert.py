@@ -2,11 +2,13 @@
 
 The JAX models' state is host constants: the chain's float32 FIR taps and
 the numpy arrays the kernels are built from. ``params_from_reference``,
-``gate_params_from_reference`` and ``frontend_params_from_reference`` take
-those arrays (the caller reads them from the JAX package; this package
-does not import it) and return the ``params`` of ``NorthStarChain``,
-``SpectralGate`` and ``MFCCFrontend`` of ``models.pipeline``, so that a
-port model built from them computes the same function as the JAX model:
+``gate_params_from_reference``, ``frontend_params_from_reference`` and
+``streaming_params_from_reference`` take those arrays (the caller reads
+them from the JAX package; this package does not import it) and return
+the ``params`` of ``NorthStarChain``, ``SpectralGate``, ``MFCCFrontend``
+and ``StreamingNorthStar``, so that a port model built from them computes
+the same function as the JAX model; ``stream_state_from_reference``
+carries a stream's state across, so that it resumes here:
 
     ref = vv_dsp_tpu.models.NorthStarChain()
     g, offset = vv_dsp_tpu.ops.resample._fused_fir_resample_filter(
@@ -19,6 +21,9 @@ port model built from them computes the same function as the JAX model:
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from vv_dsp_tpu_torch.utils.device import build_device
 
 
 def params_from_reference(fir_coeffs, window, g, offset: int, mel_fb,
@@ -72,3 +77,29 @@ def frontend_params_from_reference(window, mel_fb, dct_lift) -> dict:
     if params["dct_lift"].shape[1] != params["mel_fb"].shape[0]:
         raise ValueError("dct_lift must have n_mels columns")
     return params
+
+
+def streaming_params_from_reference(fir_coeffs) -> dict:
+    """The reference StreamingNorthStar's ``fir_coeffs`` (float32, as it
+    keeps them) -> StreamingNorthStar params."""
+    fir_coeffs = np.asarray(fir_coeffs)
+    if fir_coeffs.ndim != 1:
+        raise ValueError("fir_coeffs must be 1-D")
+    return {"fir_coeffs": fir_coeffs}
+
+
+def stream_state_from_reference(state, device="cuda"):
+    """A reference stream state (a tree of numpy arrays in dicts, lists and
+    tuples, e.g. ``np.asarray`` of each leaf of a JAX StreamingNorthStar
+    state) -> the same tree of tensors on `device`, so that a stream begun
+    in the reference resumes here. Raises without a GPU for "cuda"."""
+    device = build_device(device)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {key: convert(value) for key, value in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(convert(value) for value in node)
+        return torch.tensor(np.asarray(node), device=device)
+
+    return convert(state)

@@ -3,6 +3,7 @@
 from vv_dsp_tpu_torch.models.pipeline import (MFCCFrontend, NorthStarChain,
                                               SpectralGate, chain_params,
                                               frontend_params)
+from vv_dsp_tpu_torch.models.streaming_chain import StreamingNorthStar
 
-__all__ = ["MFCCFrontend", "NorthStarChain", "SpectralGate", "chain_params",
-           "frontend_params"]
+__all__ = ["MFCCFrontend", "NorthStarChain", "SpectralGate",
+           "StreamingNorthStar", "chain_params", "frontend_params"]

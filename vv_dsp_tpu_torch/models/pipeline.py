@@ -45,15 +45,8 @@ from vv_dsp_tpu_torch.ops import stockham_kernels as _stk
 from vv_dsp_tpu_torch.ops.framing import stft_num_frames
 from vv_dsp_tpu_torch.ops.upfirdn import polyphase_table_np
 from vv_dsp_tpu_torch.ops.window import get_window_np
+from vv_dsp_tpu_torch.utils.device import build_device as _build_device
 from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
-
-
-def _build_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass device='cpu' to build on "
-                           "the CPU")
-    return device
 
 
 def _check_input(x: torch.Tensor, buffer: torch.Tensor, name: str) -> None:

@@ -20,6 +20,8 @@ grad stays differentiable through both.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -82,6 +84,22 @@ def _toeplitz_index(chunk: int):
     return idx, (idx >= 0) & (idx < chunk)
 
 
+@functools.lru_cache(maxsize=8)
+def _toeplitz_on(h_bytes: bytes, chunk: int, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """(J, 2C-1, C) stack of the matrices T_j of float64 taps, built on the
+    host and copied to `device` once."""
+    h = np.frombuffer(h_bytes, dtype=np.float64)
+    c = chunk
+    n_chunks = -(-len(h) // c)
+    hp = np.zeros(n_chunks * c)
+    hp[:len(h)] = h
+    idx, valid = _toeplitz_index(c)
+    t = np.stack([np.where(valid, hp[j * c + np.clip(idx, 0, c - 1)], 0.0)
+                  for j in range(n_chunks)])
+    return torch.as_tensor(t, dtype=dtype, device=device)
+
+
 def fir_apply_mxu(h, x: torch.Tensor, chunk: int = 128) -> torch.Tensor:
     """Causal FIR as block-Toeplitz matmuls, the same function as fir_apply.
 
@@ -90,7 +108,8 @@ def fir_apply_mxu(h, x: torch.Tensor, chunk: int = 128) -> torch.Tensor:
     matrices T_j[s, r] = h[jC + r + C-1 - s] (zero outside the chunk),
         y_block[m] = sum_j  W_{m-j} @ T_j,
     J matmuls of (blocks, 2C-1) @ (2C-1, C). Numpy taps build T_j on the
-    host in float64; tensor taps gather them on the device, differentiably.
+    host in float64, copied to the device once (``_toeplitz_on``); tensor
+    taps gather them on the device, differentiably.
     """
     x = config.as_compute(x)
     traced = isinstance(h, torch.Tensor)
@@ -102,14 +121,14 @@ def fir_apply_mxu(h, x: torch.Tensor, chunk: int = 128) -> torch.Tensor:
     batch = x.shape[:-1]
     n = x.shape[-1]
     nb = -(-n // c)
-    idx, valid = _toeplitz_index(c)
     if traced:
+        idx, valid = _toeplitz_index(c)
         hp = F.pad(taps_like(h, x), (0, n_chunks * c - taps))
         idx_t = torch.as_tensor(np.clip(idx, 0, c - 1), device=x.device)
         valid_t = torch.as_tensor(valid, device=x.device)
     else:
-        hp = np.zeros(n_chunks * c)
-        hp[:taps] = h
+        stack = _toeplitz_on(np.ascontiguousarray(h).tobytes(), c, x.dtype,
+                             x.device)
     # window k = xp[kC : kC + 2C - 1] = x[kC - (C-1) : kC + C]
     xp = F.pad(x, (c - 1, nb * c - n))
     w = xp.unfold(-1, 2 * c - 1, c)       # (..., nb, 2C-1)
@@ -119,9 +138,7 @@ def fir_apply_mxu(h, x: torch.Tensor, chunk: int = 128) -> torch.Tensor:
             tj = torch.where(valid_t, hp[j * c + idx_t],
                              torch.zeros((), dtype=x.dtype, device=x.device))
         else:
-            tj = torch.as_tensor(
-                np.where(valid, hp[j * c + np.clip(idx, 0, c - 1)], 0.0),
-                dtype=x.dtype, device=x.device)
+            tj = stack[j]
         term = w @ tj                     # row m holds W_m @ T_j
         if j:                             # ... and belongs at block m + j
             term = F.pad(term[..., :nb - j, :], (0, 0, j, 0))

@@ -104,21 +104,39 @@ def mfcc_from_log_mel(log_mel: torch.Tensor, n_coeffs: int,
     n_mels = log_mel.shape[-1]
     if n_coeffs > n_mels:
         raise ValueError("n_coeffs must be <= n_mels")
-    dct = torch.as_tensor(_dct2_matrix(n_mels)[:n_coeffs], dtype=log_mel.dtype,
-                          device=log_mel.device)
-    lw = torch.as_tensor(_lifter_np(n_coeffs, float(lifter)),
-                         dtype=log_mel.dtype, device=log_mel.device)
+    dct, lw = _dct_lifter_on(n_mels, n_coeffs, float(lifter), log_mel.dtype,
+                             log_mel.device)
     return (log_mel @ dct.T) * lw
+
+
+@functools.lru_cache(maxsize=16)
+def _dct_lifter_on(n_mels: int, n_coeffs: int, lifter: float,
+                   dtype: torch.dtype, device: torch.device):
+    """(DCT-II rows, lifter weights) on `device`, copied once."""
+    return (torch.as_tensor(_dct2_matrix(n_mels)[:n_coeffs], dtype=dtype,
+                            device=device),
+            torch.as_tensor(_lifter_np(n_coeffs, lifter), dtype=dtype,
+                            device=device))
+
+
+@functools.lru_cache(maxsize=16)
+def _filterbank_on(n_fft: int, n_mels: int, sample_rate: float, fmin: float,
+                   fmax: float, variant: str, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """The (n_mels, n_fft//2+1) filterbank on `device`, copied once."""
+    return torch.as_tensor(mel_filterbank_np(n_fft, n_mels, sample_rate, fmin,
+                                             fmax, variant),
+                           dtype=dtype, device=device)
 
 
 def _filterbank_like(t: torch.Tensor, n_fft: int, n_mels: int,
                      sample_rate: float, fmin: float, fmax: float | None,
                      variant: str) -> torch.Tensor:
+    """The filterbank in t's dtype on t's device."""
     if fmax is None:
         fmax = sample_rate / 2.0
-    fb = mel_filterbank_np(n_fft, n_mels, float(sample_rate), float(fmin),
-                           float(fmax), variant)
-    return torch.as_tensor(fb, dtype=t.dtype, device=t.device)
+    return _filterbank_on(n_fft, n_mels, float(sample_rate), float(fmin),
+                          float(fmax), variant, t.dtype, t.device)
 
 
 def log_mel_spectrogram(power_spec: torch.Tensor, n_fft: int, n_mels: int,
@@ -233,8 +251,7 @@ def mfcc_stft_with(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
         y = mfcc_stft_with(x.reshape(-1, x.shape[-1]), nfft, hop, window,
                            mel_fb, bands, dct, log_epsilon, algorithm)
         return y.reshape(lead + y.shape[-2:])
-    if x.dtype != torch.float32:
-        x = x.float()
+    x = x.float().contiguous()   # the kernels take contiguous rows
     route = mel_route(nfft, hop)
     if route == "torch":
         return _sk.stft_mfcc_plain(x, nfft, hop, window, mel_fb, dct,

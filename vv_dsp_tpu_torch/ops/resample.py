@@ -366,8 +366,7 @@ def fir_resample_fused(h_fir, x: torch.Tensor, up: int, down: int,
         x2, restore = collapse_leading(x)
         return restore(fir_resample_fused(h_fir, x2, up, down, algorithm,
                                           taps), 1)
-    if x.dtype != torch.float32:
-        x = x.float()
+    x = x.float().contiguous()   # the kernel takes contiguous rows
     up, down = _reduce(up, down)
     h_np = np.ascontiguousarray(h_fir, dtype=np.float64)
     if up == 1 and down == 1:

@@ -102,7 +102,8 @@ class STFT:
         return framing.stft_num_frames(n, self.nfft, self.hop)
 
     def _signal(self, x: torch.Tensor) -> torch.Tensor:
-        x = config.as_compute(x)
+        # the kernels take contiguous rows; a strided view is copied
+        x = config.as_compute(x).contiguous()
         if not x.is_complex() and x.dtype != torch.float32:
             x = x.float()
         return x

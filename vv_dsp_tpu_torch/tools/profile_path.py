@@ -16,9 +16,12 @@ taps and resample_poly_kernel (the per-phase kernel) at 4/3 and 3/4 on
 at 1024/256 on (16, 480000), the STFT 128/32 roundtrip on (16, 479232),
 and istft_stockham and stft_gate_packed at 1024/256 on the COLA-padded
 (16, 480768) input (the inverse of its one-sided spectrum), and
-STFT(1024, 256).spectrogram on (16, 480000), each
-``calls`` times back to back under torch.profiler. For each it
-prints, per call:
+STFT(1024, 256).spectrogram on (16, 480000), and the analysis and
+streaming tier, which launches none of the port's kernels: iir_apply of a
+4th-order Butterworth (the block state-space path) and the Hilbert
+envelope on (16, 479232), each ``calls`` times back to back under
+torch.profiler, and StreamingNorthStar over (16, 491520) in blocks of
+1,536 and 24,576 samples, twice each. For each it prints, per call:
 
 - wall: host time of the loop, synchronized at its end;
 - busy: the union of the trace's kernel, memcpy and memset intervals, so
@@ -164,6 +167,19 @@ def main(argv=None) -> int:
     report("stft_gate_packed 1024/256", lambda: ik.stft_gate_packed(
         xp, 1024, 256, 0.1, win, periodic), args.calls)
     report("spectrogram 1024/256", lambda: plan.spectrogram(xs), args.calls)
+    from vv_dsp_tpu_torch.models import StreamingNorthStar
+    from vv_dsp_tpu_torch.ops import hilbert, iir
+    sos = iir.butter_sos(4, 0.2)
+    report("iir_butter4 (block state-space path)",
+           lambda: iir.iir_apply(sos, xc), args.calls)
+    report("hilbert_envelope", lambda: hilbert.envelope(xc), args.calls)
+    stream = StreamingNorthStar()
+    xst = torch.as_tensor(rng.standard_normal((16, 491520)),
+                          dtype=torch.float32, device=dev)
+    for block in (1536, 24576):
+        report(f"streaming_north_star_block{block}, a call of "
+               f"{491520 // block} blocks", lambda: stream.process_blocks(
+                   stream.init((16,), device=dev), xst, block), 2)
     return 0
 
 

@@ -123,7 +123,32 @@ Phases, each fatal on failure:
    the card; a checkpoint of the stream's state saved half way and loaded
    back on the card must continue bit for bit. Each row prints its
    CUDA-event time, its wall time (a block's, for the streams), input-rate
-   Msamples/s and the device's idle share under torch.profiler.
+   Msamples/s and the device's idle share under torch.profiler;
+6. sharded: the sharded path (vv_dsp_tpu_torch.parallel) at full width on
+   the (1, 8) and (2, 4) meshes of the card's devices repeated to 8
+   shards, each path with the counters zeroed just before it and read
+   just after: NorthStarChain.apply_sharded with fused and with staged
+   halos and SpectralGate.apply_sharded (on the tone probe), each running
+   the full-nfft spectrum kernel once a shard (c * b launches a call, no
+   fallback), then fir_apply_sharded at 1,024 taps, iir_apply_sharded of
+   butter_sos(4, 0.2), resample_poly_sharded at 4/3, savgol_filter_sharded
+   (31, 3) and filtfilt_fir_sharded at 1,024 taps on (16, 479232), and
+   hilbert_analytic_sharded and cepstrum_real_sharded on (16, 2^19), which
+   launch none. Each is held to the dense port on the card (the chain at
+   2e-3 of scale, fused against staged at 2e-4, tests/test_parallel.py's
+   limits; the ops at the JAX suite's allclose tolerances), the chain also
+   to its float64 oracle at 5e-5 of max|MFCC| and the gate to its float64
+   oracle at 5e-5 of scale (2 channels). Each row prints its CUDA-event
+   time, wall time, device busy time and idle share, and Msamples/s;
+7. io: 16 seeded 16-bit mono WAVs of 479,232 samples written to a
+   temporary directory under the checkout's build/, decoded in one batch
+   by the native codec (csrc/wavio.cpp, built with g++) and by the numpy
+   backend (bit-equal, and equal to the source's 16-bit quantization; the
+   decode Msamples/s of both printed), moved to the card and fed to
+   NorthStarChain, bit-equal to the chain on the clips read one by one
+   ({upfirdn_banded: 1, stft_mfcc: 1}), and WAV -> SpectralGate ->
+   write_wav -> read_wav ({stft_spectrum: 1, istft: 1}), equal to the
+   16-bit quantization of the gate's output.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, without a
 CUDA device or outside a checkout of the repository.
@@ -250,6 +275,21 @@ STREAM_TOL = 2e-3
 # fused head's "torch" route, which no geometry of realistic size reaches
 # at the card's 232,448 bytes
 REFUSING_BUDGET = 1024
+# the sharded phase: the (1, 8) and (2, 4) meshes of the card's devices
+# repeated to 8 shards; Hilbert and the cepstrum on (16, 2^19). Limits:
+# tests/test_parallel.py's, the chain's of scale, the ops' as allclose
+# rtol = atol on unit-variance input
+SHARDS = 8
+SHARD_MESHES = ((1, 8), (2, 4))
+N_LONG = 1 << 19
+SHARDED_CHAIN_TOL = 2e-3
+FUSED_STAGED_TOL = 2e-4
+SHARDED_FIR_TOL = 2e-5
+SHARDED_IIR_TOL = 1e-4
+SHARDED_RESAMPLE_TOL = 2e-4    # resample_poly and savgol
+SHARDED_FILTFILT_TOL = 5e-4
+SHARDED_FFT_TOL = 1e-3         # Hilbert and the cepstrum
+N_WAV = 16                     # the I/O phase's clips
 
 
 def device_phase() -> str:
@@ -2630,6 +2670,332 @@ def analysis_phase(xc, card: str) -> dict:
     return launches
 
 
+def shard_devices() -> list:
+    """The card's devices, repeated to SHARDS shards (8 logical shards on
+    one card, as the JAX tests run 8 virtual CPU devices)."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(SHARDS)]
+
+
+def sharded_paths(xc, xl, probe, chain, gate, mesh) -> list:
+    """(name, fn, launches it must make, (rows, n) of its input) of each
+    sharded path on one mesh. Every sharded STFT runs the full-nfft
+    spectrum kernel once a shard."""
+    from vv_dsp_tpu_torch import parallel as par
+    from vv_dsp_tpu_torch.ops import iir
+    from vv_dsp_tpu_torch.ops.fir import design_lowpass_np
+
+    c, b = mesh.shape["channel"], mesh.shape["block"]
+    tag = f"{c}x{b}"
+    spectrum = {"stft_spectrum_stockham": c * b}
+    h = design_lowpass_np(FILTER_TIER_TAPS, 0.3)
+    sos = iir.butter_sos(4, 0.2)
+    xl2 = xl + 2.0
+    full, long_ = (CHANNELS, N_CHAIN), (CHANNELS, N_LONG)
+    return [
+        (f"sharded_chain_fused_{tag}", lambda: chain.apply_sharded(xc, mesh),
+         spectrum, full),
+        (f"sharded_chain_staged_{tag}",
+         lambda: chain.apply_sharded(xc, mesh, fuse_halos=False), spectrum,
+         full),
+        (f"sharded_spectral_gate_{tag}", lambda: gate.apply_sharded(probe,
+                                                                    mesh),
+         spectrum, full),
+        (f"sharded_fir_{FILTER_TIER_TAPS}_{tag}",
+         lambda: par.fir_apply_sharded(h, xc, mesh), {}, full),
+        (f"sharded_iir_butter4_{tag}",
+         lambda: par.iir_apply_sharded(sos, xc, mesh), {}, full),
+        (f"sharded_resample_poly_4_3_{tag}",
+         lambda: par.resample_poly_sharded(xc, 4, 3, mesh), {}, full),
+        (f"sharded_savgol_31_3_{tag}",
+         lambda: par.savgol_filter_sharded(xc, *SAVGOL, mesh), {}, full),
+        (f"sharded_filtfilt_fir_{FILTER_TIER_TAPS}_{tag}",
+         lambda: par.filtfilt_fir_sharded(h, xc, mesh), {}, full),
+        (f"sharded_hilbert_{tag}",
+         lambda: par.hilbert_analytic_sharded(xl, mesh), {}, long_),
+        (f"sharded_cepstrum_{tag}",
+         lambda: par.cepstrum_real_sharded(xl2, mesh), {}, long_),
+    ]
+
+
+def sharded_checks(outs: dict, tag: str, xc, xl, probe, chain, gate,
+                   dense_chain, oracles: dict) -> None:
+    """Each sharded row against the dense port on the card: the chain at
+    2e-3 of scale and its fused halos against its staged path at 2e-4
+    (tests/test_parallel.py's limits), both also against the float64
+    chain oracle at the reference's 5e-5 of max|MFCC| (2 channels); the
+    gate against the dense gate and its float64 oracle at 5e-5 of scale
+    (on the probe); the ops at the JAX suite's allclose tolerances."""
+    from vv_dsp_tpu_torch.ops import envelope, fir, hilbert, iir, resample
+    from vv_dsp_tpu_torch.ops import savgol
+    from vv_dsp_tpu_torch.ops.fir import design_lowpass_np
+    from vv_dsp_tpu_torch.parallel import ShardedTensor
+
+    def host(t):
+        t = t.gather() if isinstance(t, ShardedTensor) else t
+        t = torch.view_as_real(t) if t.is_complex() else t
+        return t.cpu().numpy().astype(np.float64)
+
+    nf = dense_chain.shape[-2]
+    fused = host(outs[f"sharded_chain_fused_{tag}"])
+    staged = host(outs[f"sharded_chain_staged_{tag}"])
+    want = host(dense_chain)
+    for name, got in (("fused", fused), ("staged", staged)):
+        oracle_check(f"sharded chain {name} {tag} vs dense chain",
+                     got[:, :nf], want, SHARDED_CHAIN_TOL)
+        oracle_check(f"sharded chain {name} {tag} vs float64 oracle (2 ch)",
+                     got[:2, :nf], oracles["chain"], ORACLE_TOL)
+    oracle_check(f"sharded chain fused {tag} vs staged", fused, staged,
+                 FUSED_STAGED_TOL)
+    got = host(outs[f"sharded_spectral_gate_{tag}"])
+    oracle_check(f"sharded SpectralGate {tag} vs dense gate (probe)", got,
+                 host(gate(probe)), ORACLE_TOL)
+    oracle_check(f"sharded SpectralGate {tag} vs float64 oracle (probe, "
+                 "2 ch)", got[:2], oracles["gate"], ORACLE_TOL)
+    h = design_lowpass_np(FILTER_TIER_TAPS, 0.3)
+    dense = (
+        (f"sharded_fir_{FILTER_TIER_TAPS}_{tag}", fir.fir_apply(h, xc),
+         SHARDED_FIR_TOL),
+        (f"sharded_iir_butter4_{tag}",
+         iir.iir_apply(iir.butter_sos(4, 0.2), xc), SHARDED_IIR_TOL),
+        (f"sharded_resample_poly_4_3_{tag}", resample.resample_poly(xc, 4, 3),
+         SHARDED_RESAMPLE_TOL),
+        (f"sharded_savgol_31_3_{tag}", savgol.savgol_filter(xc, *SAVGOL),
+         SHARDED_RESAMPLE_TOL),
+        (f"sharded_filtfilt_fir_{FILTER_TIER_TAPS}_{tag}",
+         fir.filtfilt_fir(h, xc), SHARDED_FILTFILT_TOL),
+        (f"sharded_hilbert_{tag}", hilbert.hilbert_analytic(xl),
+         SHARDED_FFT_TOL),
+        (f"sharded_cepstrum_{tag}", envelope.cepstrum_real(xl + 2.0),
+         SHARDED_FFT_TOL))
+    for name, ref, tol in dense:
+        allclose_check(f"{name} vs dense", host(outs[name]), host(ref), tol,
+                       tol)
+
+
+def sharded_kernel_rows(paths) -> None:
+    """Kernel 9 against its plain version on the very blocks the sharded
+    spectrum paths give it (2048/512 on each chain shard's extended
+    block, 1024/256 on each gate shard's): each such path runs once more
+    with the blocks that reach ``parallel.ops.stft_local`` recorded, then
+    the first shard's block and the last's (whose right halo is zeros)
+    each go through stft_spectrum_stockham, its one launch counted, and
+    stft_spectrum_stockham_plain at STOCKHAM_TOL of scale."""
+    from vv_dsp_tpu_torch.ops import stockham_kernels as stk
+    from vv_dsp_tpu_torch.parallel import ops as pops
+
+    kernel = stk.stft_spectrum_stockham
+    plain_fn = stk.stft_spectrum_stockham_plain
+    local = pops.stft_local
+    seen, failed = [], []
+
+    def recording(ext, nfft, hop, window, nf_local, rfft=True):
+        seen.append((ext.contiguous(), (nfft, hop, window, rfft)))
+        return local(ext, nfft, hop, window, nf_local, rfft)
+
+    for name, fn, want, _ in paths:
+        if "stft_spectrum_stockham" not in want:
+            continue
+        seen.clear()
+        pops.stft_local = recording
+        try:
+            fn()
+        finally:
+            pops.stft_local = local
+        torch.cuda.synchronize()
+        if len(seen) != want["stft_spectrum_stockham"]:
+            raise AssertionError(f"{name}: {len(seen)} shard blocks, "
+                                 f"expected {want}")
+        for which, (x, args) in (("first", seen[0]), ("last", seen[-1])):
+            kernel.launches = 0
+            got = kernel(x, *args)
+            torch.cuda.synchronize()
+            if kernel.launches != 1:
+                raise AssertionError(f"{name} {which} shard: "
+                                     f"{kernel.launches} launches, "
+                                     f"expected 1")
+            label = (f"{name}, {which} shard's block {args[0]}/{args[1]} "
+                     f"{tuple(x.shape)} -> {tuple(got.shape)}")
+            record("stft_spectrum_stockham", label, got, plain_fn(x, *args),
+                   STOCKHAM_TOL, lambda: kernel(x, *args),
+                   lambda: plain_fn(x, *args), failed)
+    if failed:
+        raise AssertionError(f"kernel vs plain on sharded blocks: {failed}")
+
+
+def sharded_phase(xc, chain, card: str) -> dict:
+    """The sharded path at full width: every row on the (1, 8) and (2, 4)
+    meshes of the card's devices repeated to 8 shards, each with the
+    launch counters zeroed just before it and read just after, checked,
+    then timed (CUDA events, wall, device busy and idle share under
+    torch.profiler). Returns each kernel's launches summed over the
+    paths."""
+    from vv_dsp_tpu_torch import parallel as par
+    from vv_dsp_tpu_torch.models import SpectralGate
+    from vv_dsp_tpu_torch.tools.profile_path import busy_us, device_events
+
+    counters = kernel_counters()
+    rng = np.random.default_rng(15)
+    dev = xc.device
+    xl = torch.as_tensor(rng.standard_normal((CHANNELS, N_LONG)),
+                         dtype=torch.float32, device=dev)
+    probe64 = gate_probe(N_CHAIN, 15, channels=CHANNELS).astype(np.float64)
+    probe = torch.as_tensor(probe64, dtype=torch.float32, device=dev)
+    gate = SpectralGate(device=dev)
+    dense_chain = chain(xc)
+    oracles = {"chain": chain_oracle(xc[:2].cpu().double().numpy(), chain),
+               "gate": gate_oracle(probe64[:2], GATE_T)[0]}
+    launches = dict.fromkeys(counters, 0)
+    for shape in SHARD_MESHES:
+        mesh = par.make_mesh(*shape, devices=shard_devices())
+        tag = f"{shape[0]}x{shape[1]}"
+        print(f"sharded phase: {mesh}")
+        paths = sharded_paths(xc, xl, probe, chain, gate, mesh)
+        outs = {}
+        for name, fn, want, _ in paths:
+            for counted in counters.values():
+                counted.launches = 0
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            got = {k: f.launches for k, f in counters.items() if f.launches}
+            print(f"launches [{name}]: {got}")
+            if got != want:
+                raise AssertionError(f"{name} launched {got}, expected "
+                                     f"{want}")
+            for k, count in got.items():
+                launches[k] += count
+            vals = outs[name].gather()
+            vals = torch.view_as_real(vals) if vals.is_complex() else vals
+            assert torch.isfinite(vals).all().item(), f"non-finite {name}"
+        sharded_checks(outs, tag, xc, xl, probe, chain, gate, dense_chain,
+                       oracles)
+        del outs
+        sharded_kernel_rows(paths)
+        for name, fn, _, (rows, n) in paths:
+            ms = cuda_ms(fn, reps=3)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            wall = statistics.median(walls)
+            prof_wall, events = device_events(fn, 2)
+            busy = busy_us(events) / 1e3 / 2
+            idle = 1 - busy / (prof_wall * 1e3 / 2)
+            print(f"{name} {rows * n / ms / 1e3:.2f} Msamples/s (event "
+                  f"{ms:.4f} ms, wall {wall:.4f} ms, device busy "
+                  f"{busy:.4f} ms, idle share {idle:.4f}, {rows} x {n}, "
+                  f"{SHARDS} shards on {torch.cuda.device_count()} "
+                  f"device(s)) | {card}")
+    print(f"sharded launches, summed over the paths: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def io_phase(chain, card: str) -> dict:
+    """The WAV serving flow: N_WAV seeded 16-bit mono clips of N_CHAIN
+    samples written to a temporary directory under the checkout's build/,
+    decoded in one batch by both backends (bit-equal, and equal to the
+    16-bit quantization of the source), moved to the card and fed to
+    NorthStarChain (bit-equal to the chain on the clips read one by one);
+    then WAV -> SpectralGate -> write_wav -> read_wav, held to the gate's
+    output at 16-bit quantization. Counters as in the slice phase.
+    Returns each kernel's launches summed over the flows."""
+    import tempfile
+    from vv_dsp_tpu_torch import io as tio
+    from vv_dsp_tpu_torch.io import wav as twav
+    from vv_dsp_tpu_torch.models import SpectralGate
+
+    counters = kernel_counters()
+    launches = dict.fromkeys(counters, 0)
+    dev = chain.head_taps.device
+    rng = np.random.default_rng(16)
+    clips = rng.uniform(-0.5, 0.5, (N_WAV, N_CHAIN)).astype(np.float32)
+    quantized = (np.clip(np.rint(clips.astype(np.float64) * 32768.0),
+                         -32768, 32767) / 32768.0).astype(np.float32)
+    gate = SpectralGate(device=dev)
+
+    def counted(name, fn, want):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: f.launches for k, f in counters.items() if f.launches}
+        print(f"launches [{name}]: {got}")
+        if got != want:
+            raise AssertionError(f"{name} launched {got}, expected {want}")
+        for k, count in got.items():
+            launches[k] += count
+        return out
+
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        paths = [os.path.join(tmp, f"clip{i:02d}.wav") for i in range(N_WAV)]
+        for p, clip in zip(paths, clips):
+            tio.write_wav(p, clip, 48000, format=16)
+        if twav._get_lib() is None:
+            raise AssertionError("the native WAV codec did not build")
+        batches = {}
+        for backend in ("native", "numpy"):
+            saved = twav._get_lib
+            if backend == "numpy":
+                twav._get_lib = lambda: None
+            try:
+                secs = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    batches[backend] = tio.read_wav_batch(paths)
+                    secs.append(time.perf_counter() - t0)
+            finally:
+                twav._get_lib = saved
+            sec = statistics.median(secs)
+            print(f"io decode {backend} {N_WAV * N_CHAIN / sec / 1e6:.2f} "
+                  f"Msamples/s (read_wav_batch of {N_WAV} 16-bit mono "
+                  f"clips of {N_CHAIN} samples on the host, median of 3: "
+                  f"{sec * 1e3:.2f} ms) | {card}")
+        batch = batches["native"]
+        if not torch.equal(batch.data, batches["numpy"].data):
+            raise AssertionError("the two decode backends disagree")
+        if not (batch.ok and (batch.frames == N_CHAIN).all().item()
+                and (batch.rates == 48000).all().item()):
+            raise AssertionError(f"batch decode: frames {batch.frames}, "
+                                 f"rates {batch.rates}")
+        decoded = batch.data[:, 0]
+        if not np.array_equal(decoded.numpy(), quantized):
+            raise AssertionError("decoded clips differ from the source's "
+                                 "16-bit quantization")
+        feats = counted("io_wav_batch_chain",
+                        lambda: chain(decoded.to(dev)),
+                        {"upfirdn_banded": 1, "stft_mfcc": 1})
+        one_by_one = torch.stack([tio.read_wav(p)[0][0] for p in paths])
+        same = torch.equal(feats, chain(one_by_one.to(dev)))
+        print(f"io: the WAV-fed chain {tuple(feats.shape)} bit-equal to the "
+              f"chain on the clips read one by one: {same}")
+        if not same:
+            raise AssertionError("the WAV-fed chain differs")
+        y = counted("io_wav_spectral_gate", lambda: gate(decoded.to(dev)),
+                    {"stft_spectrum": 1, "istft": 1})
+        out = os.path.join(tmp, "gated.wav")
+        tio.write_wav(out, y, 48000, format=16)
+        back, sr = tio.read_wav(out)
+        y64 = y.cpu().double().numpy()
+        want = np.clip(np.rint(y64 * 32768.0), -32768, 32767) / 32768.0
+        err = np.abs(back.double().numpy() - y64).max()
+        exact = np.array_equal(back.numpy(), want.astype(np.float32))
+        print(f"io: WAV -> SpectralGate -> write_wav -> read_wav "
+              f"{tuple(back.shape)} at {sr} Hz: max |read - gate| "
+              f"{err:.3e} (limit 0.5/32768 = {0.5 / 32768:.3e}), the "
+              f"16-bit quantization of the gate's output bit for bit: "
+              f"{exact}")
+        if not (exact and err <= 0.5 / 32768 and sr == 48000):
+            raise AssertionError("the gated WAV differs from the gate's "
+                                 "output at 16-bit quantization")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2657,6 +3023,13 @@ def main() -> None:
     for name, count in analysis_phase(xc, card).items():
         launches[name] += count
     torch.cuda.synchronize()
+    for label, phase in (("sharded", lambda: sharded_phase(xc, chain, card)),
+                         ("io", lambda: io_phase(chain, card))):
+        t0 = time.perf_counter()
+        for name, count in phase().items():
+            launches[name] += count
+        torch.cuda.synchronize()
+        print(f"{label} phase: {time.perf_counter() - t0:.1f} s")
 
     sources = {
         "upfirdn_banded": ("vv_dsp_tpu_torch/csrc/upfirdn.cu",

@@ -287,15 +287,15 @@ def test_stats_two_argument_forms_match_jax(sig):
 
 # ---- exports ----
 
-# the names vv_dsp_tpu/__init__.py exports, and its lazy models and
-# streaming (the port has no parallel yet: ROADMAP Queue 1)
+# the names vv_dsp_tpu/__init__.py exports, and its lazy models,
+# streaming, parallel and io
 JAX_EXPORTS = (
     "config", "NanPolicy", "apply_nan_policy", "get_window", "WINDOW_NAMES",
     "window", "complex_ops", "stats", "framing", "fft", "stft", "dct", "czt",
     "hilbert", "fir", "iir", "savgol", "resample", "envelope", "mel",
     "fft_c2c", "ifft", "rfft", "irfft", "fftshift", "ifftshift",
     "phase_wrap", "phase_unwrap", "STFT", "stft_spectrogram", "num_frames",
-    "fetch_frames", "overlap_add", "models", "streaming")
+    "fetch_frames", "overlap_add", "models", "streaming", "parallel", "io")
 
 
 def test_package_exports_without_jax_or_kernels():
@@ -315,4 +315,4 @@ def test_package_exports_without_jax_or_kernels():
         assert hasattr(tpkg, name), name
     assert tpkg.fft_c2c is tfft.fft and tpkg.NanPolicy is tnan.NanPolicy
     with pytest.raises(AttributeError):
-        tpkg.parallel
+        tpkg.no_such_module

@@ -1971,3 +1971,98 @@ def test_entry_points_take_strided_input_on_card(dev, gen):
         got, want = call(x), call(xc)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+# ---- the sharded path and the WAV I/O on the card ----
+
+def _card_mesh(shape, dev):
+    from vv_dsp_tpu_torch import parallel as tpar
+    return tpar.make_mesh(*shape, devices=[dev] * 8)
+
+
+@pytest.mark.parametrize("shape", [(1, 8), (2, 4)])
+def test_sharded_chain_and_gate_on_card(dev, gen, shape):
+    """NorthStarChain and SpectralGate.apply_sharded on 8 shards of one
+    card against the dense port: the chain at 2e-3 of scale (fused and
+    staged halos), fused against staged at 2e-4 (tests/test_parallel.py's
+    limits), the gate on a tone probe (every bin clear of the threshold)
+    at 5e-5 of scale; each runs the full-nfft spectrum kernel once a
+    shard, c*b launches a call."""
+    mesh = _card_mesh(shape, dev)
+    c, b = shape
+    chain = NorthStarChain(device=dev)
+    x = torch.as_tensor(gen.standard_normal((2, 8 * 2048 * 3)),
+                        dtype=torch.float32, device=dev)
+    dense = chain(x)
+    outs = {}
+    for fused in (True, False):
+        before = tstk.stft_spectrum_stockham.launches
+        outs[fused] = chain.apply_sharded(x, mesh, fuse_halos=fused).gather()
+        torch.cuda.synchronize()
+        assert tstk.stft_spectrum_stockham.launches - before == c * b
+    scale = dense.abs().max().item()
+    nf = dense.shape[-2]
+    for got in outs.values():
+        assert got.device == dev
+        assert (got[:, :nf] - dense).abs().max().item() < 2e-3 * scale
+    assert (outs[True] - outs[False]).abs().max().item() < 2e-4 * scale
+    n = 24000
+    t = np.arange(n)
+    probe = sum(a * np.cos(2 * np.pi * k * t / 1024 + p)
+                for k, a, p in ((40, 1.0, 0.3), (97, 0.7, 1.1),
+                                (211, 0.02, 2.0)))
+    probe = torch.as_tensor(np.stack([probe, probe[::-1].copy()]) + 1e-4
+                            * gen.standard_normal((2, n)),
+                            dtype=torch.float32, device=dev)
+    gate = SpectralGate(device=dev)
+    before = tstk.stft_spectrum_stockham.launches
+    got = gate.apply_sharded(probe, mesh).gather()
+    torch.cuda.synchronize()
+    assert tstk.stft_spectrum_stockham.launches - before == c * b
+    want = gate(probe)
+    assert got.shape == want.shape
+    assert _rel(got, want) < 5e-5
+
+
+def test_sharded_stft_on_card_matches_cpu(dev, gen):
+    """stft_process_sharded on the card (the kernel on each shard, c*b
+    launches) equals the same call on a CPU mesh (the plain version);
+    hop not dividing nfft takes the gather framing, launching nothing."""
+    from vv_dsp_tpu_torch import parallel as tpar
+    x = torch.as_tensor(gen.standard_normal((4, 16384)), dtype=torch.float32)
+    cpu = tpar.make_mesh(2, 4, devices=[torch.device("cpu")] * 8)
+    before = tstk.stft_spectrum_stockham.launches
+    got = tpar.stft_process_sharded(x.to(dev), 1024, 256,
+                                    _card_mesh((2, 4), dev))
+    torch.cuda.synchronize()
+    assert tstk.stft_spectrum_stockham.launches - before == 8
+    want = tpar.stft_process_sharded(x, 1024, 256, cpu).gather()
+    assert _cplx_rel(got.gather(), want) < 5e-5
+    before = tstk.stft_spectrum_stockham.launches
+    got = tpar.stft_process_sharded(x[:, :10240].to(dev), 512, 160,
+                                    _card_mesh((1, 8), dev), pad=True)
+    assert tstk.stft_spectrum_stockham.launches == before
+    want = tpar.stft_process_sharded(
+        x[:, :10240], 512, 160,
+        tpar.make_mesh(1, 8, devices=[torch.device("cpu")] * 8), pad=True)
+    assert _cplx_rel(got.gather(), want.gather()) < 5e-5
+
+
+def test_make_mesh_takes_the_cards_and_dryrun(dev):
+    from vv_dsp_tpu_torch import parallel as tpar
+    from vv_dsp_tpu_torch.parallel.dryrun import dryrun_multichip
+    mesh = tpar.make_mesh()
+    assert mesh.shape["block"] == torch.cuda.device_count()
+    assert all(d.type == "cuda" for row in mesh.devices for d in row)
+    dryrun_multichip(8)
+
+
+def test_write_wav_takes_a_card_tensor(dev, gen, tmp_path):
+    from vv_dsp_tpu_torch import io as tio
+    y = torch.as_tensor(gen.uniform(-0.9, 0.9, (2, 4801)),
+                        dtype=torch.float32, device=dev)
+    p = tmp_path / "card.wav"
+    tio.write_wav(p, y, 48000, format=0)
+    back, sr = tio.read_wav(p)
+    assert sr == 48000 and back.device.type == "cpu"
+    assert torch.equal(back, y.cpu())

@@ -242,6 +242,12 @@ def test_port_never_imports_jax():
             "filter_kernels.py", "shapes.py", "hilbert.py", "czt.py",
             "envelope.py", "iir.py", "streaming.py", "checkpoint.py",
             "streaming_chain.py", "device.py"} <= {p.name for p in files}
+    names = {str(p.relative_to(REPO)) for p in files}
+    assert {f"vv_dsp_tpu_torch/parallel/{m}.py" for m in (
+        "__init__", "mesh", "sharded", "halo", "ops", "fft", "dryrun")} \
+        <= names
+    assert {f"vv_dsp_tpu_torch/io/{m}.py" for m in (
+        "__init__", "wav", "batch")} <= names
     for path in files:
         for mod in _imported_modules(path):
             root = mod.split(".")[0]

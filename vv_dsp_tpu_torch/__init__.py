@@ -7,9 +7,9 @@ This package never imports jax.
 
 The top level re-exports what ``vv_dsp_tpu`` does, as far as the port has
 it. ``config`` and the NaN policy load with the package; the ops,
-``streaming`` and the subpackages (``models``, ``ops``, ``tools``) load on
-first access, so ``import vv_dsp_tpu_torch`` builds no kernel and loads no
-op module.
+``streaming`` and the subpackages (``models``, ``ops``, ``parallel``,
+``io``, ``tools``) load on first access, so ``import vv_dsp_tpu_torch``
+builds no kernel and loads no op module.
 """
 
 import importlib
@@ -22,6 +22,8 @@ __version__ = "0.1.0"
 _SUBMODULES = {
     "models": "vv_dsp_tpu_torch.models",
     "ops": "vv_dsp_tpu_torch.ops",
+    "parallel": "vv_dsp_tpu_torch.parallel",
+    "io": "vv_dsp_tpu_torch.io",
     "streaming": "vv_dsp_tpu_torch.streaming",
     "tools": "vv_dsp_tpu_torch.tools",
     **{name: f"vv_dsp_tpu_torch.ops.{name}" for name in (

@@ -26,6 +26,7 @@ back to back (the same numbers).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -45,6 +46,9 @@ from vv_dsp_tpu_torch.ops import stockham_kernels as _stk
 from vv_dsp_tpu_torch.ops.framing import stft_num_frames
 from vv_dsp_tpu_torch.ops.upfirdn import polyphase_table_np
 from vv_dsp_tpu_torch.ops.window import get_window_np
+from vv_dsp_tpu_torch.parallel import halo as _halo
+from vv_dsp_tpu_torch.parallel import ops as _par
+from vv_dsp_tpu_torch.parallel.sharded import ShardedTensor, shard
 from vv_dsp_tpu_torch.utils.device import build_device as _build_device
 from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
 
@@ -117,9 +121,10 @@ class NorthStarChain(nn.Module):
         if params is None:
             params = chain_params(fir_taps, fir_cutoff, up, down, nfft, n_mels,
                                   n_mfcc, sample_rate, window)
-        # host copy: the staged tail correction and the staged head's route
-        # are built from it
+        # host copies: the staged tail correction and the staged head's
+        # route are built from the taps, the sharded STFT from the window
         self.fir_coeffs = np.asarray(params["fir_coeffs"])
+        self.window_np = np.asarray(params["window"], dtype=np.float64)
 
         up_r = up // math.gcd(up, down)
         self.register_buffer("head_taps", _buffer(
@@ -147,6 +152,122 @@ class NorthStarChain(nn.Module):
                                    self.mel_fb, self.mel_bands,
                                    self.dct_lift, 1e-10,
                                    self.stft_algorithm)
+
+    def apply_sharded(self, x, mesh, fuse_halos: bool = True
+                      ) -> ShardedTensor:
+        """The chain over a (channel, block) mesh: (channels, n), a global
+        tensor or a ``ShardedTensor``, -> (channels, frames, n_mfcc) with
+        the frame axis sharded. The STFT of every shard runs on the
+        full-nfft spectrum kernel (kernel 9) where its geometry takes it
+        (2048/512 does), the mel/MFCC products on each shard's power (they
+        contract the bin axis alone), in float32 whatever the tiers.
+
+        fuse_halos=True (the default) runs the whole head from one left and
+        one right exchange of the raw signal, sized from the dependency
+        cone (``fused_head_plan``); each shard recomputes the ~1% of
+        boundary work. Where the geometry does not divide evenly it gives
+        way to the staged path, whose FIR, resampler and STFT each take
+        their own halos, as the JAX chain does. As there, both heads run
+        in float32 (``fir_apply_mxu`` and the polyphase gather's
+        products), not at head_algorithm's tier."""
+        if fuse_halos:
+            try:
+                key = self._fused_geometry(x.shape[-1], mesh.shape["block"])
+            except ValueError:
+                key = None
+            if key is not None:
+                return self._apply_sharded_fused(x, mesh, key)
+        y = _par.fir_apply_sharded(self.fir_coeffs, x, mesh)
+        y = _par.resample_poly_sharded(y, self.up, self.down, mesh)
+        spec = _par.stft_shards(y, self.nfft, self.hop, self.window_np)
+        return spec.map(self._mfcc_of_spectrum)
+
+    def _mfcc_of_spectrum(self, spec: torch.Tensor) -> torch.Tensor:
+        """MFCCs of one shard's one-sided spectrum: power, mel, log, the
+        liftered DCT rows."""
+        power = spec.abs().square()
+        mel = power @ self.mel_fb.to(spec.device).T
+        return torch.log(mel + 1e-10) @ self.dct_lift.to(spec.device).T
+
+    def _fused_geometry(self, n: int, nb: int) -> tuple:
+        """The key of ``fused_head_plan`` for n samples over nb block
+        shards, or ValueError where the shards do not divide evenly."""
+        g = math.gcd(self.up, self.down)
+        up, down = self.up // g, self.down // g
+        if n % (nb * down):
+            raise ValueError("length must divide n_blocks * down")
+        if n // nb * up // down % self.hop:
+            raise ValueError("per-shard resampled length must divide hop")
+        return (len(self.fir_coeffs), up, down, self.nfft, self.hop, n, nb)
+
+    def _apply_sharded_fused(self, x, mesh, key: tuple) -> ShardedTensor:
+        """One combined halo exchange for the whole head (apply_sharded):
+        the FIR over the extended block, its ring-out past the signal's
+        end masked, the polyphase gather, the resampled lookahead past
+        the end masked, then the shard's STFT."""
+        plan = fused_head_plan(*key)
+        n, t, hl = plan["n"], plan["t"], plan["hl"]
+        out_local, n2 = plan["out_local"], plan["n2"]
+        h = np.asarray(self.fir_coeffs, dtype=np.float64)
+        xs = shard(x, mesh)
+
+        def run(row):
+            out = []
+            for k, (xb, left, right) in enumerate(zip(
+                    row, _halo.halo_from_left(row, hl),
+                    _halo.halo_from_right(row, plan["hr"]))):
+                ext = torch.cat([left, xb, right], dim=-1)
+                # the FIR's ring-out past the global end is not part of the
+                # staged semantics (the resampler zero-pads beyond n)
+                yf = _zero_from(_fir.fir_apply_mxu(h, ext), n - (k * t - hl))
+                idx = _par.table_on(_par.resample_index, plan["gather"],
+                                    torch.int64, xb.device)
+                y2 = torch.einsum(
+                    "...ot,ot->...o", yf[..., idx],
+                    _par.table_on(_par.resample_weights, plan["gather"],
+                                  xb.dtype, xb.device))
+                # resampled lookahead past n2 is zero in the staged path
+                y2 = _zero_from(y2, n2 - k * out_local)
+                window = _par.window_on(self.window_np, y2.dtype, y2.device)
+                out.append(_par.stft_local(y2, self.nfft, self.hop, window,
+                                           plan["nf_local"]))
+            return out
+
+        spec = ShardedTensor([run(list(row)) for row in xs.shards], -2)
+        return spec.map(self._mfcc_of_spectrum)
+
+
+@functools.lru_cache(maxsize=16)
+def fused_head_plan(fir_taps: int, up: int, down: int, nfft: int, hop: int,
+                    n: int, nb: int) -> dict:
+    """The fused sharded head's halos and the key of its polyphase gather
+    over the FIR-extended block (``parallel.ops._resample_plan`` with the
+    whole extended output count and the head's left halo; up/down
+    reduced). Dependency cone: a local STFT
+    frame needs nfft - hop resampled samples of lookahead; resampled
+    output j reads FIR output (half_len + j*down)//up - i for the taps_pp
+    polyphase taps; the FIR is causal with fir_taps - 1 of history. The
+    anchors are the same on every shard because t_local*up is a multiple
+    of down*up (as in ``resample_poly_sharded``)."""
+    t = n // nb
+    out_local = t * up // down
+    half_len, hpp = _par.resample_geometry(up, down)
+    taps_pp = hpp.shape[1]
+    ext_out = out_local + nfft - hop
+    # deep halos from the dependency cone, one sample of margin each
+    hl = fir_taps - 1 + max(0, taps_pp - 1 - half_len // up) + 1
+    hr = max(0, (half_len + (ext_out - 1) * down) // up - (t - 1)) + 1
+    return {"n": n, "t": t, "out_local": out_local, "n2": n * up // down,
+            "hl": hl, "hr": hr, "gather": (up, down, ext_out, hl),
+            "nf_local": out_local // hop}
+
+
+def _zero_from(y: torch.Tensor, m: int) -> torch.Tensor:
+    """y with positions m onward along the last axis zeroed."""
+    m = max(m, 0)
+    if m >= y.shape[-1]:
+        return y
+    return F.pad(y[..., :m], (0, y.shape[-1] - m))
 
 
 def gate_route(nfft: int, hop: int) -> str:
@@ -239,6 +360,33 @@ class SpectralGate(nn.Module):
         else:
             out = kernel_with_torch_vjp(fast, plain)(xp)
         return out[..., pad:pad + n]
+
+    def _gate(self, spec: torch.Tensor) -> torch.Tensor:
+        """Zero every bin whose magnitude is below threshold x its frame's
+        peak magnitude (the JAX gate of the sharded path)."""
+        mag = spec.abs()
+        peak = mag.amax(dim=-1, keepdim=True)
+        return torch.where(mag >= self.threshold * peak, spec,
+                           torch.zeros_like(spec))
+
+    def apply_sharded(self, x, mesh) -> ShardedTensor:
+        """The gate over a (channel, block) mesh: (channels, n) ->
+        (channels, n) with the time axis sharded. The input is edge-padded
+        by nfft - hop at both ends (as ``forward``) and zero-padded to
+        whole hops of every shard; the frame-sharded analysis runs the
+        full-nfft spectrum kernel on every shard where the geometry takes
+        it (1024/256 does), then the gate per frame, the sharded
+        overlap-add and the crop back to n."""
+        if isinstance(x, ShardedTensor):
+            x = x.gather()
+        n, pad = x.shape[-1], self.edge_pad
+        whole = mesh.shape["block"] * self.hop
+        xp = F.pad(x, (pad, pad + (-(n + 2 * pad)) % whole))
+        spec = _par.stft_shards(shard(xp, mesh), self.nfft, self.hop,
+                                self.window_np)
+        out = _par.reconstruct_shards(spec.map(self._gate), self.nfft,
+                                      self.hop, self.window_np)
+        return out.crop(pad, pad + n)
 
 
 def frontend_params(nfft: int = 1024, n_mels: int = 26, n_mfcc: int = 13,

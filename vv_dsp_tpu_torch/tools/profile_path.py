@@ -21,7 +21,10 @@ streaming tier, which launches none of the port's kernels: iir_apply of a
 4th-order Butterworth (the block state-space path) and the Hilbert
 envelope on (16, 479232), each ``calls`` times back to back under
 torch.profiler, and StreamingNorthStar over (16, 491520) in blocks of
-1,536 and 24,576 samples, twice each. For each it prints, per call:
+1,536 and 24,576 samples, twice each, and on 8 shards of one card (a 1x8
+mesh) the sharded chain with fused and with staged halos, the sharded
+SpectralGate, IIR, FIR at 1,024 taps and resampler at 4/3 on
+(16, 479232), five times each. For each it prints, per call:
 
 - wall: host time of the loop, synchronized at its end;
 - busy: the union of the trace's kernel, memcpy and memset intervals, so
@@ -180,6 +183,20 @@ def main(argv=None) -> int:
         report(f"streaming_north_star_block{block}, a call of "
                f"{491520 // block} blocks", lambda: stream.process_blocks(
                    stream.init((16,), device=dev), xst, block), 2)
+    from vv_dsp_tpu_torch import parallel as par
+    mesh = par.make_mesh(1, 8, devices=[dev] * 8)
+    h1024 = design_lowpass_np(1024, 0.3)
+    for name, fn in (
+            ("chain", lambda: chain.apply_sharded(xc, mesh)),
+            ("chain, staged halos",
+             lambda: chain.apply_sharded(xc, mesh, fuse_halos=False)),
+            ("SpectralGate", lambda: gate.apply_sharded(xc, mesh)),
+            ("iir_butter4", lambda: par.iir_apply_sharded(sos, xc, mesh)),
+            ("fir 1024 taps", lambda: par.fir_apply_sharded(h1024, xc,
+                                                            mesh)),
+            ("resample_poly 4/3",
+             lambda: par.resample_poly_sharded(xc, 4, 3, mesh))):
+        report(f"sharded {name}, 1x8 shards on one card", fn, 5)
     return 0
 
 

@@ -148,7 +148,22 @@ Phases, each fatal on failure:
    NorthStarChain, bit-equal to the chain on the clips read one by one
    ({upfirdn_banded: 1, stft_mfcc: 1}), and WAV -> SpectralGate ->
    write_wav -> read_wav ({stft_spectrum: 1, istft: 1}), equal to the
-   16-bit quantization of the gate's output.
+   16-bit quantization of the gate's output;
+8. tools: the user surfaces. Each of the 12 CLI tools
+   (vv_dsp_tpu_torch.tools) in this process on fixture files written from
+   a seed, on the card and again with --cpu, the two held to each other
+   at the CPU tests' limits (each launching no kernel: the tools run the
+   plain entry points on cuFFT and elementwise ops), and bench_czt 4096
+   4096 20 on the card (Peak bin: 37); the six example twins
+   (vv_dsp_tpu_torch.examples) at their default sizes on the card, each
+   with the counters zeroed just before it and read just after
+   (SpectralGate's {stft_spectrum: 1, istft: 1}, MFCCFrontend's
+   stft_mfcc, the sharded chain's stft_spectrum_stockham a shard), and
+   again on the CPU, held to each other, each with its wall time; then
+   utils.profiling: the chain's BenchResult beside cuda_ms,
+   detect_chip() == "h100", a Chrome trace of one chain call, and the
+   chain's FIR, STFT and resampler rooflines against those calls' times,
+   each also against the section 6 bound of the same call.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, without a
 CUDA device or outside a checkout of the repository.
@@ -290,6 +305,32 @@ SHARDED_RESAMPLE_TOL = 2e-4    # resample_poly and savgol
 SHARDED_FILTFILT_TOL = 5e-4
 SHARDED_FFT_TOL = 1e-3         # Hilbert and the cepstrum
 N_WAV = 16                     # the I/O phase's clips
+# the tools phase: each CLI tool on the card against its --cpu run, at the
+# CPU tests' limits (tests/test_torch_tools.py): 5e-5 of the larger
+# max |value| for the FFT class (dump_stft_roundtrip before its w^2 norm),
+# 1e-5 for the filters and resamplers; each example twin at its default
+# size on the card against its CPU run, at the limits of the port's tests
+# of its calls (tests/test_torch_examples.py): SpectralGate 5e-5 of scale
+# (the FFT class: the tone clears the threshold in every frame), MFCCs
+# 5e-4 absolute or MFCC_TOL of scale, whichever is larger
+# (tests/test_torch_cuda.py), also wav_mfcc's c0 mean, whose MFCCs (two
+# tones over 16-bit quantization noise, bands 1e-11 of the peak) are held
+# within twice the CPU run's own distance from float64 (PERF.md), the
+# filters 1e-5 of max |y|, the sharded FIR
+# and IIR 2e-5 and 1e-4 from dense; the precision tiers' errors against
+# "highest" under 1e-6 (highest), 1e-4 (bf16x3), 1e-2 (bf16)
+TOOL_FFT_TOL = 5e-5
+TOOL_FILTER_TOL = 1e-5
+MFCC_ATOL = 5e-4
+TIER_BOUNDS = {"highest": 1e-6, "high": 1e-4, "default": 1e-2}
+BENCH_CZT = ("4096", "4096", "20")
+# each example twin's kernel launches at its default size
+EXAMPLE_LAUNCHES = {"stft_pipeline": {"stft_spectrum": 1, "istft": 1},
+                    "wav_mfcc": {"stft_mfcc": 1},
+                    "serving": {"stft_mfcc": 5},    # 4 batches + warm-up
+                    "filter": {},
+                    "precision": {"stft_mfcc": 4},
+                    "multichip": {"stft_spectrum_stockham": 8}}
 
 
 def device_phase() -> str:
@@ -2816,9 +2857,28 @@ def sharded_kernel_rows(paths) -> None:
                                      f"expected 1")
             label = (f"{name}, {which} shard's block {args[0]}/{args[1]} "
                      f"{tuple(x.shape)} -> {tuple(got.shape)}")
-            record("stft_spectrum_stockham", label, got, plain_fn(x, *args),
-                   STOCKHAM_TOL, lambda: kernel(x, *args),
-                   lambda: plain_fn(x, *args), failed)
+            r = record("stft_spectrum_stockham", label, got,
+                       plain_fn(x, *args), STOCKHAM_TOL,
+                       lambda: kernel(x, *args), lambda: plain_fn(x, *args),
+                       failed)
+            # the bound and torch.stft on the same block: the frames the
+            # kernel writes, (nf - 1) * hop + nfft samples of the block
+            nfft, hop, window, rfft = args
+            nf = got.shape[1]
+            span = (nf - 1) * hop + nfft
+            xin = torch.nn.functional.pad(
+                x, (0, max(0, span - x.shape[-1])))[..., :span]
+            lib = lambda: torch.stft(xin, nfft, hop, window=window,
+                                     center=False, onesided=rfft,
+                                     return_complex=True)
+            lib_ms = cuda_ms(lib)
+            b = bound(4 * x.numel() + got.element_size() * got.numel(),
+                      fft_flops(x.shape[0] * nf, nfft), F32_FLOP_PER_S)
+            print(f"  [{label}] kernel {r['ms']:.4f} ms, torch.stft "
+                  f"{lib_ms:.4f} ms (layout c, bins, frames), bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}: "
+                  f"{4 * x.numel() / 1e6:.2f} MB in, "
+                  f"{got.element_size() * got.numel() / 1e6:.2f} MB out)")
     if failed:
         raise AssertionError(f"kernel vs plain on sharded blocks: {failed}")
 
@@ -2996,6 +3056,328 @@ def io_phase(chain, card: str) -> dict:
     return launches
 
 
+def tool_cases(d: str) -> list:
+    """(label, tool, argv, tolerance, stdin file) of the tools phase: every
+    tool on fixture files written from a seed into d."""
+    rng = np.random.default_rng(21)
+    reals = (rng.random(4096) * 2 - 1).astype(np.float32)
+    cplx = (rng.random(1024) + 1j * rng.random(1024)).astype(np.complex64)
+    files = {"reals": [f"{v:.9g}" for v in reals],
+             "complex": [f"{v.real:.9g},{v.imag:.9g}" for v in cplx],
+             "half": [f"{v.real:.9g},{v.imag:.9g}"
+                      for v in np.fft.rfft(reals[:1024])]}
+    for name, lines in files.items():
+        with open(os.path.join(d, f"{name}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    f = {k: os.path.join(d, f"{k}.txt") for k in files}
+    w = np.exp(-2j * math.pi / 256)
+    fft_t, filt_t = TOOL_FFT_TOL, TOOL_FILTER_TOL
+    return [
+        ("c2c fwd 1024", "dump_fft", ["--type", "c2c", "-n", "1024",
+                                      "--infile", f["complex"]], fft_t, None),
+        ("c2c inv 1000", "dump_fft", ["--type", "c2c", "--dir", "inv", "-n",
+                                      "1000", "--infile", f["complex"]],
+         fft_t, None),
+        ("r2c 4096", "dump_fft", ["--type", "r2c", "-n", "4096", "--infile",
+                                  f["reals"]], fft_t, None),
+        ("c2r 1024", "dump_fft", ["--type", "c2r", "--dir", "inv", "-n",
+                                  "1024", "--infile", f["half"]], fft_t,
+         None),
+        ("dct2 fwd 1000", "dump_dct", ["--type", "2", "-n", "1000",
+                                       "--infile", f["reals"]], fft_t, None),
+        ("dct2 inv 1024", "dump_dct", ["--type", "2", "--dir", "inv", "-n",
+                                       "1024", "--infile", f["reals"]],
+         fft_t, None),
+        ("dct4 fwd 512", "dump_dct", ["--type", "4", "-n", "512",
+                                      "--infile", f["reals"]], fft_t, None),
+        ("czt 256", "dump_czt", ["--N", "256", "--M", "256", "--Wre",
+                                 str(w.real), "--Wim", str(w.imag),
+                                 "--infile", f["reals"]], fft_t, None),
+        ("czt complex zoom", "dump_czt", ["--N", "1024", "--M", "128",
+                                          "--Wre", str(math.cos(0.001)),
+                                          "--Wim", str(-math.sin(0.001)),
+                                          "--Are", "0.8", "--Aim", "0.6",
+                                          "--infile", f["complex"],
+                                          "--complex"], fft_t, None),
+        ("hilbert 4096", "dump_hilbert", ["-n", "4096", "--fs", "48000",
+                                          "--f", "1000", "--phase", "0.3"],
+         fft_t, None),
+        ("autocorr 2048", "dump_stats", ["autocorr", "2048", "0"], fft_t,
+         f["reals"]),
+        ("fir 255 taps", "dump_fir", ["--num-taps", "255", "--cutoff", "0.2",
+                                      "--win", "hann", "--n", "4096",
+                                      "--infile", f["reals"]], filt_t, None),
+        ("fir coeffs 255", "dump_fir_coeffs", ["--num-taps", "255",
+                                               "--cutoff", "0.2", "--win",
+                                               "blackman"], filt_t, None),
+        ("biquad 4096", "dump_iir", ["--b0", "0.2929", "--b1", "0.5858",
+                                     "--b2", "0.2929", "--a1", "-0.0",
+                                     "--a2", "0.1716", "--n", "4096",
+                                     "--infile", f["reals"]], filt_t, None),
+        ("linear 3/2", "dump_resample", ["--num", "3", "--den", "2",
+                                         "--quality", "linear", "--infile",
+                                         f["reals"]], filt_t, None),
+        ("sinc:32 2/1", "dump_resample", ["--num", "2", "--den", "1",
+                                          "--quality", "sinc:32", "--infile",
+                                          f["reals"]], filt_t, None),
+        ("stft roundtrip 1024/256", "dump_stft_roundtrip",
+         ["--fft", "1024", "--hop", "256", "--win", "hann", "--n", "4096",
+          "--infile", f["reals"]], fft_t, None),
+        ("mfcc", "dump_mfcc", [], fft_t, None),
+        ("mfcc 2048/80/20", "dump_mfcc", ["--n-fft", "2048", "--n-mels",
+                                          "80", "--n-mfcc", "20",
+                                          "--sample-rate", "48000"], fft_t,
+         None),
+    ]
+
+
+def run_tool(tool: str, argv: list, stdin_path) -> tuple[int, str, str]:
+    """(rc, stdout, stderr) of a port tool's main(argv), in this process."""
+    import importlib
+    import io
+    mod = importlib.import_module(f"vv_dsp_tpu_torch.tools.{tool}")
+    out, err = io.StringIO(), io.StringIO()
+    saved = sys.stdin
+    if stdin_path:
+        with open(stdin_path) as f:
+            sys.stdin = io.StringIO(f.read())
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = mod.main(list(argv))
+    finally:
+        sys.stdin = saved
+    return rc, out.getvalue(), err.getvalue()
+
+
+def tool_values(out: str) -> np.ndarray:
+    """Every number on every line of a tool's stdout that is not a '#'
+    header ('re,im' gives two)."""
+    return np.asarray([float(v) for line in out.splitlines()
+                       if line.strip() and not line.startswith("#")
+                       for v in line.replace(",", " ").split()])
+
+
+def ola_norm64(argv: list) -> np.ndarray:
+    """dump_stft_roundtrip's w^2 overlap-add norm in float64."""
+    from vv_dsp_tpu_torch.ops.window import get_window_np
+    flags = dict(zip(argv[::2], argv[1::2]))
+    nfft, hop, n = int(flags["--fft"]), int(flags["--hop"]), int(flags["--n"])
+    w2 = get_window_np(flags["--win"], nfft) ** 2
+    norm = np.zeros(n)
+    for i in range(0 if n < nfft else (n - nfft) // hop + 1):
+        norm[i * hop:i * hop + nfft] += w2
+    return norm
+
+
+def mfcc_limit(want: np.ndarray) -> float:
+    """The MFCC limit of a card run against a CPU run: 5e-4 absolute or
+    MFCC_TOL of scale, whichever is larger (tests/test_torch_cuda.py)."""
+    return max(MFCC_ATOL, MFCC_TOL * float(np.abs(want).max()))
+
+
+def example_checks(name: str, card: dict, cpu: dict) -> list:
+    """(label, reading, limit) of one example twin's card run against its
+    CPU run; a reading over its limit fails."""
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    def absolute(a, b):
+        return float(np.abs(np.asarray(a, np.float64)
+                            - np.asarray(b, np.float64)).max())
+
+    if name == "stft_pipeline":
+        return [("gated signal card vs CPU, of scale",
+                 rel(card["y"], cpu["y"]), SPECTRUM_TOL),
+                ("SNR out card vs CPU, dB",
+                 abs(card["snr_out"] - cpu["snr_out"]), 0.1)]
+    if name == "wav_mfcc":
+        return [("card MFCC from float64, limit twice the CPU's",
+                 absolute(card["feats"], cpu["oracle"]),
+                 2 * absolute(cpu["feats"], cpu["oracle"])),
+                ("c0 mean card vs CPU", abs(card["c0_mean"] - cpu["c0_mean"]),
+                 mfcc_limit(cpu["feats"]))]
+    if name == "serving":
+        return [(f"batch {i} MFCC card vs CPU", absolute(a, b),
+                 mfcc_limit(b))
+                for i, (a, b) in enumerate(zip(card["feats"],
+                                               cpu["feats"]))]
+    if name == "filter":
+        return [(f"{k} card vs CPU, of max |y|", rel(card[k], cpu[k]),
+                 TOOL_FILTER_TOL)
+                for k in ("y", "filtfilt", "butter")] + [
+            ("streamed FIR vs whole on the card", card["stream_diff"],
+             1e-6)]
+    if name == "precision":
+        return [("highest MFCC card vs CPU",
+                 absolute(card["ref"], cpu["ref"]),
+                 mfcc_limit(cpu["ref"]))] + [
+            (f"{tier} vs highest on the card", card["errors"][tier],
+             TIER_BOUNDS[tier]) for tier in TIER_BOUNDS]
+    return [("sharded FIR vs dense on the card", card["fir_err"],
+             SHARDED_FIR_TOL),
+            ("sharded IIR vs dense on the card", card["iir_err"],
+             SHARDED_IIR_TOL),
+            ("sharded chain MFCC card vs CPU",
+             absolute(card["feats"], cpu["feats"]),
+             mfcc_limit(cpu["feats"]))]
+
+
+def tools_phase(chain, xc, card: str) -> dict:
+    """The port's user surfaces on the card: every CLI tool on fixture
+    files from a seed, on the card and again with --cpu, held to each
+    other (each launching no kernel: the tools run the plain entry
+    points); bench_czt 4096 4096 20 on the card (Peak bin: 37); the six
+    example twins at their default sizes on the card, each with the
+    counters zeroed just before it and read just after, and again on the
+    CPU, held to each other; utils.profiling: the chain's BenchResult
+    beside cuda_ms, detect_chip() == "h100", a Chrome trace of one chain
+    call, and the chain's FIR, STFT and resampler rooflines against the
+    same calls' times, each beside its section 6 bound. Returns each
+    kernel's launches over the twins."""
+    import importlib
+    import tempfile
+    from vv_dsp_tpu_torch.ops import filter_kernels as fk
+    from vv_dsp_tpu_torch.ops.stft import STFT
+    from vv_dsp_tpu_torch.utils import profiling
+
+    counters = kernel_counters()
+    launches = dict.fromkeys(counters, 0)
+    failed = []
+    dev, cpu = xc.device, torch.device("cpu")
+
+    def counted(name, fn, want):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: f.launches for k, f in counters.items() if f.launches}
+        print(f"launches [{name}]: {got}")
+        if got != want:
+            failed.append(f"{name} launched {got}, expected {want}")
+        return out, got
+
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        for label, tool, argv, tol, stdin in tool_cases(tmp):
+            (rc, out, err), _ = counted(f"tool {tool} {label}",
+                                        lambda: run_tool(tool, argv, stdin),
+                                        {})
+            rc_c, out_c, err_c = run_tool(tool, argv + ["--cpu"], stdin)
+            got, want = tool_values(out), tool_values(out_c)
+            if tool == "dump_stft_roundtrip":
+                norm = ola_norm64(argv)
+                got, want = got * norm, want * norm
+            lines = (len(out.splitlines()), len(out_c.splitlines()))
+            same = (rc == rc_c == 0 and lines[0] == lines[1]
+                    and got.shape == want.shape and got.size > 0)
+            scale = max(np.abs(got).max(), np.abs(want).max()) if same else 1
+            reading = float(np.abs(got - want).max() / scale) if same else 1
+            if same and tool == "dump_hilbert":  # avg_ifreq=%g Hz ...
+                f_card = float(err.split("=")[1].split()[0])
+                f_cpu = float(err_c.split("=")[1].split()[0])
+                print(f"  avg_ifreq card {f_card:g} Hz, cpu {f_cpu:g} Hz")
+                same = same and abs(f_card - f_cpu) <= tol * abs(f_cpu)
+            elif err != err_c:
+                same = False
+            headers = [[l for l in o.splitlines() if l.startswith("#")]
+                       for o in (out, out_c)]
+            same = same and headers[0] == headers[1]
+            ok = same and reading <= tol
+            print(f"tool {tool} [{label}]: rc {rc}/{rc_c}, {lines[0]} lines, "
+                  f"max diff card vs --cpu {reading:.3e} of scale (tol "
+                  f"{tol:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"tool {tool} [{label}]")
+        (rc, out, _), _ = counted("tool bench_czt",
+                                  lambda: run_tool("bench_czt",
+                                                   list(BENCH_CZT), None), {})
+        for line in out.splitlines():
+            print(f"{line} | {card}")
+        if rc != 0 or "Peak bin: 37" not in out.splitlines():
+            failed.append(f"bench_czt {' '.join(BENCH_CZT)}: rc {rc}")
+
+    for name in ("stft_pipeline", "wav_mfcc", "serving", "filter",
+                 "precision", "multichip"):
+        mod = importlib.import_module(
+            f"vv_dsp_tpu_torch.examples.{name}_example")
+        t0 = time.perf_counter()
+        card_res, got = counted(f"example {name}", lambda: mod.run(dev),
+                                EXAMPLE_LAUNCHES[name])
+        wall = time.perf_counter() - t0
+        for k, count in got.items():
+            launches[k] += count
+        t0 = time.perf_counter()
+        cpu_res = mod.run(cpu)
+        cpu_wall = time.perf_counter() - t0
+        if name == "wav_mfcc":
+            cpu_res["oracle"] = frontend_oracle(
+                cpu_res["audio"].double().numpy(), cpu_res["model"])
+        print(f"example {name}: wall {wall * 1e3:.1f} ms on the card "
+              f"({cpu_wall * 1e3:.1f} ms on the CPU) | {card}")
+        for label, reading, limit in example_checks(name, card_res, cpu_res):
+            ok = reading <= limit
+            print(f"  {name} [{label}]: {reading:.3e} (limit {limit:.3e}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"example {name} [{label}]")
+
+    rec = profiling.benchmark("northstar_chain", chain, xc)
+    print(f"profiling.benchmark {rec.to_json()} | cuda_ms "
+          f"{cuda_ms(lambda: chain(xc)):.4f} | {card}")
+    chip = profiling.detect_chip()
+    print(f"profiling.detect_chip: {chip!r}")
+    if chip != "h100":
+        failed.append(f"detect_chip() = {chip!r} on {card}")
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        with profiling.trace(tmp):
+            chain(xc)
+            torch.cuda.synchronize()
+        sizes = [os.path.getsize(os.path.join(tmp, f))
+                 for f in os.listdir(tmp)]
+        print(f"profiling.trace: {len(sizes)} file(s), {sum(sizes)} bytes")
+        if len(sizes) != 1 or not sizes[0]:
+            failed.append(f"trace wrote {sizes}")
+    c, n = xc.shape
+    h = chain.fir_coeffs
+    head = len(h)
+    y = fk.resample_poly_best(xc, chain.up, chain.down)
+    spec = STFT(chain.nfft, chain.hop)
+    spectrum = spec.process(y, rfft=False)
+    frames = spectrum.shape[1]
+    taps_pp = -(-(20 * max(chain.up, chain.down) + 1) // chain.up)
+    # each roofline beside the section 6 bound of the same call (each input
+    # read once, each output written once): profiling's STFT model, the
+    # JAX package's, reads every overlapping frame from memory
+    for label, roof, sec6, fn in (
+            (f"fir {head} taps", profiling.fir_roofline(c, n, head, "h100"),
+             bound(4 * (2 * xc.numel() + head), 2 * xc.numel() * head,
+                   F32_FLOP_PER_S),
+             lambda: fk.fir_apply_best(h, xc)),
+            (f"stft {chain.nfft}/{chain.hop}",
+             profiling.stft_roofline(c, frames, chain.nfft, "h100"),
+             bound(4 * y.numel() + 8 * spectrum.numel(),
+                   fft_flops(c * frames, chain.nfft), F32_FLOP_PER_S),
+             lambda: spec.process(y, rfft=False)),
+            (f"resample {chain.up}/{chain.down}",
+             profiling.resample_roofline(c, y.shape[-1], taps_pp, n, "h100"),
+             bound(4 * (xc.numel() + y.numel()),
+                   2 * y.numel() * taps_pp, F32_FLOP_PER_S),
+             lambda: fk.resample_poly_best(xc, chain.up, chain.down))):
+        ms = cuda_ms(fn)
+        print(f"profiling roofline [{label}] (the JAX package's byte "
+              f"model): attainable {roof.attainable_seconds * 1e3:.4f} ms "
+              f"({'compute' if roof.compute_bound else 'bandwidth'}-bound), "
+              f"measured {ms:.4f} ms, achieved "
+              f"{roof.achieved_fraction(ms / 1e3):.3f}; section 6 bound "
+              f"{sec6['bound_ms']:.4f} ms ({sec6['bound_by']}), achieved "
+              f"{sec6['bound_ms'] / ms:.3f} | {card}")
+    if failed:
+        raise AssertionError(f"tools phase: {failed}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -3024,7 +3406,8 @@ def main() -> None:
         launches[name] += count
     torch.cuda.synchronize()
     for label, phase in (("sharded", lambda: sharded_phase(xc, chain, card)),
-                         ("io", lambda: io_phase(chain, card))):
+                         ("io", lambda: io_phase(chain, card)),
+                         ("tools", lambda: tools_phase(chain, xc, card))):
         t0 = time.perf_counter()
         for name, count in phase().items():
             launches[name] += count

@@ -316,3 +316,29 @@ def test_package_exports_without_jax_or_kernels():
     assert tpkg.fft_c2c is tfft.fft and tpkg.NanPolicy is tnan.NanPolicy
     with pytest.raises(AttributeError):
         tpkg.no_such_module
+
+
+def test_user_surfaces_load_no_jax():
+    """The CLI tools, their dispatcher, utils.profiling and the example
+    twins import neither jax nor the JAX package (the prefix check keeps
+    ``vv_dsp_tpu_torch`` apart from ``vv_dsp_tpu``)."""
+    from vv_dsp_tpu_torch.tools import TOOLS
+    examples = ("filter", "multichip", "precision", "serving",
+                "stft_pipeline", "wav_mfcc")
+    modules = ([f"vv_dsp_tpu_torch.tools.{t}" for t in TOOLS]
+               + ["vv_dsp_tpu_torch.tools.__main__",
+                  "vv_dsp_tpu_torch.utils.profiling",
+                  "vv_dsp_tpu_torch.examples"]
+               + [f"vv_dsp_tpu_torch.examples.{e}_example"
+                  for e in examples])
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+            "             or m.startswith('jax.') or m == 'vv_dsp_tpu'\n"
+            "             or m.startswith('vv_dsp_tpu.'))\n"
+            "print(len([m for m in " f"{modules!r}" " if m in sys.modules]),"
+            " bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    assert out == f"{len(modules)} []"

@@ -465,7 +465,7 @@ def test_unsupported_geometry_raises_on_card(dev, gen):
     # depth chunks: it launches, and matches the plain version
     long_h = np.full(40_000, 1 / 40_000)
     before = tuf.upfirdn_banded.launches
-    got = trs.fir_resample_fused(long_h, x, 4, 3, "f32")
+    got = trs.fir_resample_fused(long_h, x, 4, 3, algorithm="f32")
     assert tuf.upfirdn_banded.launches == before + 1
     g, off = trs._fused_fir_resample_filter(tuple(long_h), 4, 3)
     want = tuf.upfirdn_tall(x, tuf.polyphase_table(g, 4, dev), 4, 3, off,
@@ -1965,7 +1965,7 @@ def test_entry_points_take_strided_input_on_card(dev, gen):
              lambda v: STFT(1024, 256).process(v, rfft=True),
              lambda v: STFT(128, 32).power(v),
              lambda v: tmel.mfcc_stft(v, 1024, 256, 26, 13, 16000.0),
-             lambda v: trs_.fir_resample_fused(h, v, 4, 3, "f32"),
+             lambda v: trs_.fir_resample_fused(h, v, 4, 3, algorithm="f32"),
              lambda v: NorthStarChain(device=dev)(v))
     for call in calls:
         got, want = call(x), call(xc)
@@ -2066,3 +2066,40 @@ def test_write_wav_takes_a_card_tensor(dev, gen, tmp_path):
     back, sr = tio.read_wav(p)
     assert sr == 48000 and back.device.type == "cpu"
     assert torch.equal(back, y.cpu())
+
+
+def test_fused_head_takes_the_jax_arguments_on_card(dev, gen):
+    """fir_resample_fused with JAX's (h, x, up, down, group, algorithm):
+    the positional (h, x, 4, 3, None, "bf16") launches the banded kernel
+    at bf16, and group= (which only the "torch" route reads) changes no
+    value; each against its CPU plain version at the resampler limit, 1e-5
+    of max |y| (the same products at the tier, another summation order)."""
+    x = torch.as_tensor(gen.standard_normal((2, 9000)), dtype=torch.float32)
+    h = NorthStarChain(device="cpu").fir_coeffs
+    for args, kwargs in (((None, "bf16"), {}), ((), {"group": 7}),
+                         ((5,), {"algorithm": "f32"})):
+        before = tuf.upfirdn_banded.launches
+        got = trs.fir_resample_fused(h, x.to(dev), 4, 3, *args, **kwargs)
+        torch.cuda.synchronize()
+        assert tuf.upfirdn_banded.launches == before + 1
+        want = trs.fir_resample_fused(h, x, 4, 3, *args, **kwargs)
+        assert got.shape == want.shape == (2, 12000)
+        assert _rel(got, want) < 1e-5, (args, kwargs)
+
+
+def test_dump_fft_tool_on_card(dev, gen, tmp_path, capsys):
+    """A CLI tool runs on the card by default: dump_fft --type r2c against
+    its --cpu run at 5e-5 of scale."""
+    from vv_dsp_tpu_torch.tools import dump_fft
+    p = tmp_path / "x.txt"
+    p.write_text("".join(f"{v:.9g}\n" for v in gen.random(256)))
+    argv = ["--type", "r2c", "--dir", "fwd", "-n", "256", "--infile", str(p)]
+    runs = []
+    for extra in ([], ["--cpu"]):
+        capsys.readouterr()
+        assert dump_fft.main(argv + extra) == 0
+        out = capsys.readouterr().out
+        runs.append(np.asarray([[float(v) for v in line.split(",")]
+                                for line in out.splitlines()]))
+    assert runs[0].shape == runs[1].shape == (129, 2)
+    assert np.abs(runs[0] - runs[1]).max() < 5e-5 * np.abs(runs[1]).max()

@@ -246,6 +246,64 @@ def test_resample_multistage_matches_jax(rng, monkeypatch, up, down):
     assert _rel(got, want) < RESAMPLE_TOL
 
 
+@pytest.mark.parametrize("up,down", [(160, 147), (10, 11)])
+def test_resample_multistage_takes_use_pallas(rng, monkeypatch, up, down):
+    """The JAX signature (tests/test_resample.py:139, :156):
+    ``use_pallas=False`` runs each stage through ``resample_poly``, as the
+    JAX function does, and matches it at 1e-5 of max|y|; True and None
+    keep ``resample_poly_best``."""
+    x = rng.standard_normal((2, 2200)).astype(np.float32)
+    want = np.asarray(jrs.resample_multistage(jnp.asarray(x), up, down,
+                                              use_pallas=False))
+    best = []
+    real = tfk.resample_poly_best
+    monkeypatch.setattr(tfk, "resample_poly_best",
+                        lambda v, u, d: (best.append((u, d)),
+                                         real(v, u, d))[1])
+    got = trs.resample_multistage(torch.as_tensor(x), up, down,
+                                  use_pallas=False)
+    assert best == []
+    assert got.shape == want.shape
+    assert _rel(got, want) < RESAMPLE_TOL
+    for flag in (True, None):
+        got = trs.resample_multistage(torch.as_tensor(x), up, down, flag)
+        assert got.shape == want.shape
+    assert best == 2 * jrs._factor_stages(up, down)
+
+
+def test_fir_resample_fused_takes_group(rng, monkeypatch):
+    """The JAX signature (h_fir, x, up, down, group, algorithm): the
+    positional call ``(h, x, 4, 3, None, "bf16")`` names the tier, not the
+    taps; ``group=`` reaches the "torch" route's ``upfirdn_tall`` and
+    changes no value; a group that is not a positive int raises."""
+    h = jfir.design_lowpass_np(64, 0.3).astype(np.float32)
+    x = rng.standard_normal((2, 3000)).astype(np.float32)
+    want = np.asarray(jrs.fir_resample_fused(h, jnp.asarray(x), 4, 3,
+                                             group=5))
+    tiers = []
+    real = trs.upfirdn_banded
+    monkeypatch.setattr(trs, "upfirdn_banded",
+                        lambda *a: (tiers.append(a[-1]), real(*a))[1])
+    got = trs.fir_resample_fused(h, torch.as_tensor(x), 4, 3, None, "bf16")
+    assert tiers == ["bf16"] and got.shape == want.shape
+    got = trs.fir_resample_fused(h, torch.as_tensor(x), 4, 3, group=5,
+                                 algorithm="f32")
+    assert _rel(got, want) < RESAMPLE_TOL
+    groups = []
+    tall = trs.upfirdn_tall
+    monkeypatch.setattr(trs, "head_route", lambda *a: "torch")
+    monkeypatch.setattr(trs, "upfirdn_tall",
+                        lambda *a: (groups.append(a[7:]), tall(*a))[1])
+    for group in (None, 1, 5):
+        got = trs.fir_resample_fused(h, torch.as_tensor(x), 4, 3, group,
+                                     "f32")
+        assert _rel(got, want) < RESAMPLE_TOL
+    assert groups == [(None,), (1,), (5,)]
+    for bad in (0, -2, 2.0, True):
+        with pytest.raises(ValueError):
+            trs.fir_resample_fused(h, torch.as_tensor(x), 4, 3, bad)
+
+
 def test_factor_stages_match_jax():
     for up in (1, 2, 3, 7, 11, 44, 147, 160, 441, 1000):
         for down in (1, 3, 13, 147, 160, 480):

@@ -352,20 +352,28 @@ def head_route(up: int, down: int, taps_pp: int, offset: int,
 
 
 def fir_resample_fused(h_fir, x: torch.Tensor, up: int, down: int,
-                       algorithm: str | None = None,
+                       group: int | None = None,
+                       algorithm: str | None = None, *,
                        taps: torch.Tensor | None = None) -> torch.Tensor:
     """resample_poly(fir_apply(h_fir, x), up, down) as one banded upfirdn:
     (..., n) -> (..., ceil(n*up/down)) float32, sample-exact against the
     staged pair including the staged FIR's end-of-signal truncation.
 
+    group: the "torch" route's frame group (``upfirdn_tall``; None: the
+    JAX package's ``default_group``); it picks the frame width and changes
+    no output value. The kernel route keeps its own tiling.
     algorithm: the banded contraction's tier ("f32" | "bf16x3" | "bf16").
     taps: the composite filter's polyphase table on x's device (a module
     passes its buffer); built from h_fir when None."""
+    if group is not None and (isinstance(group, bool) or not isinstance(
+            group, (int, np.integer)) or group < 1):
+        raise ValueError(f"group must be None or a positive int, got "
+                         f"{group!r}")
     x = config.as_compute(x)
     if x.ndim != 2:
         x2, restore = collapse_leading(x)
-        return restore(fir_resample_fused(h_fir, x2, up, down, algorithm,
-                                          taps), 1)
+        return restore(fir_resample_fused(h_fir, x2, up, down, group=group,
+                                          algorithm=algorithm, taps=taps), 1)
     x = x.float().contiguous()   # the kernel takes contiguous rows
     up, down = _reduce(up, down)
     h_np = np.ascontiguousarray(h_fir, dtype=np.float64)
@@ -389,7 +397,7 @@ def fir_resample_fused(h_fir, x: torch.Tensor, up: int, down: int,
     else:
         # the JAX package's XLA route: the tall-frames matmul in its frame
         # group (``upfirdn.default_group``), at the knob's tier
-        y = upfirdn_tall(x, taps, up, down, offset, n_out, None)
+        y = upfirdn_tall(x, taps, up, down, offset, n_out, None, group)
     if staged_tail:
         # the staged definition for the few outputs whose window crosses the
         # FIR's end collapses to a small dense matmul over the input's tail
@@ -451,12 +459,17 @@ def _factor_stages(up: int, down: int, max_side: int = 9):
     return stages
 
 
-def resample_multistage(x: torch.Tensor, up: int, down: int) -> torch.Tensor:
-    """Rational resampling as a cascade of small polyphase stages, each
-    through ``filter_kernels.resample_poly_best`` (the JAX package's TPU
-    route, on every device). A cascade of Kaiser anti-aliasers, not
-    sample-exact against scipy's single filter; output length
-    ceil(n*L/M)."""
+def resample_multistage(x: torch.Tensor, up: int, down: int,
+                        use_pallas: bool | None = None) -> torch.Tensor:
+    """Rational resampling as a cascade of small polyphase stages. A
+    cascade of Kaiser anti-aliasers, not sample-exact against scipy's
+    single filter; output length ceil(n*L/M).
+
+    use_pallas: True or None runs each stage through
+    ``filter_kernels.resample_poly_best`` (the JAX package's TPU route, on
+    every device); False through ``resample_poly``, as the JAX function
+    does off the TPU. The option is there only so that the JAX function's
+    calls run unchanged: no path in the port sets it False."""
     # imported here: filter_kernels imports this module
     from vv_dsp_tpu_torch.ops.filter_kernels import resample_poly_best
     x = config.as_compute(x)
@@ -464,7 +477,9 @@ def resample_multistage(x: torch.Tensor, up: int, down: int) -> torch.Tensor:
     if up == 1 and down == 1:
         return x
     n_out_target = -(-x.shape[-1] * up // down)
+    stage = (resample_poly_best if use_pallas is None or use_pallas
+             else resample_poly)
     for u, d in _factor_stages(up, down):
-        x = resample_poly_best(x, u, d)
+        x = stage(x, u, d)
     # a cascade of ceils can overshoot by a sample or two
     return x[..., :n_out_target]

@@ -163,7 +163,22 @@ Phases, each fatal on failure:
    utils.profiling: the chain's BenchResult beside cuda_ms,
    detect_chip() == "h100", a Chrome trace of one chain call, and the
    chain's FIR, STFT and resampler rooflines against those calls' times,
-   each also against the section 6 bound of the same call.
+   each also against the section 6 bound of the same call;
+9. multiprocess: the sharded set of phase 6 in several processes on the
+   card, SPMD over one gloo group (vv_dsp_tpu_torch.parallel.comm: halos,
+   the IIR's offsets and the block DFT's blocks cross processes through
+   host memory): the (1, 8) mesh as 2 processes x 4 shards of cuda:0 and
+   (2, 4) as 4 x 2 (each channel row split across two processes), every
+   worker this script run as ``--mp-worker``. Each worker checks its own
+   launches (kernel 9 once a shard it owns, a sharded STFT) and the last
+   worker holds kernel 9 to its plain version on its own shards' blocks;
+   each gathered output is held to phase 6's single-process result at
+   the sharded limits, and each row prints its wall time a call from
+   barrier to barrier (median of 5 after a warm-up) beside phase 6's
+   event and wall times, and the bytes that crossed processes. Then
+   ``vv_dsp_tpu_torch.tools.launch_multihost`` at N = 2 on the card at
+   its defaults. A worker that fails or outlives its time limit fails the
+   run.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing neither, without a
 CUDA device or outside a checkout of the repository.
@@ -305,6 +320,10 @@ SHARDED_RESAMPLE_TOL = 2e-4    # resample_poly and savgol
 SHARDED_FILTFILT_TOL = 5e-4
 SHARDED_FFT_TOL = 1e-3         # Hilbert and the cepstrum
 N_WAV = 16                     # the I/O phase's clips
+# the multi-process phase: (mesh, processes, shards a process) on cuda:0
+MP_LAYOUTS = (((1, 8), 2, 4), ((2, 4), 4, 2))
+MP_REPS = 5
+MP_TIMEOUT_S = 300             # a worker's life, and its group's timeout
 # the tools phase: each CLI tool on the card against its --cpu run, at the
 # CPU tests' limits (tests/test_torch_tools.py): 5e-5 of the larger
 # max |value| for the FFT class (dump_stft_roundtrip before its w^2 norm),
@@ -2814,14 +2833,16 @@ def sharded_checks(outs: dict, tag: str, xc, xl, probe, chain, gate,
                        tol)
 
 
-def sharded_kernel_rows(paths) -> None:
+def sharded_kernel_rows(paths, check: bool = True) -> None:
     """Kernel 9 against its plain version on the very blocks the sharded
     spectrum paths give it (2048/512 on each chain shard's extended
     block, 1024/256 on each gate shard's): each such path runs once more
     with the blocks that reach ``parallel.ops.stft_local`` recorded, then
     the first shard's block and the last's (whose right halo is zeros)
     each go through stft_spectrum_stockham, its one launch counted, and
-    stft_spectrum_stockham_plain at STOCKHAM_TOL of scale."""
+    stft_spectrum_stockham_plain at STOCKHAM_TOL of scale. Under several
+    processes every rank runs the paths (their halos are collective) and
+    only those with check compare the blocks of their own shards."""
     from vv_dsp_tpu_torch.ops import stockham_kernels as stk
     from vv_dsp_tpu_torch.parallel import ops as pops
 
@@ -2847,6 +2868,8 @@ def sharded_kernel_rows(paths) -> None:
         if len(seen) != want["stft_spectrum_stockham"]:
             raise AssertionError(f"{name}: {len(seen)} shard blocks, "
                                  f"expected {want}")
+        if not check:
+            continue
         for which, (x, args) in (("first", seen[0]), ("last", seen[-1])):
             kernel.launches = 0
             got = kernel(x, *args)
@@ -2883,24 +2906,38 @@ def sharded_kernel_rows(paths) -> None:
         raise AssertionError(f"kernel vs plain on sharded blocks: {failed}")
 
 
-def sharded_phase(xc, chain, card: str) -> dict:
+def chain_input(dev) -> torch.Tensor:
+    """The chain's (CHANNELS, N_CHAIN) input, seed 0's first draw."""
+    return torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (CHANNELS, N_CHAIN)), dtype=torch.float32, device=dev)
+
+
+def sharded_inputs(dev) -> tuple:
+    """The sharded phase's (CHANNELS, N_LONG) signal and its gate probe
+    (float64 and on dev), from seed 15."""
+    rng = np.random.default_rng(15)
+    xl = torch.as_tensor(rng.standard_normal((CHANNELS, N_LONG)),
+                         dtype=torch.float32, device=dev)
+    probe64 = gate_probe(N_CHAIN, 15, channels=CHANNELS).astype(np.float64)
+    return xl, probe64, torch.as_tensor(probe64, dtype=torch.float32,
+                                        device=dev)
+
+
+def sharded_phase(xc, chain, card: str, keep: dict) -> dict:
     """The sharded path at full width: every row on the (1, 8) and (2, 4)
     meshes of the card's devices repeated to 8 shards, each with the
     launch counters zeroed just before it and read just after, checked,
     then timed (CUDA events, wall, device busy and idle share under
-    torch.profiler). Returns each kernel's launches summed over the
-    paths."""
+    torch.profiler). Keeps each row's gathered output, event and wall
+    time in keep (the multi-process phase's yardstick). Returns each kernel's
+    launches summed over the paths."""
     from vv_dsp_tpu_torch import parallel as par
     from vv_dsp_tpu_torch.models import SpectralGate
     from vv_dsp_tpu_torch.tools.profile_path import busy_us, device_events
 
     counters = kernel_counters()
-    rng = np.random.default_rng(15)
     dev = xc.device
-    xl = torch.as_tensor(rng.standard_normal((CHANNELS, N_LONG)),
-                         dtype=torch.float32, device=dev)
-    probe64 = gate_probe(N_CHAIN, 15, channels=CHANNELS).astype(np.float64)
-    probe = torch.as_tensor(probe64, dtype=torch.float32, device=dev)
+    xl, probe64, probe = sharded_inputs(dev)
     gate = SpectralGate(device=dev)
     dense_chain = chain(xc)
     oracles = {"chain": chain_oracle(xc[:2].cpu().double().numpy(), chain),
@@ -2925,6 +2962,7 @@ def sharded_phase(xc, chain, card: str) -> dict:
             for k, count in got.items():
                 launches[k] += count
             vals = outs[name].gather()
+            keep[name] = {"out": vals}
             vals = torch.view_as_real(vals) if vals.is_complex() else vals
             assert torch.isfinite(vals).all().item(), f"non-finite {name}"
         sharded_checks(outs, tag, xc, xl, probe, chain, gate, dense_chain,
@@ -2933,6 +2971,7 @@ def sharded_phase(xc, chain, card: str) -> dict:
         sharded_kernel_rows(paths)
         for name, fn, _, (rows, n) in paths:
             ms = cuda_ms(fn, reps=3)
+            keep[name]["event_ms"] = ms
             walls = []
             for _ in range(3):
                 torch.cuda.synchronize()
@@ -2941,6 +2980,7 @@ def sharded_phase(xc, chain, card: str) -> dict:
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
             wall = statistics.median(walls)
+            keep[name]["wall_ms"] = wall
             prof_wall, events = device_events(fn, 2)
             busy = busy_us(events) / 1e3 / 2
             idle = 1 - busy / (prof_wall * 1e3 / 2)
@@ -2950,6 +2990,225 @@ def sharded_phase(xc, chain, card: str) -> dict:
                   f"{SHARDS} shards on {torch.cuda.device_count()} "
                   f"device(s)) | {card}")
     print(f"sharded launches, summed over the paths: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def sharded_tol(name: str) -> float:
+    """The sharded phase's limit of a sharded row, of scale."""
+    for prefix, tol in (("sharded_chain", SHARDED_CHAIN_TOL),
+                        ("sharded_spectral_gate", ORACLE_TOL),
+                        ("sharded_fir", SHARDED_FIR_TOL),
+                        ("sharded_iir", SHARDED_IIR_TOL),
+                        ("sharded_resample", SHARDED_RESAMPLE_TOL),
+                        ("sharded_savgol", SHARDED_RESAMPLE_TOL),
+                        ("sharded_filtfilt", SHARDED_FILTFILT_TOL),
+                        ("sharded_hilbert", SHARDED_FFT_TOL),
+                        ("sharded_cepstrum", SHARDED_FFT_TOL)):
+        if name.startswith(prefix):
+            return tol
+    raise KeyError(name)
+
+
+def child_env() -> dict:
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+
+def mp_worker(spec: dict) -> None:
+    """One rank of the multi-process phase (``chip_smoke.py --mp-worker
+    SPEC``): joins the group, holds `shards` positions of the mesh on
+    cuda:0, runs each sharded path once with the counters zeroed just
+    before it (launches: kernel 9 once a shard of this process, a sharded
+    STFT) and the bytes it sent counted, gathers its output (a collective;
+    rank 0 saves it), then times it from barrier to barrier; the last
+    rank holds kernel 9 to its plain version on its own shards' blocks."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    import_port()
+    import torch.distributed as dist
+
+    from vv_dsp_tpu_torch import parallel as par
+    from vv_dsp_tpu_torch.models import NorthStarChain, SpectralGate
+    from vv_dsp_tpu_torch.parallel import comm
+
+    rank, world = spec["rank"], spec["world"]
+    par.initialize_distributed(spec["init"], world, rank,
+                               timeout=MP_TIMEOUT_S)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    (c, b), shards = spec["shape"], spec["shards"]
+    mesh = par.make_mesh(c, b, devices=[dev] * shards)
+    xl, _, probe = sharded_inputs(dev)
+    chain, gate = NorthStarChain(device=dev), SpectralGate(device=dev)
+    paths = [(name, fn, {k: v * shards // (c * b) for k, v in want.items()},
+              size) for name, fn, want, size in sharded_paths(
+                  chain_input(dev), xl, probe, chain, gate, mesh)]
+    counters = kernel_counters()
+
+    def settle():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    report = {"launches": {}, "bytes": {}, "wall_ms": {}}
+    outs = {}
+    for name, fn, want, _ in paths:
+        for counted in counters.values():
+            counted.launches = 0
+        sent = comm.exchange.bytes
+        settle()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: f.launches for k, f in counters.items() if f.launches}
+        if got != want:
+            raise AssertionError(f"rank {rank} {name} launched {got}, "
+                                 f"expected {want}")
+        report["launches"][name] = got
+        report["bytes"][name] = comm.exchange.bytes - sent
+        full = out.gather()
+        if rank == 0:
+            outs[name] = full.cpu()
+        del out, full
+        walls = []
+        for _ in range(MP_REPS):
+            settle()
+            t0 = time.perf_counter()
+            fn()
+            settle()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        report["wall_ms"][name] = statistics.median(walls)
+        print(f"rank {rank} {name}: launches {got}, sent "
+              f"{report['bytes'][name]} B, wall {report['wall_ms'][name]:.4f}"
+              f" ms", flush=True)
+    sharded_kernel_rows(paths, check=rank == world - 1)
+    if rank == 0:
+        torch.save(outs, spec["out"])
+    with open(spec["report"], "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mp_layout(tmp: str, shape, world: int, shards: int) -> tuple:
+    """Run one layout's workers; returns (each rank's report, rank 0's
+    gathered outputs). Fails if a worker fails or outlives
+    MP_TIMEOUT_S."""
+    from vv_dsp_tpu_torch.tools import run_scaling_report
+
+    tag = f"{shape[0]}x{shape[1]}_{world}proc"
+    procs, logs = [], []
+    for rank in range(world):
+        spec = {"rank": rank, "world": world, "shape": shape,
+                "shards": shards, "init": f"file://{tmp}/rdv_{tag}",
+                "out": os.path.join(tmp, f"{tag}.pt"),
+                "report": os.path.join(tmp, f"{tag}_{rank}.json")}
+        logs.append(os.path.join(tmp, f"{tag}_{rank}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mp-worker",
+                 json.dumps(spec)], cwd=HERE, env=child_env(), stdout=log,
+                stderr=subprocess.STDOUT))
+    rcs = run_scaling_report.wait_all(procs, MP_TIMEOUT_S)
+    for rank, path in enumerate(logs):
+        with open(path) as f:
+            for line in f:
+                if "socket.cpp" not in line:
+                    print(f"  [{tag} rank {rank}] {line.rstrip()}")
+    if any(rcs):
+        raise AssertionError(f"multiprocess {tag}: worker exit codes {rcs} "
+                             f"(negative: killed after one failed or after "
+                             f"{MP_TIMEOUT_S} s)")
+    reports = []
+    for rank in range(world):
+        with open(os.path.join(tmp, f"{tag}_{rank}.json")) as f:
+            reports.append(json.load(f))
+    return reports, torch.load(os.path.join(tmp, f"{tag}.pt"))
+
+
+def launch_multihost_run(tmp: str, card: str) -> None:
+    """``vv_dsp_tpu_torch.tools.launch_multihost`` at N = 2 on the card at
+    its defaults (16 channels, 10 s, staged chain): rank 0's lines and its
+    JSON."""
+    from vv_dsp_tpu_torch.tools import run_scaling_report
+
+    port = run_scaling_report.free_port()
+    out = os.path.join(tmp, "launch_multihost.json")
+    procs, logs = [], []
+    for pid in range(2):
+        logs.append(os.path.join(tmp, f"launch_multihost_{pid}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "vv_dsp_tpu_torch.tools."
+                 "launch_multihost", "--coordinator", f"127.0.0.1:{port}",
+                 "--num-processes", "2", "--process-id", str(pid),
+                 "--json-out", out], cwd=HERE, env=child_env(), stdout=log,
+                stderr=subprocess.STDOUT))
+    rcs = run_scaling_report.wait_all(procs, MP_TIMEOUT_S)
+    with open(logs[0]) as f:
+        lines = [ln.rstrip() for ln in f if "socket.cpp" not in ln]
+    for line in lines:
+        print(f"  [launch_multihost rank 0] {line}")
+    if any(rcs):
+        raise AssertionError(f"launch_multihost N=2: exit codes {rcs}")
+    with open(out) as f:
+        got = json.load(f)
+    if (got["n_processes"], got["n_devices"], got["samples"]) != (2, 2,
+                                                                  N_CHAIN):
+        raise AssertionError(f"launch_multihost N=2: {got}")
+    print(f"launch_multihost N=2 on the card: {json.dumps(got)} | {card}")
+
+
+def mp_phase(keep: dict, card: str) -> dict:
+    """The sharded set in several processes on the card, each layout's
+    gathered outputs held to the sharded phase's (keep) at its limits;
+    then launch_multihost at N = 2. Returns each kernel's launches summed
+    over the workers and paths."""
+    import shutil
+    import tempfile
+
+    counters = kernel_counters()
+    launches = dict.fromkeys(counters, 0)
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_", dir=build)
+    dev = torch.device("cuda", 0)
+    failed = []
+    try:
+        for shape, world, shards in MP_LAYOUTS:
+            tag = f"{shape[0]}x{shape[1]}"
+            reports, outs = mp_layout(tmp, shape, world, shards)
+            for name, got in outs.items():
+                want = keep[name]["out"]
+                got = got.to(dev)
+                if got.is_complex():
+                    got, want = torch.view_as_real(got), torch.view_as_real(
+                        want)
+                err, rel = rel_err(got, want)
+                tol = sharded_tol(name)
+                per_rank = [r["launches"][name] for r in reports]
+                for r in per_rank:
+                    for k, count in r.items():
+                        launches[k] += count
+                crossed = sum(r["bytes"][name] for r in reports)
+                print(f"multiprocess {name} as {world} processes x {shards}"
+                      f" shards: wall {reports[0]['wall_ms'][name]:.4f} ms a"
+                      f" call (barrier to barrier, median of {MP_REPS}), "
+                      f"single process: event "
+                      f"{keep[name]['event_ms']:.4f} ms, wall "
+                      f"{keep[name]['wall_ms']:.4f} ms; "
+                      f"{crossed} B crossed processes a call; "
+                      f"launches per rank {per_rank}; against the single "
+                      f"process {err:.3e}, {rel:.3e} of scale (limit "
+                      f"{tol:g}) {'ok' if rel <= tol else 'FAIL'} | {card}")
+                if not rel <= tol:
+                    failed.append(f"{name} {tag}")
+            del outs
+        launch_multihost_run(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise AssertionError(f"multiprocess vs single process: {failed}")
+    print(f"multiprocess launches, summed over the workers and paths: "
           f"{ {k: v for k, v in launches.items() if v} }")
     return launches
 
@@ -3405,9 +3664,12 @@ def main() -> None:
     for name, count in analysis_phase(xc, card).items():
         launches[name] += count
     torch.cuda.synchronize()
-    for label, phase in (("sharded", lambda: sharded_phase(xc, chain, card)),
+    keep = {}
+    for label, phase in (("sharded",
+                          lambda: sharded_phase(xc, chain, card, keep)),
                          ("io", lambda: io_phase(chain, card)),
-                         ("tools", lambda: tools_phase(chain, xc, card))):
+                         ("tools", lambda: tools_phase(chain, xc, card)),
+                         ("multiprocess", lambda: mp_phase(keep, card))):
         t0 = time.perf_counter()
         for name, count in phase().items():
             launches[name] += count
@@ -3454,4 +3716,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mp-worker"]:
+        mp_worker(json.loads(sys.argv[2]))
+    else:
+        main()

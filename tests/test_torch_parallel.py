@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from vv_dsp_tpu.models import NorthStarChain as JChain
 from vv_dsp_tpu.models import SpectralGate as JGate
@@ -40,6 +41,7 @@ from vv_dsp_tpu_torch.ops import stockham_kernels as tstk
 from vv_dsp_tpu_torch.ops.stft import STFT
 from vv_dsp_tpu_torch.ops.window import get_window_np
 from vv_dsp_tpu_torch.parallel import halo as thalo
+from vv_dsp_tpu_torch.parallel.mesh import TORCHRUN_ENV
 
 MESH_SHAPES = [(1, 8), (2, 4), (4, 2), (8, 1)]
 CPU8 = [torch.device("cpu")] * 8
@@ -107,7 +109,7 @@ def jax_chain() -> tuple:
 
 # ---- mesh, sharded tensors, halos ----
 
-def test_make_mesh_raises_without_a_gpu(monkeypatch):
+def test_make_mesh_raises_without_a_gpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tp.make_mesh()
@@ -117,9 +119,24 @@ def test_make_mesh_raises_without_a_gpu(monkeypatch):
     with pytest.raises(ValueError, match="mesh 3x4 != 8 devices"):
         tp.make_mesh(3, 4, devices=CPU8)
     assert tp.make_mesh(devices=CPU8).shape == {"channel": 1, "block": 8}
+    # without arguments or torchrun's environment: a no-op
+    for var in TORCHRUN_ENV:
+        monkeypatch.delenv(var, raising=False)
     tp.initialize_distributed()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tp.initialize_distributed("localhost:1234", 2, 0)
+    assert not dist.is_initialized()
+    assert (tp.process_index(), tp.process_count()) == (0, 1)
+    # one rank: a group whose mesh equals the single-process one
+    tp.initialize_distributed(f"file://{tmp_path}/rdv", 1, 0, timeout=30)
+    try:
+        assert (tp.process_index(), tp.process_count()) == (0, 1)
+        grouped = tp.make_mesh(2, devices=CPU8)
+        assert grouped.devices == mesh.devices
+        assert grouped.owners == mesh.owners == ((0,) * 4,) * 2
+        tp.initialize_distributed(f"file://{tmp_path}/rdv", 1, 0)
+        with pytest.raises(RuntimeError, match="already initialized"):
+            tp.initialize_distributed(f"file://{tmp_path}/rdv", 2, 1)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_pad_to_blocks_and_block_size():

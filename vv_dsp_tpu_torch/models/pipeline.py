@@ -211,29 +211,27 @@ class NorthStarChain(nn.Module):
         h = np.asarray(self.fir_coeffs, dtype=np.float64)
         xs = shard(x, mesh)
 
-        def run(row):
-            out = []
-            for k, (xb, left, right) in enumerate(zip(
-                    row, _halo.halo_from_left(row, hl),
-                    _halo.halo_from_right(row, plan["hr"]))):
-                ext = torch.cat([left, xb, right], dim=-1)
-                # the FIR's ring-out past the global end is not part of the
-                # staged semantics (the resampler zero-pads beyond n)
-                yf = _zero_from(_fir.fir_apply_mxu(h, ext), n - (k * t - hl))
-                idx = _par.table_on(_par.resample_index, plan["gather"],
-                                    torch.int64, xb.device)
-                y2 = torch.einsum(
-                    "...ot,ot->...o", yf[..., idx],
-                    _par.table_on(_par.resample_weights, plan["gather"],
-                                  xb.dtype, xb.device))
-                # resampled lookahead past n2 is zero in the staged path
-                y2 = _zero_from(y2, n2 - k * out_local)
-                window = _par.window_on(self.window_np, y2.dtype, y2.device)
-                out.append(_par.stft_local(y2, self.nfft, self.hop, window,
-                                           plan["nf_local"]))
-            return out
+        def head(k, xb, left, right):
+            ext = torch.cat([left, xb, right], dim=-1)
+            # the FIR's ring-out past the global end is not part of the
+            # staged semantics (the resampler zero-pads beyond n)
+            yf = _zero_from(_fir.fir_apply_mxu(h, ext), n - (k * t - hl))
+            idx = _par.table_on(_par.resample_index, plan["gather"],
+                                torch.int64, xb.device)
+            y2 = torch.einsum(
+                "...ot,ot->...o", yf[..., idx],
+                _par.table_on(_par.resample_weights, plan["gather"],
+                              xb.dtype, xb.device))
+            # resampled lookahead past n2 is zero in the staged path
+            y2 = _zero_from(y2, n2 - k * out_local)
+            window = _par.window_on(self.window_np, y2.dtype, y2.device)
+            return _par.stft_local(y2, self.nfft, self.hop, window,
+                                   plan["nf_local"])
 
-        spec = ShardedTensor([run(list(row)) for row in xs.shards], -2)
+        spec = ShardedTensor(
+            [row.each(head, _halo.halo_from_left(row, hl),
+                      _halo.halo_from_right(row, plan["hr"]))
+             for row in map(xs.row, range(len(xs.shards)))], -2, xs.owners)
         return spec.map(self._mfcc_of_spectrum)
 
 
@@ -376,7 +374,9 @@ class SpectralGate(nn.Module):
         whole hops of every shard; the frame-sharded analysis runs the
         full-nfft spectrum kernel on every shard where the geometry takes
         it (1024/256 does), then the gate per frame, the sharded
-        overlap-add and the crop back to n."""
+        overlap-add and the crop back to n. A ``ShardedTensor`` input is
+        gathered first, a collective under several processes: every rank
+        calls it."""
         if isinstance(x, ShardedTensor):
             x = x.gather()
         n, pad = x.shape[-1], self.edge_pad

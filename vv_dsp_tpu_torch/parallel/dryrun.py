@@ -8,7 +8,10 @@ halo, the polyphase two-sided halo, the STFT's right halo and frame
 sharding, the channel axis, the IIR's composition of the shards' affine
 maps, the distributed FFT's cross-shard DFT, the overlap-add spill of the
 synthesis seam and the edge-padded two-sided halos of savgol and
-filtfilt, and checks each output's shape.
+filtfilt, and checks each output's shape. It runs in one process, which
+owns every position of the mesh; the same set across processes, each
+owning some positions, is tests/test_torch_multiprocess.py's and
+chip_smoke.py's multiprocess phase.
 """
 
 from __future__ import annotations

@@ -19,7 +19,10 @@ element's global bin, so they need no exchange in this layout;
 
 Where the JAX package reduce-scatters (``psum_scatter``), the port forms
 each target shard's sum over the source shards on the target's device,
-copying each source there.
+copying each source there; under several processes every block of a row
+first crosses once to each other process that owns a block of that row
+(``comm.all_gather``), and each process forms the sums of its own
+shards in the same order.
 """
 
 from __future__ import annotations
@@ -28,27 +31,33 @@ import numpy as np
 import torch
 
 from vv_dsp_tpu_torch.ops import fft as _fft
+from vv_dsp_tpu_torch.parallel import comm as _comm
 from vv_dsp_tpu_torch.parallel.mesh import Mesh
-from vv_dsp_tpu_torch.parallel.sharded import ShardedTensor, shard
+from vv_dsp_tpu_torch.parallel.sharded import Row, ShardedTensor, shard
 
 
-def _block_dft(row, sign: float) -> list[torch.Tensor]:
+def _block_dft(row: Row, sign: float) -> list:
     """The DFT across one row's shards over the block index: shard k1
-    receives sum_s W^{sign s k1} x_s, with the phase formed in float32 as
-    the JAX package forms it."""
+    receives sum_s W^{sign s k1} x_s (s = 0..nb-1 in order), with the phase
+    formed in float32 as the JAX package forms it; the placeholder stays
+    where this process does not hold k1."""
     nb = len(row)
     if nb == 1:
         return list(row)
+    mine = [k for k in range(nb) if row.local(k)]
+    blocks = _comm.all_gather(row, row.owners,
+                              row[mine[0]].device if mine else None)
     step = np.float32(sign * 2.0 * np.pi / nb)
-    out = []
-    for k1, target in enumerate(row):
+
+    def dft(k1, target):
         acc = None
-        for s, src in enumerate(row):
+        for s, src in enumerate(blocks):
             ang = np.float32(step * np.float32(s)) * np.float32(k1)
             term = src.to(target.device) * complex(np.cos(ang), np.sin(ang))
             acc = term if acc is None else acc + term
-        out.append(acc)
-    return out
+        return acc
+
+    return row.each(dft, keep=True)
 
 
 def _twiddle(t_local: int, n: int, k1: int, sign: float, dtype: torch.dtype,
@@ -71,12 +80,14 @@ def fft_sharded(x, mesh: Mesh, channel_axis: str = "channel",
     n = xs.shape[-1]
 
     def run(row):
-        a = _block_dft([xb.to(torch.complex64) for xb in row], -1.0)
-        return [_fft.fft(ak * _twiddle(ak.shape[-1], n, k1, -1.0, ak.dtype,
-                                       ak.device))
-                for k1, ak in enumerate(a)]
+        a = _block_dft(Row([xb.to(torch.complex64) for xb in row],
+                           row.owners), -1.0)
+        return Row(a, row.owners).each(
+            lambda k1, ak: _fft.fft(ak * _twiddle(ak.shape[-1], n, k1, -1.0,
+                                                  ak.dtype, ak.device)))
 
-    return ShardedTensor([run(list(row)) for row in xs.shards], -1)
+    return ShardedTensor([run(xs.row(i)) for i in range(len(xs.shards))],
+                         -1, xs.owners)
 
 
 def ifft_sharded(spec, mesh: Mesh, channel_axis: str = "channel",
@@ -87,15 +98,18 @@ def ifft_sharded(spec, mesh: Mesh, channel_axis: str = "channel",
     n = ss.shape[-1]
     nb = len(ss.shards[0])
 
-    def run(row):
-        # step C's inverse (the local iFFT scales by 1/N2), then step B's
-        b = [_fft.ifft(sb) for sb in row]
-        a = [bk * _twiddle(bk.shape[-1], n, k1, 1.0, bk.dtype, bk.device)
-             for k1, bk in enumerate(b)]
-        # and step A's, which brings the remaining 1/N1
-        return [v / nb for v in _block_dft(a, 1.0)]
+    def step_cb(k1, sb):
+        # step C's inverse (the local iFFT scales by 1/N2), then B's
+        bk = _fft.ifft(sb)
+        return bk * _twiddle(bk.shape[-1], n, k1, 1.0, bk.dtype, bk.device)
 
-    return ShardedTensor([run(list(row)) for row in ss.shards], -1)
+    def run(row):
+        a = Row(row.each(step_cb, keep=True), row.owners)
+        # and step A's, which brings the remaining 1/N1
+        return Row(_block_dft(a, 1.0), row.owners).each(lambda k1, v: v / nb)
+
+    return ShardedTensor([run(ss.row(i)) for i in range(len(ss.shards))],
+                         -1, ss.owners)
 
 
 def cyclic_freq_indices(t_local: int, nb: int, k1: int,
@@ -106,9 +120,11 @@ def cyclic_freq_indices(t_local: int, nb: int, k1: int,
 
 
 def _spectral_map(spec: ShardedTensor, fn) -> ShardedTensor:
-    """fn(shard, k1) on every shard of a cyclic-layout spectrum."""
-    return ShardedTensor([[fn(sb, k1) for k1, sb in enumerate(row)]
-                          for row in spec.shards], spec.axis)
+    """fn(shard, k1) on every shard of this process of a cyclic-layout
+    spectrum."""
+    return ShardedTensor([spec.row(i).each(lambda k1, sb: fn(sb, k1))
+                          for i in range(len(spec.shards))], spec.axis,
+                         spec.owners)
 
 
 def hilbert_analytic_sharded(x, mesh: Mesh, channel_axis: str = "channel",

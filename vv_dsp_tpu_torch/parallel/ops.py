@@ -23,7 +23,9 @@ axis (``sharded.shard``). The time length must divide evenly by the
 block-shard count (``mesh.pad_to_blocks``). A shard's work runs on its own
 device, the JAX shard_map body's ops in PyTorch; the STFT's runs on the
 full-nfft spectrum kernel (``csrc/stockham.cu``) wherever its geometry
-takes it.
+takes it. Under several processes each process walks the blocks it owns
+(k stays the global block index) and the halos and the IIR's gathered
+offsets cross processes through ``parallel.comm``.
 """
 
 from __future__ import annotations
@@ -43,9 +45,10 @@ from vv_dsp_tpu_torch.ops import resample as _resample
 from vv_dsp_tpu_torch.ops import savgol as _savgol
 from vv_dsp_tpu_torch.ops import stockham_kernels as _stk
 from vv_dsp_tpu_torch.ops.window import get_window_np
+from vv_dsp_tpu_torch.parallel import comm as _comm
 from vv_dsp_tpu_torch.parallel import halo as _halo
-from vv_dsp_tpu_torch.parallel.mesh import Mesh
-from vv_dsp_tpu_torch.parallel.sharded import ShardedTensor, shard
+from vv_dsp_tpu_torch.parallel.mesh import Mesh, process_index
+from vv_dsp_tpu_torch.parallel.sharded import Row, ShardedTensor, shard
 from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
 
 
@@ -72,8 +75,11 @@ def window_on(window_np: np.ndarray, dtype: torch.dtype,
 
 
 def _rowwise(xs: ShardedTensor, fn, axis: int = -1) -> ShardedTensor:
-    """fn(list of a row's block shards) -> a row of outputs, per row."""
-    return ShardedTensor([fn(list(row)) for row in xs.shards], axis)
+    """fn(a ``Row`` of block shards) -> a row of outputs (None or a
+    placeholder where this process does not hold the position), per
+    row."""
+    return ShardedTensor([fn(xs.row(i)) for i in range(len(xs.shards))],
+                         axis, xs.owners)
 
 
 def shard_channels(x: torch.Tensor, mesh: Mesh,
@@ -81,16 +87,25 @@ def shard_channels(x: torch.Tensor, mesh: Mesh,
     """The channel axis split over the mesh, time whole: the
     embarrassingly parallel layout, in which any op of
     ``vv_dsp_tpu_torch.ops`` runs shard by shard (``ShardedTensor.map``).
-    Each channel block sits on the first device of its mesh row (JAX
-    replicates it over the block axis; a shard's op runs once here)."""
+    Each channel block sits on the first device of its mesh row. Under
+    several processes every process that owns a position of the row holds
+    the block, on its first such device (as JAX replicates it over the
+    block axis), and the owner of the row's first position sends it in
+    ``gather``."""
     block_axis = next(a for a in mesh.axis_names if a != channel_axis)
     rows = mesh.grid(channel_axis, block_axis)
+    owner_rows = mesh.owner_grid(channel_axis, block_axis)
     nc = len(rows)
     if x.shape[0] % nc:
         raise ValueError(f"{x.shape[0]} channels not divisible by {nc} "
                          "channel shards")
-    return ShardedTensor([[part.to(devs[0])] for part, devs in
-                          zip(x.split(x.shape[0] // nc, dim=0), rows)], -1)
+    me = process_index()
+    return ShardedTensor(
+        [[part.to(next(d for d, r in zip(devs, own) if r == me))
+          if me in own else None]
+         for part, devs, own in zip(x.split(x.shape[0] // nc, dim=0), rows,
+                                    owner_rows)],
+        -1, [(own[0],) for own in owner_rows])
 
 
 # ---------------------------------------------------------------------------
@@ -111,20 +126,18 @@ def fir_apply_sharded(h, x, mesh: Mesh, channel_axis: str = "channel",
         h = np.asarray(h, dtype=np.float64)
     taps = h.shape[-1]
 
-    def run(row):
-        out = []
-        for xb, left in zip(row, _halo.halo_from_left(row, taps - 1)):
-            ext = torch.cat([left, xb], dim=-1)
-            if use_fft:
-                y = _fir.fir_apply_os(h, ext)
-            elif use_fft is None and taps > 32:
-                y = _fir.fir_apply_mxu(h, ext)
-            else:
-                y = _fir.fir_apply(h, ext)
-            out.append(y[..., taps - 1:])
-        return out
+    def filt(k, xb, left):
+        ext = torch.cat([left, xb], dim=-1)
+        if use_fft:
+            y = _fir.fir_apply_os(h, ext)
+        elif use_fft is None and taps > 32:
+            y = _fir.fir_apply_mxu(h, ext)
+        else:
+            y = _fir.fir_apply(h, ext)
+        return y[..., taps - 1:]
 
-    return _rowwise(xs, run)
+    return _rowwise(xs, lambda row: row.each(
+        filt, _halo.halo_from_left(row, taps - 1)))
 
 
 # ---------------------------------------------------------------------------
@@ -136,31 +149,41 @@ def iir_apply_sharded(sos, x, mesh: Mesh, channel_axis: str = "channel",
     """Biquad cascade over a sharded time axis, the function of
     ``ops.iir.iir_apply``. Per section each shard scans its cumulative
     affine maps (A_cum, b_cum); the shards' total offsets b_tot are
-    gathered (JAX's ``all_gather``), the exclusive prefix over the shards
-    gives each one its entry state (s_k = A_tot s_{k-1} + b_tot[k-1], with
-    A_tot the same on every equal-length shard), and each corrects its
-    output with it."""
+    gathered over the row (JAX's ``all_gather``, across processes where
+    the row spans several), the exclusive prefix over the shards gives
+    each one its entry state (s_k = A_tot s_{k-1} + b_tot[k-1], with A_tot
+    the same on every equal-length shard, so this process's own serves),
+    computed in shard order on every process that owns a shard of the
+    row, and each corrects its output with it."""
     xs = shard(x, mesh, -1, channel_axis, block_axis)
     sections = _iir.normalize_sos(sos)
 
     def run(row):
-        y = row
+        mine = [k for k in range(len(row)) if row.local(k)]
+        if not mine:
+            return row
+        y = list(row)
         for b0, b1, b2, a1, a2 in sections:
-            cum = [_iir._biquad_cumulative(yb, b0, b1, b2, a1, a2)
-                   for yb in y]
-            entries = [None] * len(y)
+            cum = {k: _iir._biquad_cumulative(y[k], b0, b1, b2, a1, a2)
+                   for k in mine}
+            entries = {}
             if len(y) > 1:
-                s = torch.zeros_like(cum[0][1][..., -1, :])
+                dev = y[mine[0]].device
+                like = cum[mine[0]][1][..., -1, :].to("meta")
+                tots = _comm.all_gather(
+                    [cum[k][1][..., -1, :] if k in cum else like
+                     for k in range(len(y))], row.owners, dev)
+                a_loc = cum[mine[0]][0][..., -1, :, :].reshape(-1, 2, 2)[0]
+                s = torch.zeros_like(tots[mine[0]])
                 entries[0] = s
-                for k in range(1, len(y)):
-                    dev = y[k].device
-                    a_tot = cum[k][0][..., -1, :, :]
-                    a_loc = a_tot.reshape(-1, 2, 2)[0]
+                for k in range(1, mine[-1] + 1):
                     s = (_iir._matvec(a_loc, s.to(dev))
-                         + cum[k - 1][1][..., -1, :].to(dev))
+                         + tots[k - 1].to(dev))
                     entries[k] = s
-            y = [_iir._biquad_output(yb, b0, s0, a_cum, b_cum)[0]
-                 for yb, s0, (a_cum, b_cum) in zip(y, entries, cum)]
+            for k in mine:
+                s0 = entries.get(k)
+                s0 = None if s0 is None else s0.to(y[k].device)
+                y[k] = _iir._biquad_output(y[k], b0, s0, *cum[k])[0]
         return y
 
     return _rowwise(xs, run)
@@ -216,15 +239,13 @@ def stft_shards(xs: ShardedTensor, nfft: int, hop: int,
                          "(or pass pad=True)")
     overlap = nfft - hop
 
-    def run(row):
-        out = []
-        for xb, right in zip(row, _halo.halo_from_right(row, overlap)):
-            w = window_on(window_np, xb.real.dtype, xb.device)
-            out.append(stft_local(torch.cat([xb, right], dim=-1), nfft, hop,
-                                  w, xb.shape[-1] // hop, rfft))
-        return out
+    def spectrum(k, xb, right):
+        w = window_on(window_np, xb.real.dtype, xb.device)
+        return stft_local(torch.cat([xb, right], dim=-1), nfft, hop, w,
+                          xb.shape[-1] // hop, rfft)
 
-    return _rowwise(xs, run, axis=-2)
+    return _rowwise(xs, lambda row: row.each(
+        spectrum, _halo.halo_from_right(row, overlap)), axis=-2)
 
 
 def stft_process_sharded(x, nfft: int, hop: int, mesh: Mesh,
@@ -237,7 +258,9 @@ def stft_process_sharded(x, nfft: int, hop: int, mesh: Mesh,
 
     x: (channels, n) with n % (n_block_shards * hop) == 0, so that frame
     ownership is uniform; pad=True zero-pads any n up to the next multiple
-    (the reference's zero-padded tail frames, src/spectral/stft.c:124-137).
+    (the reference's zero-padded tail frames, src/spectral/stft.c:124-137),
+    gathering a ``ShardedTensor`` input first (a collective under several
+    processes: every rank calls it).
     Shard k owns the frames starting inside its block and takes nfft - hop
     samples of right halo. Returns (channels, n // hop, bins) with the
     frame axis sharded over block_axis, ready for sharded spectral ops or
@@ -262,29 +285,38 @@ def reconstruct_shards(ss: ShardedTensor, nfft: int, hop: int,
     ola = (_framing.overlap_add_strided if nfft % hop == 0
            else _framing.overlap_add)
 
+    def both_and_spill(sb):
+        """(recon and norm over the block, their spill past it), stacked;
+        placeholders of their shapes where this process does not hold
+        the block."""
+        nf_local = sb.shape[-2]
+        t_local = nf_local * hop
+        if sb.is_meta:
+            shape = (2,) + sb.shape[:-2]
+            return (torch.empty(shape + (t_local,), dtype=sb.real.dtype,
+                                device="meta"),
+                    torch.empty(shape + (overlap,), dtype=sb.real.dtype,
+                                device="meta"))
+        time = _fft.irfft(sb, nfft) if rfft else _fft.ifft(sb).real
+        w = window_on(window_np, torch.float32, sb.device).to(time.dtype)
+        buf_len = t_local + overlap
+        recon = ola(time * w, hop, buf_len)
+        norm = ola((w * w).expand(nf_local, nfft), hop, buf_len)
+        norm = norm.expand(recon.shape)
+        return (torch.stack([recon[..., :t_local], norm[..., :t_local]]),
+                torch.stack([recon[..., t_local:], norm[..., t_local:]]))
+
+    def divide(k, both):
+        recon, norm = both[0], both[1]
+        good = norm > 1e-12
+        return torch.where(
+            good, recon / torch.where(good, norm, torch.ones_like(norm)),
+            recon)
+
     def run(row):
-        boths, spills = [], []
-        for sb in row:
-            time = _fft.irfft(sb, nfft) if rfft else _fft.ifft(sb).real
-            w = window_on(window_np, torch.float32, sb.device).to(time.dtype)
-            nf_local = sb.shape[-2]
-            t_local = nf_local * hop
-            buf_len = t_local + overlap
-            recon = ola(time * w, hop, buf_len)
-            norm = ola((w * w).expand(nf_local, nfft), hop, buf_len)
-            norm = norm.expand(recon.shape)
-            spills.append(torch.stack([recon[..., t_local:],
-                                       norm[..., t_local:]]))
-            boths.append(torch.stack([recon[..., :t_local],
-                                      norm[..., :t_local]]))
-        out = []
-        for both in _halo.spill_add_right(boths, spills):
-            recon, norm = both[0], both[1]
-            good = norm > 1e-12
-            out.append(torch.where(
-                good, recon / torch.where(good, norm, torch.ones_like(norm)),
-                recon))
-        return out
+        boths, spills = zip(*(both_and_spill(sb) for sb in row))
+        summed = _halo.spill_add_right(Row(boths, row.owners), spills)
+        return Row(summed, row.owners).each(divide)
 
     return _rowwise(ss, run)
 
@@ -335,19 +367,17 @@ def resample_poly_sharded(x, up: int, down: int, mesh: Mesh,
     key = (up, down, n // nb * up // down, halo_l)
     xs = shard(x, mesh, -1, channel_axis, block_axis)
 
-    def run(row):
-        out = []
-        for xb, left, right in zip(row, _halo.halo_from_left(row, halo_l),
-                                   _halo.halo_from_right(row, halo_r)):
-            ext = torch.cat([left, xb, right], dim=-1)
-            gathered = ext[..., table_on(resample_index, key, torch.int64,
-                                         xb.device)]
-            out.append(torch.einsum(
-                "...ot,ot->...o", gathered,
-                table_on(resample_weights, key, xb.dtype, xb.device)))
-        return out
+    def resample(k, xb, left, right):
+        ext = torch.cat([left, xb, right], dim=-1)
+        gathered = ext[..., table_on(resample_index, key, torch.int64,
+                                     xb.device)]
+        return torch.einsum("...ot,ot->...o", gathered,
+                            table_on(resample_weights, key, xb.dtype,
+                                     xb.device))
 
-    return _rowwise(xs, run)
+    return _rowwise(xs, lambda row: row.each(
+        resample, _halo.halo_from_left(row, halo_l),
+        _halo.halo_from_right(row, halo_r)))
 
 
 def polyphase_table(h: np.ndarray, up: int) -> np.ndarray:
@@ -400,14 +430,13 @@ def _edge_fixed_row(row, halo: int, n_total: int,
 
     halo may exceed the block. Every reflected position of an
     out-of-signal one in a shard's window lies within halo of the edge,
-    inside the shard's own t + 2 halo window, so the fix-up is local."""
+    inside the shard's own t + 2 halo window, so the fix-up is local.
+    None where this process does not hold the block."""
     nb = len(row)
     t = row[0].shape[-1]
     reflect = reflect_mode == "reflect"
-    out = []
-    for k, (xb, left, right) in enumerate(zip(
-            row, _halo.halo_from_left(row, halo),
-            _halo.halo_from_right(row, halo))):
+
+    def window(k, xb, left, right):
         ext = torch.cat([left, xb, right], dim=-1)
         # 'reflect' needs halo < t: reflecting position -halo reads x[halo],
         # which at halo == t lies in the neighbour shard
@@ -419,13 +448,14 @@ def _edge_fixed_row(row, halo: int, n_total: int,
                 refl = (xb[..., t - 1 - halo:t - 1] if reflect
                         else xb[..., t - halo:])
                 ext = torch.cat([ext[..., :-halo], refl.flip(-1)], dim=-1)
-            out.append(ext)
-            continue
+            return ext
         # the halo spans several blocks: gather against the global edges
-        out.append(ext[..., table_on(_edge_index,
-                                     (k * t, t, halo, n_total, reflect),
-                                     torch.int64, xb.device)])
-    return out
+        return ext[..., table_on(_edge_index,
+                                 (k * t, t, halo, n_total, reflect),
+                                 torch.int64, xb.device)]
+
+    return row.each(window, _halo.halo_from_left(row, halo),
+                    _halo.halo_from_right(row, halo))
 
 
 def _edge_index(start: int, t: int, halo: int, n_total: int,
@@ -457,9 +487,9 @@ def savgol_filter_sharded(x, window_length: int, polyorder: int, mesh: Mesh,
         raise ValueError("window_length//2 must be < signal length")
     xs = shard(x, mesh, -1, channel_axis, block_axis)
     taps = w_np[::-1].copy()
-    return _rowwise(xs, lambda row: [
-        _fir.fir_apply_mxu(taps, ext)[..., 2 * half:]
-        for ext in _edge_fixed_row(row, half, n_total, "reflect")])
+    return _rowwise(xs, lambda row: row.each(
+        lambda k, xb, ext: _fir.fir_apply_mxu(taps, ext)[..., 2 * half:],
+        _edge_fixed_row(row, half, n_total, "reflect")))
 
 
 def filtfilt_fir_sharded(h, x, mesh: Mesh, channel_axis: str = "channel",
@@ -478,6 +508,6 @@ def filtfilt_fir_sharded(h, x, mesh: Mesh, channel_axis: str = "channel",
     if pad == 0:
         return xs.map(lambda xb: xb * float(np.float32(g[0])))
     # y[i] = (g * xext)[i + 2 pad] with causal indexing
-    return _rowwise(xs, lambda row: [
-        _fir.fir_apply_mxu(g, ext)[..., 2 * pad:]
-        for ext in _edge_fixed_row(row, pad, n_total, "symmetric")])
+    return _rowwise(xs, lambda row: row.each(
+        lambda k, xb, ext: _fir.fir_apply_mxu(g, ext)[..., 2 * pad:],
+        _edge_fixed_row(row, pad, n_total, "symmetric")))

@@ -10,7 +10,11 @@ its arguments; without a GPU and without ``--cpu`` it writes
 ``no CUDA device; pass --cpu`` to stderr and returns 1 (``_cli``).
 
 Beside them: ``profile_path`` (where the main path's device time goes),
-``poly_ratios`` and ``poly_floor`` (the per-phase resampler's timings).
+``poly_ratios`` and ``poly_floor`` (the per-phase resampler's timings),
+and the two launchers in ``LAUNCHERS``, twins of the JAX package's
+``scripts/launch_multihost.py`` (one program in N processes over a global
+mesh) and ``scripts/run_scaling_report.py`` (the weak-scaling sweep over
+N of them), which the dispatcher runs too.
 """
 
 TOOLS = [
@@ -18,3 +22,4 @@ TOOLS = [
     "dump_stft_roundtrip", "dump_resample", "dump_czt", "dump_dct",
     "dump_stats", "dump_hilbert", "dump_mfcc", "bench_czt",
 ]
+LAUNCHERS = ["launch_multihost", "run_scaling_report"]

@@ -49,6 +49,7 @@ from vv_dsp_tpu_torch.ops.window import get_window_np
 from vv_dsp_tpu_torch.parallel import halo as _halo
 from vv_dsp_tpu_torch.parallel import ops as _par
 from vv_dsp_tpu_torch.parallel.sharded import ShardedTensor, shard
+from vv_dsp_tpu_torch.utils import profiling
 from vv_dsp_tpu_torch.utils.device import build_device as _build_device
 from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
 
@@ -136,22 +137,27 @@ class NorthStarChain(nn.Module):
         self.register_buffer("dct_lift", _buffer(params["dct_lift"], device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (channels, n) -> (channels, frames, n_mfcc)."""
-        x = config.as_compute(x)
-        _check_input(x, self.head_taps, "NorthStarChain")
-        if self.fused_head:
-            y = _rs.fir_resample_fused(self.fir_coeffs, x, self.up,
-                                       self.down,
-                                       algorithm=self.head_algorithm,
-                                       taps=self.head_taps)
-        else:
-            y = _fk.resample_poly_best(
-                _fk.fir_apply_best(self.fir_coeffs, x.float()), self.up,
-                self.down)
-        return _mel.mfcc_stft_with(y, self.nfft, self.hop, self.window,
-                                   self.mel_fb, self.mel_bands,
-                                   self.dct_lift, 1e-10,
-                                   self.stft_algorithm)
+        """x: (channels, n) -> (channels, frames, n_mfcc). Spans (while a
+        profiler runs): ``chain`` around the call, ``chain.head`` and
+        ``chain.mfcc`` around its two stages, each timed on the device."""
+        with profiling.span("chain"):
+            x = config.as_compute(x)
+            _check_input(x, self.head_taps, "NorthStarChain")
+            with profiling.span("chain.head", device=x.device):
+                if self.fused_head:
+                    y = _rs.fir_resample_fused(self.fir_coeffs, x, self.up,
+                                               self.down,
+                                               algorithm=self.head_algorithm,
+                                               taps=self.head_taps)
+                else:
+                    y = _fk.resample_poly_best(
+                        _fk.fir_apply_best(self.fir_coeffs, x.float()),
+                        self.up, self.down)
+            with profiling.span("chain.mfcc", device=x.device):
+                return _mel.mfcc_stft_with(
+                    y, self.nfft, self.hop, self.window, self.mel_fb,
+                    self.mel_bands, self.dct_lift, 1e-10,
+                    self.stft_algorithm)
 
     def apply_sharded(self, x, mesh, fuse_halos: bool = True
                       ) -> ShardedTensor:

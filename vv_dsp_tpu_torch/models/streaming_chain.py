@@ -23,6 +23,7 @@ from vv_dsp_tpu_torch import streaming
 from vv_dsp_tpu_torch.ops import mel as _mel
 from vv_dsp_tpu_torch.ops.fft import rfft_power
 from vv_dsp_tpu_torch.ops.fir import design_lowpass_np
+from vv_dsp_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,16 +86,24 @@ class StreamingNorthStar:
         }
 
     def process(self, state: dict, block: torch.Tensor):
-        """(state, (..., block_in)) -> ((..., frames, n_mfcc), state)."""
-        self.validate_block(block.shape[-1])
-        y, fir_s = streaming.fir_stream_process(self.fir_coeffs,
-                                                state["fir"], block)
-        y, rs_s = self._resampler.process(state["resample"], y)
-        # windowed framing by the shared StftStream step, then the power
-        # spectrum -> MFCC
-        frames, stft_s = self._stft.frames(state["stft"], y)
-        feats = self._mfcc(frames)
-        return feats, {"fir": fir_s, "resample": rs_s, "stft": stft_s}
+        """(state, (..., block_in)) -> ((..., frames, n_mfcc), state).
+        Spans (while a profiler runs): ``stream`` around the call,
+        ``stream.fir``, ``stream.resample``, ``stream.frames`` and
+        ``stream.mfcc`` around its four steps."""
+        with profiling.span("stream"):
+            self.validate_block(block.shape[-1])
+            with profiling.span("stream.fir"):
+                y, fir_s = streaming.fir_stream_process(self.fir_coeffs,
+                                                        state["fir"], block)
+            with profiling.span("stream.resample"):
+                y, rs_s = self._resampler.process(state["resample"], y)
+            # windowed framing by the shared StftStream step, then the power
+            # spectrum -> MFCC
+            with profiling.span("stream.frames"):
+                frames, stft_s = self._stft.frames(state["stft"], y)
+            with profiling.span("stream.mfcc"):
+                feats = self._mfcc(frames)
+            return feats, {"fir": fir_s, "resample": rs_s, "stft": stft_s}
 
     def process_blocks(self, state: dict, signal: torch.Tensor,
                        block_in: int):

@@ -39,6 +39,7 @@ from vv_dsp_tpu_torch.ops.resample import (_reduce, _resample_poly_filter,
                                            resample_poly, resample_poly_mxu)
 from vv_dsp_tpu_torch.ops.upfirdn import (banded_supported, polyphase_table,
                                           upfirdn_banded)
+from vv_dsp_tpu_torch.utils import profiling
 from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
 from vv_dsp_tpu_torch.utils.shapes import collapse_leading
 
@@ -74,25 +75,26 @@ def fir_direct(h, x: torch.Tensor) -> torch.Tensor:
                          f"[1, {KERNEL_MAX_TAPS}]; use fir_apply_mxu")
     if x.device.type == "cpu":
         return fir_direct_plain(h, x)
-    _check_cuda(x, "fir_direct")
-    # host taps come from the per-filter device cache, with no copy a call
-    h = (taps_like(h, x).contiguous() if isinstance(h, torch.Tensor)
-         else polyphase_table(h, 1, x.device)[0])
-    _build.require(x, "x", x.device)
-    _build.require(h, "h", x.device, (taps,))
-    c, n = x.shape
-    chunks = _build.row_chunks(c)
-    y = torch.empty_like(x)
-    if n == 0:
+    with profiling.span("kernel.fir_direct"):
+        _check_cuda(x, "fir_direct")
+        # host taps come from the per-filter device cache, with no copy a call
+        h = (taps_like(h, x).contiguous() if isinstance(h, torch.Tensor)
+             else polyphase_table(h, 1, x.device)[0])
+        _build.require(x, "x", x.device)
+        _build.require(h, "h", x.device, (taps,))
+        c, n = x.shape
+        chunks = _build.row_chunks(c)
+        y = torch.empty_like(x)
+        if n == 0:
+            return y
+        lib = _build.library()
+        for r0, rows in chunks:
+            err = lib.vv_fir_direct(
+                _build.ptr(x, r0), _build.ptr(h), _build.ptr(y, r0), rows, n,
+                taps, x.device.index, _build.stream_handle(x))
+            _build.check(err, "fir_direct")
+            fir_direct.launches += 1
         return y
-    lib = _build.library()
-    for r0, rows in chunks:
-        err = lib.vv_fir_direct(
-            _build.ptr(x, r0), _build.ptr(h), _build.ptr(y, r0), rows, n,
-            taps, x.device.index, _build.stream_handle(x))
-        _build.check(err, "fir_direct")
-        fir_direct.launches += 1
-    return y
 
 
 fir_direct.launches = 0
@@ -122,26 +124,27 @@ def resample_poly_kernel(x: torch.Tensor, up: int,
     if x.ndim != 2:
         x2, restore = collapse_leading(x)
         return restore(resample_poly_kernel(x2, up, down), 1)
-    _check_cuda(x, "resample_poly_kernel")
-    _build.require(x, "x", x.device)
-    c, n_in = x.shape
-    chunks = _build.row_chunks(c)
-    n_out = -(-n_in * up // down)
-    y = torch.empty((c, n_out), dtype=torch.float32, device=x.device)
-    if n_out == 0:
+    with profiling.span("kernel.resample_poly_kernel"):
+        _check_cuda(x, "resample_poly_kernel")
+        _build.require(x, "x", x.device)
+        c, n_in = x.shape
+        chunks = _build.row_chunks(c)
+        n_out = -(-n_in * up // down)
+        y = torch.empty((c, n_out), dtype=torch.float32, device=x.device)
+        if n_out == 0:
+            return y
+        p = poly_plan.poly_plan(up, down)
+        weights, offsets = poly_plan.poly_tables(up, down, x.device)
+        lib = _build.library()
+        for r0, rows in chunks:
+            err = lib.vv_poly(
+                _build.ptr(x, r0), _build.ptr(weights), _build.ptr(offsets),
+                _build.ptr(y, r0), rows, n_in, n_out, up, down, p.ncls,
+                p.n_big, p.k, p.lo, p.row_len, p.q_pitch, p.p_pitch, p.frames,
+                p.threads, p.smem, x.device.index, _build.stream_handle(x))
+            _build.check(err, "resample_poly_kernel")
+            resample_poly_kernel.launches += 1
         return y
-    p = poly_plan.poly_plan(up, down)
-    weights, offsets = poly_plan.poly_tables(up, down, x.device)
-    lib = _build.library()
-    for r0, rows in chunks:
-        err = lib.vv_poly(
-            _build.ptr(x, r0), _build.ptr(weights), _build.ptr(offsets),
-            _build.ptr(y, r0), rows, n_in, n_out, up, down, p.ncls, p.n_big,
-            p.k, p.lo, p.row_len, p.q_pitch, p.p_pitch, p.frames, p.threads,
-            p.smem, x.device.index, _build.stream_handle(x))
-        _build.check(err, "resample_poly_kernel")
-        resample_poly_kernel.launches += 1
-    return y
 
 
 resample_poly_kernel.launches = 0

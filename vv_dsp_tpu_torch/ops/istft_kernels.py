@@ -33,6 +33,7 @@ from vv_dsp_tpu_torch import _build, config
 from vv_dsp_tpu_torch.ops import fft as _fft
 from vv_dsp_tpu_torch.ops import fft_plan, framing
 from vv_dsp_tpu_torch.ops import stft_kernels as _sk
+from vv_dsp_tpu_torch.utils import profiling
 
 
 def istft_supported(nfft: int, hop: int) -> bool:
@@ -117,38 +118,39 @@ def istft(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
     if spec.device.type == "cpu":
         return istft_plain(spec, nfft, hop, output_len, window, norm,
                            gate_threshold)
-    if spec.device.type != "cuda":
-        raise ValueError(f"istft: unsupported device {spec.device}")
-    if spec.ndim != 3:
-        raise ValueError("istft expects (channels, frames, nfft//2+1)")
-    if not istft_supported(nfft, hop):
-        raise ValueError(f"istft: unsupported geometry nfft={nfft} hop={hop};"
-                         f" check istft_supported()")
-    c, nf, _ = spec.shape
-    chunks = _build.row_chunks(c)
-    if output_len < 1:
-        raise ValueError(f"output_len must be positive, got {output_len}")
-    _build.require(spec, "spec", spec.device, (c, nf, nfft // 2 + 1),
-                   torch.complex64)
-    _build.require(window, "window", spec.device, (nfft,))
-    _build.require(norm, "norm", spec.device, (output_len,))
-    out = torch.empty((c, output_len), dtype=torch.float32,
-                      device=spec.device)
-    tw = fft_plan.pass_twiddles(nfft // 2, spec.device)
-    wk = _sk._fft_tables(nfft, spec.device)[1]
-    gate = gate_threshold is not None
-    thresh2 = float(gate_threshold) ** 2 if gate else 0.0
-    lib = _build.library()
-    for r0, rows in chunks:
-        err = lib.vv_istft(
-            _build.ptr(spec, r0), _build.ptr(window), _build.ptr(tw),
-            _build.ptr(wk), _build.ptr(norm), _build.ptr(out, r0), rows, nf,
-            nfft, hop, output_len, int(gate), thresh2,
-            fft_plan.packed_istft_smem(nfft, hop), spec.device.index,
-            _build.stream_handle(spec))
-        _build.check(err, "istft")
-        istft.launches += 1
-    return out
+    with profiling.span("kernel.istft"):
+        if spec.device.type != "cuda":
+            raise ValueError(f"istft: unsupported device {spec.device}")
+        if spec.ndim != 3:
+            raise ValueError("istft expects (channels, frames, nfft//2+1)")
+        if not istft_supported(nfft, hop):
+            raise ValueError(f"istft: unsupported geometry nfft={nfft} "
+                             f"hop={hop}; check istft_supported()")
+        c, nf, _ = spec.shape
+        chunks = _build.row_chunks(c)
+        if output_len < 1:
+            raise ValueError(f"output_len must be positive, got {output_len}")
+        _build.require(spec, "spec", spec.device, (c, nf, nfft // 2 + 1),
+                       torch.complex64)
+        _build.require(window, "window", spec.device, (nfft,))
+        _build.require(norm, "norm", spec.device, (output_len,))
+        out = torch.empty((c, output_len), dtype=torch.float32,
+                          device=spec.device)
+        tw = fft_plan.pass_twiddles(nfft // 2, spec.device)
+        wk = _sk._fft_tables(nfft, spec.device)[1]
+        gate = gate_threshold is not None
+        thresh2 = float(gate_threshold) ** 2 if gate else 0.0
+        lib = _build.library()
+        for r0, rows in chunks:
+            err = lib.vv_istft(
+                _build.ptr(spec, r0), _build.ptr(window), _build.ptr(tw),
+                _build.ptr(wk), _build.ptr(norm), _build.ptr(out, r0), rows,
+                nf, nfft, hop, output_len, int(gate), thresh2,
+                fft_plan.packed_istft_smem(nfft, hop), spec.device.index,
+                _build.stream_handle(spec))
+            _build.check(err, "istft")
+            istft.launches += 1
+        return out
 
 
 istft.launches = 0
@@ -219,32 +221,35 @@ def stft_gate_packed(x: torch.Tensor, nfft: int, hop: int, threshold: float,
     _gate_tier(algorithm)
     if x.device.type == "cpu":
         return stft_gate_packed_plain(x, nfft, hop, threshold, window, norm)
-    if x.device.type != "cuda":
-        raise ValueError(f"stft_gate_packed: unsupported device {x.device}")
-    if x.ndim != 2:
-        raise ValueError("stft_gate_packed expects (channels, n)")
-    if not _sk.packed_gate_supported(nfft, hop):
-        raise ValueError(f"stft_gate_packed: unsupported geometry nfft={nfft}"
-                         f" hop={hop}; check packed_gate_supported()")
-    c, n = x.shape
-    chunks = _build.row_chunks(c)
-    _build.require(x, "x", x.device)
-    _build.require(window, "window", x.device, (nfft,))
-    _build.require(norm, "norm", x.device, (n,))
-    out = torch.empty_like(x)
-    tw = fft_plan.pass_twiddles(nfft // 2, x.device)
-    wk = _sk._fft_tables(nfft, x.device)[1]
-    lib = _build.library()
-    for r0, rows in chunks:
-        err = lib.vv_stft_gate_packed(
-            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-            _build.ptr(wk), _build.ptr(norm), _build.ptr(out, r0), rows, n,
-            framing.stft_num_frames(n, nfft, hop), nfft, hop,
-            float(threshold) ** 2, fft_plan.gate_packed_smem(nfft, hop),
-            x.device.index, _build.stream_handle(x))
-        _build.check(err, "stft_gate_packed")
-        stft_gate_packed.launches += 1
-    return out
+    with profiling.span("kernel.stft_gate_packed"):
+        if x.device.type != "cuda":
+            raise ValueError(f"stft_gate_packed: unsupported device "
+                             f"{x.device}")
+        if x.ndim != 2:
+            raise ValueError("stft_gate_packed expects (channels, n)")
+        if not _sk.packed_gate_supported(nfft, hop):
+            raise ValueError(f"stft_gate_packed: unsupported geometry "
+                             f"nfft={nfft} hop={hop}; check "
+                             f"packed_gate_supported()")
+        c, n = x.shape
+        chunks = _build.row_chunks(c)
+        _build.require(x, "x", x.device)
+        _build.require(window, "window", x.device, (nfft,))
+        _build.require(norm, "norm", x.device, (n,))
+        out = torch.empty_like(x)
+        tw = fft_plan.pass_twiddles(nfft // 2, x.device)
+        wk = _sk._fft_tables(nfft, x.device)[1]
+        lib = _build.library()
+        for r0, rows in chunks:
+            err = lib.vv_stft_gate_packed(
+                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+                _build.ptr(wk), _build.ptr(norm), _build.ptr(out, r0), rows, n,
+                framing.stft_num_frames(n, nfft, hop), nfft, hop,
+                float(threshold) ** 2, fft_plan.gate_packed_smem(nfft, hop),
+                x.device.index, _build.stream_handle(x))
+            _build.check(err, "stft_gate_packed")
+            stft_gate_packed.launches += 1
+        return out
 
 
 stft_gate_packed.launches = 0

@@ -44,6 +44,7 @@ from vv_dsp_tpu_torch.ops import stft_kernels as _sk
 from vv_dsp_tpu_torch.ops import stockham_kernels as _stk
 from vv_dsp_tpu_torch.ops.packed import PackedSpectrum
 from vv_dsp_tpu_torch.ops.window import get_window, get_window_np
+from vv_dsp_tpu_torch.utils import profiling
 from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
 
 
@@ -110,24 +111,29 @@ class STFT:
 
     def process(self, x: torch.Tensor, rfft: bool = False) -> torch.Tensor:
         """Forward STFT of (..., n) -> (..., frames, nfft) complex (or
-        (..., frames, nfft//2+1) with rfft=True)."""
-        x = self._signal(x)
-        if x.ndim != 2 and not x.is_complex():
-            lead = x.shape[:-1]
-            y = self.process(x.reshape(-1, x.shape[-1]), rfft)
-            return y.reshape(lead + y.shape[-2:])
-        win = self.win(x.device)
-        route = spectrum_route(self.nfft, self.hop, x.is_complex())
-        if route == "torch":
-            return _sk.stft_spectrum_plain(x, self.nfft, self.hop, win,
-                                           onesided=rfft)
-        spectrum = (_stk.stft_spectrum_stockham if route == "full_nfft"
-                    else _sk.stft_spectrum)
-        return kernel_with_torch_vjp(
-            lambda xv: spectrum(xv, self.nfft, self.hop, win, onesided=rfft),
-            lambda xv: _sk.stft_spectrum_plain(xv, self.nfft, self.hop, win,
-                                               onesided=rfft),
-        )(x)
+        (..., frames, nfft//2+1) with rfft=True). Span (while a profiler
+        runs): ``stft`` around the call."""
+        with profiling.span("stft"):
+            x = self._signal(x)
+            lead = None
+            if x.ndim != 2 and not x.is_complex():
+                lead = x.shape[:-1]
+                x = x.reshape(-1, x.shape[-1])
+            win = self.win(x.device)
+            route = spectrum_route(self.nfft, self.hop, x.is_complex())
+            if route == "torch":
+                y = _sk.stft_spectrum_plain(x, self.nfft, self.hop, win,
+                                            onesided=rfft)
+            else:
+                spectrum = (_stk.stft_spectrum_stockham if route == "full_nfft"
+                            else _sk.stft_spectrum)
+                y = kernel_with_torch_vjp(
+                    lambda xv: spectrum(xv, self.nfft, self.hop, win,
+                                        onesided=rfft),
+                    lambda xv: _sk.stft_spectrum_plain(xv, self.nfft, self.hop,
+                                                       win, onesided=rfft),
+                )(x)
+            return y if lead is None else y.reshape(lead + y.shape[-2:])
 
     def power(self, x: torch.Tensor) -> torch.Tensor:
         """One-sided power spectrogram |rfft(w * frame)|^2, the complex

@@ -28,6 +28,7 @@ from vv_dsp_tpu_torch.ops import fft as _fft
 from vv_dsp_tpu_torch.ops import fft_plan, mma_plan
 from vv_dsp_tpu_torch.ops.framing import frames_strided, stft_num_frames
 from vv_dsp_tpu_torch.ops.window import get_window_np
+from vv_dsp_tpu_torch.utils import profiling
 
 
 def stft_supported(nfft: int, hop: int) -> bool:
@@ -101,23 +102,25 @@ def stft_spectrum(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
     Hermitian mirror written by the kernel) or (c, frames, nfft//2+1)."""
     if x.device.type == "cpu":
         return stft_spectrum_plain(x, nfft, hop, window, onesided)
-    _check_signal(x, window, nfft, hop, "stft_spectrum")
-    c, n = x.shape
-    chunks = _build.row_chunks(c)
-    nf = stft_num_frames(n, nfft, hop)
-    bins = nfft // 2 + 1 if onesided else nfft
-    out = torch.empty((c, nf, bins), dtype=torch.complex64, device=x.device)
-    tw = fft_plan.pass_twiddles(nfft // 2, x.device)
-    wk = _fft_tables(nfft, x.device)[1]
-    lib = _build.library()
-    for r0, rows in chunks:
-        err = lib.vv_stft_spectrum(
-            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-            _build.ptr(wk), _build.ptr(out, r0), rows, n, nf, nfft, hop,
-            bins, x.device.index, _build.stream_handle(x))
-        _build.check(err, "stft_spectrum")
-        stft_spectrum.launches += 1
-    return out
+    with profiling.span("kernel.stft_spectrum"):
+        _check_signal(x, window, nfft, hop, "stft_spectrum")
+        c, n = x.shape
+        chunks = _build.row_chunks(c)
+        nf = stft_num_frames(n, nfft, hop)
+        bins = nfft // 2 + 1 if onesided else nfft
+        out = torch.empty((c, nf, bins), dtype=torch.complex64,
+                          device=x.device)
+        tw = fft_plan.pass_twiddles(nfft // 2, x.device)
+        wk = _fft_tables(nfft, x.device)[1]
+        lib = _build.library()
+        for r0, rows in chunks:
+            err = lib.vv_stft_spectrum(
+                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+                _build.ptr(wk), _build.ptr(out, r0), rows, n, nf, nfft, hop,
+                bins, x.device.index, _build.stream_handle(x))
+            _build.check(err, "stft_spectrum")
+            stft_spectrum.launches += 1
+        return out
 
 
 stft_spectrum.launches = 0
@@ -139,23 +142,24 @@ def stft_power(x: torch.Tensor, nfft: int, hop: int,
     spectrum never leaves registers and shared memory."""
     if x.device.type == "cpu":
         return stft_power_plain(x, nfft, hop, window)
-    _check_signal(x, window, nfft, hop, "stft_power")
-    c, n = x.shape
-    chunks = _build.row_chunks(c)
-    nf = stft_num_frames(n, nfft, hop)
-    out = torch.empty((c, nf, nfft // 2 + 1), dtype=torch.float32,
-                      device=x.device)
-    tw = fft_plan.pass_twiddles(nfft // 2, x.device)
-    wk = _fft_tables(nfft, x.device)[1]
-    lib = _build.library()
-    for r0, rows in chunks:
-        err = lib.vv_stft_power(
-            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-            _build.ptr(wk), _build.ptr(out, r0), rows, n, nf, nfft, hop,
-            x.device.index, _build.stream_handle(x))
-        _build.check(err, "stft_power")
-        stft_power.launches += 1
-    return out
+    with profiling.span("kernel.stft_power"):
+        _check_signal(x, window, nfft, hop, "stft_power")
+        c, n = x.shape
+        chunks = _build.row_chunks(c)
+        nf = stft_num_frames(n, nfft, hop)
+        out = torch.empty((c, nf, nfft // 2 + 1), dtype=torch.float32,
+                          device=x.device)
+        tw = fft_plan.pass_twiddles(nfft // 2, x.device)
+        wk = _fft_tables(nfft, x.device)[1]
+        lib = _build.library()
+        for r0, rows in chunks:
+            err = lib.vv_stft_power(
+                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+                _build.ptr(wk), _build.ptr(out, r0), rows, n, nf, nfft, hop,
+                x.device.index, _build.stream_handle(x))
+            _build.check(err, "stft_power")
+            stft_power.launches += 1
+        return out
 
 
 stft_power.launches = 0
@@ -232,37 +236,38 @@ def stft_mfcc(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
     if x.device.type == "cpu":
         return stft_mfcc_plain(x, nfft, hop, window, mel_fb, dct, log_eps,
                                algorithm)
-    _check_signal(x, window, nfft, hop, "stft_mfcc")
-    n_mels = mel_fb.shape[0]
-    _build.require(mel_fb, "mel_fb", x.device, (n_mels, nfft // 2 + 1))
-    _build.require(bands, "bands", x.device, (2, n_mels), torch.int32)
-    n_out = n_mels
-    if dct is not None:
-        n_out = dct.shape[0]
-        _build.require(dct, "dct", x.device, (n_out, n_mels))
-    c, n = x.shape
-    chunks = _build.row_chunks(c)
-    nf = stft_num_frames(n, nfft, hop)
-    weights, index = _mel_tables(mel_fb, bands)
-    plan = fft_plan.mfcc_plan(nfft, n_mels, n_out, weights.numel(),
-                              dct is not None)
-    out = torch.empty((c, nf, n_out), dtype=torch.float32, device=x.device)
-    tw = fft_plan.pass_twiddles(nfft // 2, x.device)
-    wk = _fft_tables(nfft, x.device)[1]
-    lib = _build.library()
-    for r0, rows in chunks:
-        err = lib.vv_stft_mfcc(
-            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-            _build.ptr(wk), _build.ptr(weights), _build.ptr(index),
-            _build.ptr(dct if dct is not None else weights),
-            _build.ptr(out, r0), rows, n, nf, nfft, hop, n_mels, n_out,
-            weights.numel(), float(log_eps),
-            config.ALGORITHMS.index(algorithm), int(dct is not None),
-            int(plan.staged), plan.smem, x.device.index,
-            _build.stream_handle(x))
-        _build.check(err, "stft_mfcc")
-        stft_mfcc.launches += 1
-    return out
+    with profiling.span("kernel.stft_mfcc"):
+        _check_signal(x, window, nfft, hop, "stft_mfcc")
+        n_mels = mel_fb.shape[0]
+        _build.require(mel_fb, "mel_fb", x.device, (n_mels, nfft // 2 + 1))
+        _build.require(bands, "bands", x.device, (2, n_mels), torch.int32)
+        n_out = n_mels
+        if dct is not None:
+            n_out = dct.shape[0]
+            _build.require(dct, "dct", x.device, (n_out, n_mels))
+        c, n = x.shape
+        chunks = _build.row_chunks(c)
+        nf = stft_num_frames(n, nfft, hop)
+        weights, index = _mel_tables(mel_fb, bands)
+        plan = fft_plan.mfcc_plan(nfft, n_mels, n_out, weights.numel(),
+                                  dct is not None)
+        out = torch.empty((c, nf, n_out), dtype=torch.float32, device=x.device)
+        tw = fft_plan.pass_twiddles(nfft // 2, x.device)
+        wk = _fft_tables(nfft, x.device)[1]
+        lib = _build.library()
+        for r0, rows in chunks:
+            err = lib.vv_stft_mfcc(
+                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+                _build.ptr(wk), _build.ptr(weights), _build.ptr(index),
+                _build.ptr(dct if dct is not None else weights),
+                _build.ptr(out, r0), rows, n, nf, nfft, hop, n_mels, n_out,
+                weights.numel(), float(log_eps),
+                config.ALGORITHMS.index(algorithm), int(dct is not None),
+                int(plan.staged), plan.smem, x.device.index,
+                _build.stream_handle(x))
+            _build.check(err, "stft_mfcc")
+            stft_mfcc.launches += 1
+        return out
 
 
 stft_mfcc.launches = 0
@@ -363,31 +368,32 @@ def stft_power_dft(x: torch.Tensor, nfft: int, hop: int,
     if x.device.type == "cpu":
         return stft_power_dft_plain(x, nfft, hop, window, window_param,
                                     n_frames)
-    if x.device.type != "cuda":
-        raise ValueError(f"stft_power_dft: unsupported device {x.device}")
-    if x.ndim != 2:
-        raise ValueError("stft_power_dft expects (channels, n)")
-    _build.require(x, "x", x.device)
-    c, n = x.shape
-    chunks = _build.row_chunks(c)
-    if n_frames is None:
-        n_frames = stft_num_frames(n, nfft, hop)
-    if n_frames < 1:
-        raise ValueError(f"n_frames must be positive, got {n_frames}")
-    bins = nfft // 2 + 1
-    plan = mma_plan.dft_plan(nfft, hop)
-    bparts = _dft_parts_on(nfft, window, window_param, x.device)
-    out = torch.empty((c, n_frames, bins), dtype=torch.float32,
-                      device=x.device)
-    lib = _build.library()
-    for r0, rows in chunks:
-        err = lib.vv_dft_power(
-            _build.ptr(x, r0), _build.ptr(bparts), _build.ptr(out, r0), rows,
-            n, n_frames, nfft, hop, bins, mma_plan.dft_cols(nfft),
-            plan.tiles, plan.smem, x.device.index, _build.stream_handle(x))
-        _build.check(err, "stft_power_dft")
-        stft_power_dft.launches += 1
-    return out
+    with profiling.span("kernel.stft_power_dft"):
+        if x.device.type != "cuda":
+            raise ValueError(f"stft_power_dft: unsupported device {x.device}")
+        if x.ndim != 2:
+            raise ValueError("stft_power_dft expects (channels, n)")
+        _build.require(x, "x", x.device)
+        c, n = x.shape
+        chunks = _build.row_chunks(c)
+        if n_frames is None:
+            n_frames = stft_num_frames(n, nfft, hop)
+        if n_frames < 1:
+            raise ValueError(f"n_frames must be positive, got {n_frames}")
+        bins = nfft // 2 + 1
+        plan = mma_plan.dft_plan(nfft, hop)
+        bparts = _dft_parts_on(nfft, window, window_param, x.device)
+        out = torch.empty((c, n_frames, bins), dtype=torch.float32,
+                          device=x.device)
+        lib = _build.library()
+        for r0, rows in chunks:
+            err = lib.vv_dft_power(
+                _build.ptr(x, r0), _build.ptr(bparts), _build.ptr(out, r0),
+                rows, n, n_frames, nfft, hop, bins, mma_plan.dft_cols(nfft),
+                plan.tiles, plan.smem, x.device.index, _build.stream_handle(x))
+            _build.check(err, "stft_power_dft")
+            stft_power_dft.launches += 1
+        return out
 
 
 stft_power_dft.launches = 0

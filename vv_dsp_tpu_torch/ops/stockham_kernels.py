@@ -31,6 +31,7 @@ from vv_dsp_tpu_torch.ops import fft_plan
 from vv_dsp_tpu_torch.ops import istft_kernels as _ik
 from vv_dsp_tpu_torch.ops import stft_kernels as _sk
 from vv_dsp_tpu_torch.ops.framing import stft_num_frames
+from vv_dsp_tpu_torch.utils import profiling
 
 
 def stockham_supported(nfft: int, hop: int) -> bool:
@@ -94,22 +95,24 @@ def stft_spectrum_stockham(x: torch.Tensor, nfft: int, hop: int,
     nfft//2+1) when onesided, in natural bin order."""
     if x.device.type == "cpu":
         return stft_spectrum_stockham_plain(x, nfft, hop, window, onesided)
-    _check_signal(x, window, nfft, hop, "stft_spectrum_stockham")
-    c, n = x.shape
-    chunks = _build.row_chunks(c)
-    nf = stft_num_frames(n, nfft, hop)
-    bins = nfft // 2 + 1 if onesided else nfft
-    out = torch.empty((c, nf, bins), dtype=torch.complex64, device=x.device)
-    tw = fft_plan.pass_twiddles(nfft, x.device)
-    lib = _build.library()
-    for r0, rows in chunks:
-        err = lib.vv_stockham_spectrum(
-            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-            _build.ptr(out, r0), rows, n, nf, nfft, hop, bins,
-            x.device.index, _build.stream_handle(x))
-        _build.check(err, "stft_spectrum_stockham")
-        stft_spectrum_stockham.launches += 1
-    return out
+    with profiling.span("kernel.stft_spectrum_stockham"):
+        _check_signal(x, window, nfft, hop, "stft_spectrum_stockham")
+        c, n = x.shape
+        chunks = _build.row_chunks(c)
+        nf = stft_num_frames(n, nfft, hop)
+        bins = nfft // 2 + 1 if onesided else nfft
+        out = torch.empty((c, nf, bins), dtype=torch.complex64,
+                          device=x.device)
+        tw = fft_plan.pass_twiddles(nfft, x.device)
+        lib = _build.library()
+        for r0, rows in chunks:
+            err = lib.vv_stockham_spectrum(
+                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+                _build.ptr(out, r0), rows, n, nf, nfft, hop, bins,
+                x.device.index, _build.stream_handle(x))
+            _build.check(err, "stft_spectrum_stockham")
+            stft_spectrum_stockham.launches += 1
+        return out
 
 
 stft_spectrum_stockham.launches = 0
@@ -121,22 +124,23 @@ def stft_power_stockham(x: torch.Tensor, nfft: int, hop: int,
     one kernel pass on a CUDA tensor."""
     if x.device.type == "cpu":
         return stft_power_stockham_plain(x, nfft, hop, window)
-    _check_signal(x, window, nfft, hop, "stft_power_stockham")
-    c, n = x.shape
-    chunks = _build.row_chunks(c)
-    nf = stft_num_frames(n, nfft, hop)
-    out = torch.empty((c, nf, nfft // 2 + 1), dtype=torch.float32,
-                      device=x.device)
-    tw = fft_plan.pass_twiddles(nfft, x.device)
-    lib = _build.library()
-    for r0, rows in chunks:
-        err = lib.vv_stockham_power(
-            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-            _build.ptr(out, r0), rows, n, nf, nfft, hop, x.device.index,
-            _build.stream_handle(x))
-        _build.check(err, "stft_power_stockham")
-        stft_power_stockham.launches += 1
-    return out
+    with profiling.span("kernel.stft_power_stockham"):
+        _check_signal(x, window, nfft, hop, "stft_power_stockham")
+        c, n = x.shape
+        chunks = _build.row_chunks(c)
+        nf = stft_num_frames(n, nfft, hop)
+        out = torch.empty((c, nf, nfft // 2 + 1), dtype=torch.float32,
+                          device=x.device)
+        tw = fft_plan.pass_twiddles(nfft, x.device)
+        lib = _build.library()
+        for r0, rows in chunks:
+            err = lib.vv_stockham_power(
+                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+                _build.ptr(out, r0), rows, n, nf, nfft, hop, x.device.index,
+                _build.stream_handle(x))
+            _build.check(err, "stft_power_stockham")
+            stft_power_stockham.launches += 1
+        return out
 
 
 stft_power_stockham.launches = 0
@@ -165,35 +169,36 @@ def stft_mel_stockham(x: torch.Tensor, nfft: int, hop: int,
     if x.device.type == "cpu":
         return stft_mel_stockham_plain(x, nfft, hop, window, mel_fb, dct,
                                        log_eps)
-    _check_signal(x, window, nfft, hop, "stft_mel_stockham")
-    n_mels = mel_fb.shape[0]
-    _build.require(mel_fb, "mel_fb", x.device, (n_mels, nfft // 2 + 1))
-    _build.require(bands, "bands", x.device, (2, n_mels), torch.int32)
-    n_out = n_mels
-    if dct is not None:
-        n_out = dct.shape[0]
-        _build.require(dct, "dct", x.device, (n_out, n_mels))
-    c, n = x.shape
-    chunks = _build.row_chunks(c)
-    nf = stft_num_frames(n, nfft, hop)
-    weights, index = _sk._mel_tables(mel_fb, bands)
-    plan = fft_plan.stockham_mel_plan(nfft, n_mels, n_out, weights.numel(),
-                                      dct is not None)
-    out = torch.empty((c, nf, n_out), dtype=torch.float32, device=x.device)
-    tw = fft_plan.pass_twiddles(nfft, x.device)
-    lib = _build.library()
-    for r0, rows in chunks:
-        err = lib.vv_stockham_mel(
-            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-            _build.ptr(weights), _build.ptr(index),
-            _build.ptr(dct if dct is not None else weights),
-            _build.ptr(out, r0), rows, n, nf, nfft, hop, n_mels, n_out,
-            weights.numel(), float(log_eps), int(dct is not None),
-            int(plan.staged), plan.smem, x.device.index,
-            _build.stream_handle(x))
-        _build.check(err, "stft_mel_stockham")
-        stft_mel_stockham.launches += 1
-    return out
+    with profiling.span("kernel.stft_mel_stockham"):
+        _check_signal(x, window, nfft, hop, "stft_mel_stockham")
+        n_mels = mel_fb.shape[0]
+        _build.require(mel_fb, "mel_fb", x.device, (n_mels, nfft // 2 + 1))
+        _build.require(bands, "bands", x.device, (2, n_mels), torch.int32)
+        n_out = n_mels
+        if dct is not None:
+            n_out = dct.shape[0]
+            _build.require(dct, "dct", x.device, (n_out, n_mels))
+        c, n = x.shape
+        chunks = _build.row_chunks(c)
+        nf = stft_num_frames(n, nfft, hop)
+        weights, index = _sk._mel_tables(mel_fb, bands)
+        plan = fft_plan.stockham_mel_plan(nfft, n_mels, n_out, weights.numel(),
+                                          dct is not None)
+        out = torch.empty((c, nf, n_out), dtype=torch.float32, device=x.device)
+        tw = fft_plan.pass_twiddles(nfft, x.device)
+        lib = _build.library()
+        for r0, rows in chunks:
+            err = lib.vv_stockham_mel(
+                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+                _build.ptr(weights), _build.ptr(index),
+                _build.ptr(dct if dct is not None else weights),
+                _build.ptr(out, r0), rows, n, nf, nfft, hop, n_mels, n_out,
+                weights.numel(), float(log_eps), int(dct is not None),
+                int(plan.staged), plan.smem, x.device.index,
+                _build.stream_handle(x))
+            _build.check(err, "stft_mel_stockham")
+            stft_mel_stockham.launches += 1
+        return out
 
 
 stft_mel_stockham.launches = 0
@@ -222,24 +227,25 @@ def stft_gate_stockham(x: torch.Tensor, nfft: int, hop: int,
     if x.device.type == "cpu":
         return stft_gate_stockham_plain(x, nfft, hop, window, norm,
                                         threshold)
-    _check_signal(x, window, nfft, hop, "stft_gate_stockham",
-                  stockham_gate_supported)
-    c, n = x.shape
-    chunks = _build.row_chunks(c)
-    _build.require(norm, "norm", x.device, (n,))
-    out = torch.empty_like(x)
-    tw = fft_plan.pass_twiddles(nfft, x.device)
-    lib = _build.library()
-    for r0, rows in chunks:
-        err = lib.vv_stockham_gate(
-            _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-            _build.ptr(norm), _build.ptr(out, r0), rows, n,
-            stft_num_frames(n, nfft, hop), nfft, hop, float(threshold) ** 2,
-            fft_plan.stockham_gate_smem(nfft, hop), x.device.index,
-            _build.stream_handle(x))
-        _build.check(err, "stft_gate_stockham")
-        stft_gate_stockham.launches += 1
-    return out
+    with profiling.span("kernel.stft_gate_stockham"):
+        _check_signal(x, window, nfft, hop, "stft_gate_stockham",
+                      stockham_gate_supported)
+        c, n = x.shape
+        chunks = _build.row_chunks(c)
+        _build.require(norm, "norm", x.device, (n,))
+        out = torch.empty_like(x)
+        tw = fft_plan.pass_twiddles(nfft, x.device)
+        lib = _build.library()
+        for r0, rows in chunks:
+            err = lib.vv_stockham_gate(
+                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
+                _build.ptr(norm), _build.ptr(out, r0), rows, n,
+                stft_num_frames(n, nfft, hop), nfft, hop,
+                float(threshold) ** 2, fft_plan.stockham_gate_smem(nfft, hop),
+                x.device.index, _build.stream_handle(x))
+            _build.check(err, "stft_gate_stockham")
+            stft_gate_stockham.launches += 1
+        return out
 
 
 stft_gate_stockham.launches = 0
@@ -277,33 +283,37 @@ def istft_stockham(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
     if spec.device.type == "cpu":
         return istft_stockham_plain(spec, nfft, hop, output_len, window, norm,
                                     rfft)
-    if spec.device.type != "cuda":
-        raise ValueError(f"istft_stockham: unsupported device {spec.device}")
-    if spec.ndim != 3:
-        raise ValueError("istft_stockham expects (channels, frames, bins)")
-    if not stockham_supported(nfft, hop):
-        raise ValueError(f"istft_stockham: unsupported geometry nfft={nfft} "
-                         f"hop={hop}; check stockham_supported()")
-    c, nf, _ = spec.shape
-    chunks = _build.row_chunks(c)
-    if output_len < 1:
-        raise ValueError(f"output_len must be positive, got {output_len}")
-    _build.require(spec, "spec", spec.device, (c, nf, bins), torch.complex64)
-    _build.require(window, "window", spec.device, (nfft,))
-    _build.require(norm, "norm", spec.device, (output_len,))
-    out = torch.empty((c, output_len), dtype=torch.float32,
-                      device=spec.device)
-    tw = fft_plan.pass_twiddles(nfft, spec.device)
-    lib = _build.library()
-    for r0, rows in chunks:
-        err = lib.vv_istft_stockham(
-            _build.ptr(spec, r0), _build.ptr(window), _build.ptr(tw),
-            _build.ptr(norm), _build.ptr(out, r0), rows, nf, nfft, hop,
-            bins, output_len, fft_plan.istft_smem(nfft, hop),
-            spec.device.index, _build.stream_handle(spec))
-        _build.check(err, "istft_stockham")
-        istft_stockham.launches += 1
-    return out
+    with profiling.span("kernel.istft_stockham"):
+        if spec.device.type != "cuda":
+            raise ValueError(f"istft_stockham: unsupported device "
+                             f"{spec.device}")
+        if spec.ndim != 3:
+            raise ValueError("istft_stockham expects (channels, frames, bins)")
+        if not stockham_supported(nfft, hop):
+            raise ValueError(f"istft_stockham: unsupported geometry "
+                             f"nfft={nfft} hop={hop}; check "
+                             f"stockham_supported()")
+        c, nf, _ = spec.shape
+        chunks = _build.row_chunks(c)
+        if output_len < 1:
+            raise ValueError(f"output_len must be positive, got {output_len}")
+        _build.require(spec, "spec", spec.device, (c, nf, bins),
+                       torch.complex64)
+        _build.require(window, "window", spec.device, (nfft,))
+        _build.require(norm, "norm", spec.device, (output_len,))
+        out = torch.empty((c, output_len), dtype=torch.float32,
+                          device=spec.device)
+        tw = fft_plan.pass_twiddles(nfft, spec.device)
+        lib = _build.library()
+        for r0, rows in chunks:
+            err = lib.vv_istft_stockham(
+                _build.ptr(spec, r0), _build.ptr(window), _build.ptr(tw),
+                _build.ptr(norm), _build.ptr(out, r0), rows, nf, nfft, hop,
+                bins, output_len, fft_plan.istft_smem(nfft, hop),
+                spec.device.index, _build.stream_handle(spec))
+            _build.check(err, "istft_stockham")
+            istft_stockham.launches += 1
+        return out
 
 
 istft_stockham.launches = 0

@@ -30,6 +30,7 @@ import torch
 
 from vv_dsp_tpu_torch import _build, config
 from vv_dsp_tpu_torch.ops import mma_plan
+from vv_dsp_tpu_torch.utils import profiling
 
 _W_VMEM_CAP = 6 * 1024 * 1024   # the TPU kernel's resident weight budget
 _EXT_ROWS_CAP = 4096            # its ext scratch rows (k_w) cap
@@ -157,34 +158,35 @@ def upfirdn_banded(x: torch.Tensor, taps: torch.Tensor, up: int, down: int,
     algorithm = config.dot_algorithm(algorithm)
     if x.device.type == "cpu":
         return upfirdn_tall(x, taps, up, down, offset, n_out, algorithm)
-    if x.device.type != "cuda":
-        raise ValueError(f"upfirdn_banded: unsupported device {x.device}")
-    if x.ndim != 2:
-        raise ValueError("upfirdn_banded expects (channels, n)")
-    taps_pp = taps.shape[-1]
-    _build.require(x, "x", x.device)
-    _build.require(taps, "taps", x.device, (up, taps_pp))
-    c, n_in = x.shape
-    chunks = _build.row_chunks(c)
-    y = torch.empty((c, n_out), dtype=torch.float32, device=x.device)
-    if n_out == 0:
+    with profiling.span("kernel.upfirdn_banded"):
+        if x.device.type != "cuda":
+            raise ValueError(f"upfirdn_banded: unsupported device {x.device}")
+        if x.ndim != 2:
+            raise ValueError("upfirdn_banded expects (channels, n)")
+        taps_pp = taps.shape[-1]
+        _build.require(x, "x", x.device)
+        _build.require(taps, "taps", x.device, (up, taps_pp))
+        c, n_in = x.shape
+        chunks = _build.row_chunks(c)
+        y = torch.empty((c, n_out), dtype=torch.float32, device=x.device)
+        if n_out == 0:
+            return y
+        if up < 1 or down < 1 or offset < 0 or taps_pp < 1:
+            _build.check(_EINVAL, "upfirdn_banded")
+        p = mma_plan.upfirdn_plan(up, down, taps_pp, offset, algorithm)
+        bparts = mma_plan.band_parts(taps, p, algorithm)
+        lib = _build.library()
+        for r0, rows in chunks:
+            err = lib.vv_upfirdn(
+                _build.ptr(x, r0), _build.ptr(bparts), _build.ptr(y, r0), rows,
+                n_in, n_out, up, down, offset, taps_pp, p.n_real, p.n_tiles,
+                p.n_pad, p.stride, p.k_pad, p.k_chunk, p.m_tiles, p.a_pitch,
+                p.win, p.flush, p.smem, p.c_lo,
+                config.ALGORITHMS.index(algorithm), x.device.index,
+                _build.stream_handle(x))
+            _build.check(err, "upfirdn_banded")
+            upfirdn_banded.launches += 1
         return y
-    if up < 1 or down < 1 or offset < 0 or taps_pp < 1:
-        _build.check(_EINVAL, "upfirdn_banded")
-    p = mma_plan.upfirdn_plan(up, down, taps_pp, offset, algorithm)
-    bparts = mma_plan.band_parts(taps, p, algorithm)
-    lib = _build.library()
-    for r0, rows in chunks:
-        err = lib.vv_upfirdn(
-            _build.ptr(x, r0), _build.ptr(bparts), _build.ptr(y, r0), rows,
-            n_in, n_out, up, down, offset, taps_pp, p.n_real, p.n_tiles,
-            p.n_pad, p.stride, p.k_pad, p.k_chunk, p.m_tiles, p.a_pitch,
-            p.win, p.flush, p.smem, p.c_lo,
-            config.ALGORITHMS.index(algorithm), x.device.index,
-            _build.stream_handle(x))
-        _build.check(err, "upfirdn_banded")
-        upfirdn_banded.launches += 1
-    return y
 
 
 upfirdn_banded.launches = 0

@@ -10,6 +10,9 @@
   the next, one scalar read at the end, best of ``repeats``;
 - :func:`trace` — ``torch.profiler`` over a block, written as a Chrome
   trace (view in Perfetto or chrome://tracing);
+- :func:`span`, :func:`spans`, :func:`clear_spans` — the program's own
+  spans at its layer boundaries, recorded only while a
+  ``torch.profiler`` session runs (``trace()`` or any other);
 - :class:`Roofline` — the speed-of-light model of one op: given its FLOPs
   and memory bytes, the attainable time max(flops/peak, bytes/bw) and the
   achieved fraction, for the chips in ``CHIP_SPECS``.
@@ -17,13 +20,17 @@
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
 import tempfile
+import threading
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -150,7 +157,9 @@ def trace(log_dir: str | None = None):
     """torch.profiler over the block (CPU activity, and CUDA activity where
     a GPU is present), written on exit as a Chrome trace
     ``trace_<pid>_<ns>.json`` in ``log_dir`` (default ``torch-trace`` in
-    the temporary directory). Yields log_dir."""
+    the temporary directory). Yields log_dir. While it runs the program's
+    spans (``span``) are on: each is a ``user_annotation`` range of its
+    name in the trace, and a record in ``spans()``."""
     if log_dir is None:
         log_dir = os.path.join(tempfile.gettempdir(), "torch-trace")
     os.makedirs(log_dir, exist_ok=True)
@@ -161,6 +170,176 @@ def trace(log_dir: str | None = None):
         yield log_dir
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+# The program's spans. A span is a host interval at one of the program's
+# layer boundaries (the table in PERF.md names each site and what reads
+# it). It records only while a torch.profiler session is active; otherwise
+# it costs one check and returns a shared no-op context.
+
+SPAN_RING = 1 << 20     # records kept; the oldest drop first past it
+# a device span times the card on the first and every DEVICE_EVERY-th span
+# of its name: with the profiler on, each event record is a traced CUDA
+# call that adds to the host's time a span
+DEVICE_EVERY = 8
+
+_profiler_on = torch._C._autograd._profiler_enabled
+_ring: collections.deque = collections.deque(maxlen=SPAN_RING)
+_ring_lock = threading.Lock()
+_dropped = 0
+_pending: collections.deque = collections.deque()   # device spans unread
+_free_events: dict = {}     # device index -> timing events read and free
+_device_spans: dict = {}    # span name -> device spans opened
+_ids = itertools.count(1)
+_open = threading.local()   # .top: the innermost span open on the thread
+
+
+class SpanRecord(NamedTuple):
+    """One span: its name and id, its call (the id of the root span it
+    ran under; a root's own id), its parent's name and id (None at a
+    root), its host interval on ``time.perf_counter``'s clock (s), and its
+    device time (ms, CUDA events) or None."""
+
+    name: str
+    id: int
+    call: int
+    parent: str | None
+    parent_id: int | None
+    start: float
+    end: float
+    device_ms: float | None
+
+
+class _Off:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+def _resolve(rec: list) -> None:
+    """A device span's time from its two events, which go back to the
+    free list."""
+    rec[7] = rec[8].elapsed_time(rec[9])
+    _free_events.setdefault(rec[10], []).extend(rec[8:10])
+    rec[8] = rec[9] = None
+
+
+def _event(device: int):
+    """A timing event of the device: a free one, after those of the device
+    spans the card has finished are read and freed, or a new one. So a
+    traced loop creates events only while its first calls are queued."""
+    with _ring_lock:
+        if not _free_events.get(device):
+            while _pending and _pending[0][9].query():
+                _resolve(_pending.popleft())
+        if _free_events.get(device):
+            return _free_events[device].pop()
+    return torch.cuda.Event(enable_timing=True)
+
+
+class _Span:
+    __slots__ = ("name", "stream", "rf", "id", "call", "parent", "ev0",
+                 "start")
+
+    def __init__(self, name: str, stream):
+        self.name, self.stream = name, stream
+
+    def __enter__(self):
+        self.rf = torch.autograd.profiler.record_function(self.name)
+        self.rf.__enter__()
+        self.parent = getattr(_open, "top", None)
+        self.id = next(_ids)
+        self.call = self.id if self.parent is None else self.parent.call
+        _open.top = self
+        self.ev0 = None
+        if self.stream is not None:
+            self.ev0 = _event(self.stream.device_index)
+            self.ev0.record(self.stream)
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter()
+        ev1 = None
+        if self.ev0 is not None:
+            ev1 = _event(self.stream.device_index)
+            ev1.record(self.stream)
+        _open.top = self.parent
+        self.rf.__exit__(*exc)
+        parent = self.parent
+        _keep([self.name, self.id, self.call,
+               None if parent is None else parent.name,
+               None if parent is None else parent.id, self.start, end,
+               None, self.ev0, ev1,
+               None if ev1 is None else self.stream.device_index])
+        return False
+
+
+def _keep(rec: list) -> None:
+    global _dropped
+    with _ring_lock:
+        if len(_ring) == _ring.maxlen:
+            _dropped += 1
+        _ring.append(rec)
+        if rec[8] is not None:
+            _pending.append(rec)
+
+
+def span(name: str, device: torch.device | None = None):
+    """A context manager around one layer boundary of the program. Off
+    (no torch.profiler session active) it returns a shared no-op context.
+    On, it opens a ``record_function`` range of ``name`` (so it sits in the
+    profiler's trace, on the device trace's clock), reads
+    ``time.perf_counter`` inside that range at start and end, keeps the span
+    open on this thread as its parent and the root's id as its call, and,
+    with ``device`` a CUDA device, on the first and every
+    ``DEVICE_EVERY``-th span of the name, records two timing events on the
+    device's current stream (reused from a pool once the card has passed
+    them), resolved when the card has or when ``spans()`` reads them."""
+    if not _profiler_on():
+        return _OFF
+    stream = None
+    if device is not None and device.type == "cuda":
+        k = _device_spans.get(name, 0)
+        _device_spans[name] = k + 1
+        if k % DEVICE_EVERY == 0:
+            stream = torch.cuda.current_stream(device)
+    return _Span(name, stream)
+
+
+def spans() -> list[SpanRecord]:
+    """The kept spans in the order they ended, each span's device time
+    resolved (its events synchronised) on the way."""
+    with _ring_lock:
+        while _pending:
+            rec = _pending.popleft()
+            rec[9].synchronize()
+            _resolve(rec)
+        return [SpanRecord(*r[:8]) for r in _ring]
+
+
+def spans_dropped() -> int:
+    """Records dropped from the ring (oldest first) since the last
+    ``clear_spans``."""
+    return _dropped
+
+
+def clear_spans() -> None:
+    """Empty the ring and zero the dropped count; the next device span of
+    each name times the card."""
+    global _dropped
+    with _ring_lock:
+        _ring.clear()
+        _pending.clear()
+        _device_spans.clear()
+        _dropped = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2125,8 +2125,9 @@ def route_checks(routes, outs) -> None:
 
 def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
     """Drive every entry point of the slice once, each with the launch
-    counters zeroed just before it and read just after, then check and
-    time them. Returns each kernel's launches summed over the paths."""
+    counters and the fused head's ``tails_in_place`` zeroed just before it
+    and read just after, then check and time them. Returns each kernel's
+    launches summed over the paths."""
     from vv_dsp_tpu_torch.models import SpectralGate
     from vv_dsp_tpu_torch.ops import filter_kernels as fk
     from vv_dsp_tpu_torch.ops import istft_kernels as ik
@@ -2231,16 +2232,23 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
         ("stft_1024_256_spectrogram", lambda: plan.spectrogram(xs),
          {"stft_spectrum": 1}, N_STFT))
     paths += tuple(p[:3] for p in last_paths)
+    # the fused head's staged tails, each written into the head's buffer
+    tails = {"chain": 1, "route fir_resample_fused 4/3, refused head": 1}
     outs, launches = {}, dict.fromkeys(counters, 0)
     for name, fn, want in paths:
         for counted in counters.values():
             counted.launches = 0
+        rs.fir_resample_fused.tails_in_place = 0
         outs[name] = fn()
         torch.cuda.synchronize()
         got = {k: f.launches for k, f in counters.items() if f.launches}
-        print(f"launches [{name}]: {got}")
+        in_place = rs.fir_resample_fused.tails_in_place
+        print(f"launches [{name}]: {got}, tails in place {in_place}")
         if got != want:
             raise AssertionError(f"{name} launched {got}, expected {want}")
+        if in_place != tails.get(name, 0):
+            raise AssertionError(f"{name} wrote {in_place} tails in place, "
+                                 f"expected {tails.get(name, 0)}")
         for k, count in got.items():
             launches[k] += count
     print(f"slice launches, summed over the paths: {launches}")

@@ -10,7 +10,9 @@ every transform size, at hop 8 (16 at 2048) and nfft/4, with their
 launchers' refusal of a plan size not their own;
 the direct FIR and the per-phase resampler at taps 1 to 2048, n < taps and
 every ratio class, with bit-identical reruns, and the banded kernel at the
-filter and resample entry points' geometries; the windowed-DFT power at
+filter and resample entry points' geometries; the fused head's staged
+tail written into the kernel's buffer (no second output buffer, no cat);
+the windowed-DFT power at
 hop | nfft, 128 | hop, n < nfft and extra frames; the per-phase
 resampler at all 377 ratios it takes and one of each of its instances;
 every kernel wrapper at 65,536 rows (two launches); the full-nfft inverse
@@ -172,6 +174,37 @@ def test_fused_head_kernel_matches_plain(dev, gen, n):
     taps = tuf.polyphase_table(g, 4, dev)
     got = tuf.upfirdn_banded(x, taps, 4, 3, off, n_out, "bf16x3")
     want = tuf.upfirdn_tall(x, taps, 4, 3, off, n_out, "bf16x3")
+    assert _rel(got, want) < 1e-5
+
+
+def test_fused_head_writes_its_tail_in_place_on_card(dev, gen):
+    """At the chain's taps on (8, 479232) one fir_resample_fused call holds
+    at most one output buffer more (+1 MB), runs no CatArrayBatchedCopy,
+    counts one tail written in place, and matches the CPU path."""
+    h = NorthStarChain(device="cpu").fir_coeffs
+    x_cpu = torch.as_tensor(gen.standard_normal((8, 479_232)),
+                            dtype=torch.float32)
+    x = x_cpu.to(dev)
+    run = lambda: trs.fir_resample_fused(h, x, 4, 3, algorithm="bf16x3")
+    run()   # the plan, B's parts and the tail's weights are cached
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = trs.fir_resample_fused.tails_in_place
+    got = run()
+    torch.cuda.synchronize()
+    assert trs.fir_resample_fused.tails_in_place == before + 1
+    assert (torch.cuda.max_memory_allocated(dev) - base
+            <= got.numel() * got.element_size() + 2**20)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert any("upfirdn_mma_kernel" in k for k in names)
+    assert not any("CatArrayBatchedCopy" in k for k in names)
+    want = trs.fir_resample_fused(h, x_cpu, 4, 3, algorithm="bf16x3")
     assert _rel(got, want) < 1e-5
 
 

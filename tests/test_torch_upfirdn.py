@@ -203,3 +203,80 @@ def test_kernel_wrapper_refuses_other_devices(flagship):
     with pytest.raises(ValueError):
         tuf.upfirdn_banded(x, torch.zeros(4, 1044, device="meta"), 4, 3, off,
                            133)
+
+
+def _staged_out_of_place(h, x, off, n_out, route_tail=None):
+    """The fused head as the cat of the composite's first m0 columns and
+    the staged tail (the definition the kernel route differentiates)."""
+    m0 = max(0, -(-(4 * x.shape[-1] - off) // 3))
+    g, _ = trs._fused_fir_resample_filter(tuple(h), 4, 3)
+    composite = tuf.upfirdn_tall(x, tuf.polyphase_table(g, 4, "cpu"), 4, 3,
+                                 off, n_out, "f32")
+    tail = trs._staged_tail(h, x, 4, 3, off, m0, n_out)
+    return torch.cat([composite[..., :m0], tail], -1), m0
+
+
+@pytest.mark.parametrize("n", [24000, 8])
+def test_fused_head_writes_its_tail_into_the_kernel_buffer(flagship, rng,
+                                                           monkeypatch, n):
+    """The head returns upfirdn_banded's own buffer, its last columns
+    overwritten by the staged tail: a dense matmul tail at the chain's
+    geometry (n = 24000, 13 outputs) and the staged pair over the whole
+    output (n = 8, m0 = 0). Its values are the out-of-place definition's,
+    bit for bit, and each call counts one tail written in place."""
+    h, _, off = flagship
+    buffers = []
+    real = tuf.upfirdn_banded
+
+    def spy(*args):
+        buffers.append(real(*args))
+        return buffers[-1]
+
+    monkeypatch.setattr(trs, "upfirdn_banded", spy)
+    x = torch.as_tensor(rng.standard_normal((2, n)), dtype=torch.float32)
+    n_out = -(-n * 4 // 3)
+    before = trs.fir_resample_fused.tails_in_place
+    with one_thread():
+        got = trs.fir_resample_fused(h, x, 4, 3, algorithm="f32")
+        want, m0 = _staged_out_of_place(h, x, off, n_out)
+    assert (m0, n_out - m0) == ((31987, 13) if n > 8 else (0, 11))
+    assert trs.fir_resample_fused.tails_in_place == before + 1
+    assert len(buffers) == 1
+    assert (got.untyped_storage().data_ptr()
+            == buffers[0].untyped_storage().data_ptr())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("route", ["banded", "torch"])
+def test_fused_head_gradient_is_the_staged_definitions(flagship, rng,
+                                                       monkeypatch, route):
+    """The tail written in place keeps the gradient of the staged
+    definition, on the kernel route (the write inside the vjp shim's
+    forward) and on the "torch" route (autograd follows the write): a
+    cotangent on every column, and one on the tail alone, which must
+    reach x through the staged tail, not through the composite's."""
+    h, g, off = flagship
+    if route == "torch":
+        monkeypatch.setattr(trs, "head_route", lambda *a: "torch")
+    x0 = torch.as_tensor(rng.standard_normal((2, 6000)), dtype=torch.float32)
+    n_out = 8000
+    cot = torch.as_tensor(rng.standard_normal((2, n_out)),
+                          dtype=torch.float32)
+    m0 = max(0, -(-(4 * 6000 - off) // 3))
+    tail_only = torch.zeros_like(cot)
+    tail_only[..., m0:] = cot[..., m0:]
+
+    def grad_of(fn, c):
+        x = x0.clone().requires_grad_(True)
+        fn(x).backward(c)
+        return x.grad
+
+    fused = lambda x: trs.fir_resample_fused(h, x, 4, 3, algorithm="f32")
+    staged = lambda x: _staged_out_of_place(h, x, off, n_out)[0]
+    composite = lambda x: tuf.upfirdn_tall(
+        x, tuf.polyphase_table(g, 4, "cpu"), 4, 3, off, n_out, "f32")
+    with one_thread():
+        for c in (cot, tail_only):
+            want = grad_of(staged, c)
+            assert _rel(grad_of(fused, c), want) < 1e-6
+        assert _rel(grad_of(composite, tail_only), want) > 1e-3

@@ -24,8 +24,9 @@ y[k] = sum_j x[j] h[offset + k*down - j*up] with the same numbers:
 
 ``fir_resample_fused`` runs one banded upfirdn (ops/upfirdn.py) with the
 composite filter (``upfirdn_tall`` where ``head_route`` finds the kernel
-no layout), then recomputes the last outputs exactly as the staged pair
-resample_poly(fir_apply(h, x)) defines them.
+no layout), then writes the last outputs, as the staged pair
+resample_poly(fir_apply(h, x)) defines them, into that upfirdn's output in
+place (``fir_resample_fused.tails_in_place`` counts them).
 """
 
 from __future__ import annotations
@@ -351,6 +352,30 @@ def head_route(up: int, down: int, taps_pp: int, offset: int,
     return "torch"
 
 
+def _staged_tail(h_np: np.ndarray, x: torch.Tensor, up: int, down: int,
+                 offset: int, m0: int, n_out: int) -> torch.Tensor:
+    """The fused head's outputs [m0, n_out) as the staged pair
+    resample_poly(fir_apply(h, x)) defines them: those whose window crosses
+    the FIR's end, where the staged FIR's truncation at n_in sets them
+    apart from the composite filter."""
+    n_in = x.shape[-1]
+    n_tail = n_out - m0
+    if n_tail <= 1024 and m0 > 0:
+        # a small dense matmul over the input's tail
+        wt, jw0 = _tail_weights(h_np.tobytes(), up, down, offset, n_in, m0,
+                                n_tail, x.device)
+        return x[..., jw0:] @ wt[:n_in - jw0]
+    # a signal shorter than the resample filter's half-length, or a tail
+    # past 1024 outputs: the staged pair over the input's end
+    h_r = _resample_poly_filter(up, down)
+    taps_r = -(-len(h_r) // up)
+    jlo = (offset + m0 * down) // up - taps_r + 1
+    s0 = max(0, jlo - len(h_np) + 1)
+    y_t = fir_apply(h_np, x[..., s0:])
+    return _upfirdn_gather(h_r, y_t, up, down, offset + m0 * down - up * s0,
+                           n_tail)
+
+
 def fir_resample_fused(h_fir, x: torch.Tensor, up: int, down: int,
                        group: int | None = None,
                        algorithm: str | None = None, *,
@@ -358,6 +383,12 @@ def fir_resample_fused(h_fir, x: torch.Tensor, up: int, down: int,
     """resample_poly(fir_apply(h_fir, x), up, down) as one banded upfirdn:
     (..., n) -> (..., ceil(n*up/down)) float32, sample-exact against the
     staged pair including the staged FIR's end-of-signal truncation.
+
+    The output is the upfirdn's own buffer: the staged tail (``_staged_tail``)
+    is written into its last columns in place. On the kernel route that
+    write happens inside the ``kernel_with_torch_vjp`` forward, so autograd
+    sees one node; its backward differentiates the same definition built
+    out of place.
 
     group: the "torch" route's frame group (``upfirdn_tall``; None: the
     JAX package's ``default_group``); it picks the frame width and changes
@@ -383,40 +414,36 @@ def fir_resample_fused(h_fir, x: torch.Tensor, up: int, down: int,
     n_out = -(-n_in * up // down)
     gf, offset = _fused_fir_resample_filter(tuple(h_np), up, down)
     m0 = max(0, -(-(up * n_in - offset) // down))
-    n_tail = n_out - m0
-    staged_tail = 0 < n_tail <= 1024 and m0 > 0
     if taps is None:
         taps = polyphase_table(gf, up, x.device)
     taps_pp = taps.shape[1]
+
+    def with_tail(y, xv):
+        if m0 < n_out:
+            y[..., m0:] = _staged_tail(h_np, xv, up, down, offset, m0, n_out)
+            fir_resample_fused.tails_in_place += 1
+        return y
+
+    def staged(xv):
+        y = upfirdn_tall(xv, taps, up, down, offset, n_out, "f32")
+        if m0 == n_out:
+            return y
+        return torch.cat([y[..., :m0], _staged_tail(h_np, xv, up, down,
+                                                    offset, m0, n_out)], -1)
+
     if head_route(up, down, taps_pp, offset, algorithm) == "banded":
-        y = kernel_with_torch_vjp(
-            lambda xv: upfirdn_banded(xv, taps, up, down, offset, n_out,
-                                      algorithm),
-            lambda xv: upfirdn_tall(xv, taps, up, down, offset, n_out, "f32"),
-        )(x)
-    else:
-        # the JAX package's XLA route: the tall-frames matmul in its frame
-        # group (``upfirdn.default_group``), at the knob's tier
-        y = upfirdn_tall(x, taps, up, down, offset, n_out, None, group)
-    if staged_tail:
-        # the staged definition for the few outputs whose window crosses the
-        # FIR's end collapses to a small dense matmul over the input's tail
-        wt, jw0 = _tail_weights(h_np.tobytes(), up, down, offset, n_in, m0,
-                                n_tail, x.device)
-        tail = x[..., jw0:] @ wt[:x.shape[-1] - jw0]
-        y = torch.cat([y[..., :m0], tail], dim=-1)
-    elif m0 < n_out:
-        # a signal shorter than the resample filter's half-length, or a
-        # tail past 1024 outputs: the staged pair over the input's end
-        h_r = _resample_poly_filter(up, down)
-        taps_r = -(-len(h_r) // up)
-        jlo = (offset + m0 * down) // up - taps_r + 1
-        s0 = max(0, jlo - len(h_np) + 1)
-        y_t = fir_apply(h_np, x[..., s0:])
-        tail = _upfirdn_gather(h_r, y_t, up, down,
-                               offset + m0 * down - up * s0, n_out - m0)
-        y = torch.cat([y[..., :m0], tail], dim=-1)
-    return y
+        return kernel_with_torch_vjp(
+            lambda xv: with_tail(upfirdn_banded(xv, taps, up, down, offset,
+                                                n_out, algorithm), xv),
+            staged)(x)
+    # the JAX package's XLA route: the tall-frames matmul in its frame group
+    # (``upfirdn.default_group``), at the knob's tier; not wrapped, so
+    # autograd follows the in-place write
+    return with_tail(upfirdn_tall(x, taps, up, down, offset, n_out, None,
+                                  group), x)
+
+
+fir_resample_fused.tails_in_place = 0
 
 
 def _factor_stages(up: int, down: int, max_side: int = 9):

@@ -1,20 +1,22 @@
 """The port's own spans (``vv_dsp_tpu_torch.utils.profiling.span``): off
 without a profiler, on under ``torch.profiler``.
 
-Off, the chain, ``STFT.process`` and the live stream leave no record and
-call no ``record_function``. Under a CPU profiler each entry records
-exactly the spans of PERF.md's table (the chain's two stages, the
-stream's four steps, the STFT entry; a kernel wrapper's span opens only
+Off, the chain, ``SpectralGate``, ``STFT.process`` and the live stream
+leave no record and call no ``record_function``. Under a CPU profiler each
+entry records exactly the spans of PERF.md's table (the chain's two
+stages, the gate's two on its split route and one on its full-nfft route,
+the stream's four steps, the STFT entry; a kernel wrapper's span opens only
 past its CPU return, so on the CPU there is none), with their parents,
 one call id a root and its descendants, each span inside its parent's
 host interval, and each a ``user_annotation`` of its name in the exported
 Chrome trace.
 The ring drops its oldest records past its bound and counts them; a
 device span's timing events are reused once the card has passed them; no
-span takes a name of the benchmark harness's own ranges. On the card
-(``cuda`` marker), every one of the 14 kernel wrappers records one
-``kernel.<wrapper>`` span a call, inside the entry's span, and the
-chain's two stages carry device times.
+span takes a name of the benchmark harness's own ranges; the gate counts
+its calls by route. On the card (``cuda`` marker), every one of the 14
+kernel wrappers records one ``kernel.<wrapper>`` span a call, inside the
+entry's span, and the chain's and the gate's two stages carry device
+times.
 """
 
 import collections
@@ -26,7 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from vv_dsp_tpu_torch.models import NorthStarChain, StreamingNorthStar
+from vv_dsp_tpu_torch.models import (NorthStarChain, SpectralGate,
+                                     StreamingNorthStar)
 from vv_dsp_tpu_torch.ops.stft import STFT
 from vv_dsp_tpu_torch.utils import profiling
 
@@ -45,6 +48,8 @@ ENTRY_SPANS = {
               ("chain.mfcc", "chain")],
     "chain_staged": [("chain", None), ("chain.head", "chain"),
                      ("chain.mfcc", "chain")],
+    "gate": [("gate", None), ("gate.analysis", "gate"),
+             ("gate.synthesis", "gate")],
     "stft": [("stft", None)],
     "stft_3d": [("stft", None)],
     "stream": [("stream", None), ("stream.fir", "stream"),
@@ -60,6 +65,10 @@ def _entry(name: str, device):
         chain = NorthStarChain(fused_head=name == "chain", device=device)
         x = torch.randn((2, 9600), generator=g).to(device)
         return lambda: chain(x)
+    if name == "gate":
+        gate = SpectralGate(device=device)
+        x = torch.randn((2, 4800), generator=g).to(device)
+        return lambda: gate(x)
     if name.startswith("stft"):
         shape = (3, 2, 4800) if name == "stft_3d" else (2, 4800)
         x = torch.randn(shape, generator=g).to(device)
@@ -268,13 +277,39 @@ def _span_names_in_source() -> set[str]:
 def test_span_sites_and_no_harness_name():
     names = _span_names_in_source()
     want = {"chain", "chain.head", "chain.mfcc", "stream", "stream.fir",
-            "stream.resample", "stream.frames", "stream.mfcc", "stft"}
+            "stream.resample", "stream.frames", "stream.mfcc", "stft",
+            "gate", "gate.analysis", "gate.synthesis", "gate.fused"}
     assert names == want | {f"kernel.{k}" for k in KERNELS}
     assert not names & set(HARNESS)
     # the wrappers with spans are the ones that count their launches
     counted = {k for m in _wrapper_modules() for k in KERNELS
                if hasattr(getattr(m, k, None), "launches")}
     assert counted == set(KERNELS)
+
+
+@pytest.mark.parametrize("nfft,hop,route", [(1024, 256, "split"),
+                                            (128, 32, "full_nfft"),
+                                            (128, 24, "torch")])
+def test_gate_counts_its_routes(nfft, hop, route):
+    gate = SpectralGate(nfft, hop, device="cpu")
+    x = torch.randn((2, 3, 1200), generator=torch.Generator().manual_seed(8))
+    before = dict(SpectralGate.route_calls)
+    gate(x)                              # (2, 3, n): one call of 6 rows
+    gate(x[0])
+    after = SpectralGate.route_calls
+    assert set(after) == {"split", "full_nfft", "torch"}
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 2 if k == route else 0 for k in after}
+
+
+def test_gate_fused_route_records_its_span():
+    gate = SpectralGate(128, 32, device="cpu")
+    x = torch.randn((2, 1200), generator=torch.Generator().manual_seed(9))
+    gate(x)
+    _profiled(lambda: gate(x))
+    assert [(r.name, r.parent) for r in sorted(
+        profiling.spans(), key=lambda r: r.start)] == [
+        ("gate", None), ("gate.fused", "gate")]
 
 
 def _wrapper_modules():
@@ -335,6 +370,24 @@ def test_chain_stages_carry_device_time_on_the_card(dev):
     assert recs["chain"].device_ms is None
     assert recs["kernel.upfirdn_banded"].parent == "chain.head"
     assert recs["kernel.stft_mfcc"].parent == "chain.mfcc"
+
+
+@pytest.mark.cuda
+def test_gate_stages_carry_device_time_on_the_card(dev):
+    gate = SpectralGate(device=dev)
+    x = torch.randn((4, 48000), device=dev)
+    gate(x)
+    torch.cuda.synchronize()
+    profiling.clear_spans()
+    _profiled(lambda: gate(x), CUDA_ACTS)
+    recs = {r.name: r for r in profiling.spans()}
+    assert set(recs) == {"gate", "gate.analysis", "gate.synthesis",
+                         "kernel.stft_spectrum", "kernel.istft"}
+    assert recs["gate.analysis"].device_ms > 0
+    assert recs["gate.synthesis"].device_ms > 0
+    assert recs["gate"].device_ms is None
+    assert recs["kernel.stft_spectrum"].parent == "gate.analysis"
+    assert recs["kernel.istft"].parent == "gate.synthesis"
 
 
 @pytest.mark.cuda

@@ -327,43 +327,57 @@ class SpectralGate(nn.Module):
         return self.nfft - self.hop
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (..., n) -> (..., n) gated."""
+        """x: (..., n) -> (..., n) gated. Spans (while a profiler runs):
+        ``gate`` around a call of (channels, n); inside it on the split
+        route ``gate.analysis`` around the spectrum and ``gate.synthesis``
+        around the gated inverse, on the full-nfft route ``gate.fused``
+        around the one kernel, each timed on the device. Each call counts
+        its route in ``SpectralGate.route_calls``."""
         x = config.as_compute(x)
         if x.is_complex():
             raise TypeError("SpectralGate requires real input")
         if x.ndim != 2:
             return self(x.reshape(-1, x.shape[-1])).reshape(x.shape)
-        _check_input(x, self.window, "SpectralGate")
-        x = x.float()
-        n, pad = x.shape[-1], self.edge_pad
-        xp = F.pad(x, (pad, pad))
-        n_pad = xp.shape[-1]
-        nfft, hop, win, t = self.nfft, self.hop, self.window, self.threshold
-        norm = _ik.ola_norm(self.window_np, hop,
-                            stft_num_frames(n_pad, nfft, hop), n_pad,
-                            x.device)
+        with profiling.span("gate"):
+            _check_input(x, self.window, "SpectralGate")
+            x = x.float()
+            n, pad = x.shape[-1], self.edge_pad
+            xp = F.pad(x, (pad, pad))
+            n_pad = xp.shape[-1]
+            nfft, hop = self.nfft, self.hop
+            win, t = self.window, self.threshold
+            norm = _ik.ola_norm(self.window_np, hop,
+                                stft_num_frames(n_pad, nfft, hop), n_pad,
+                                x.device)
 
-        route = gate_route(nfft, hop)
-        if route == "full_nfft":
-            fast = lambda xv: _stk.stft_gate_stockham(xv, nfft, hop, win,
-                                                      norm, t)
-            plain = lambda xv: _stk.stft_gate_stockham_plain(xv, nfft, hop,
-                                                             win, norm, t)
-        else:
-            def fast(xv):
-                spec = _sk.stft_spectrum(xv, nfft, hop, win, onesided=True)
-                return _ik.istft(spec, nfft, hop, n_pad, win, norm, t)
+            def fused(gate):
+                def body(xv):
+                    with profiling.span("gate.fused", device=xv.device):
+                        return gate(xv, nfft, hop, win, norm, t)
+                return body
 
-            def plain(xv):
-                spec = _sk.stft_spectrum_plain(xv, nfft, hop, win,
-                                               onesided=True)
-                return _ik.istft_plain(spec, nfft, hop, n_pad, win, norm, t)
+            def split(spectrum, inverse):
+                def body(xv):
+                    with profiling.span("gate.analysis", device=xv.device):
+                        spec = spectrum(xv, nfft, hop, win, onesided=True)
+                    with profiling.span("gate.synthesis", device=xv.device):
+                        return inverse(spec, nfft, hop, n_pad, win, norm, t)
+                return body
 
-        if route == "torch":
-            out = plain(xp)
-        else:
-            out = kernel_with_torch_vjp(fast, plain)(xp)
-        return out[..., pad:pad + n]
+            route = gate_route(nfft, hop)
+            SpectralGate.route_calls[route] += 1
+            if route == "full_nfft":
+                fast = fused(_stk.stft_gate_stockham)
+                plain = fused(_stk.stft_gate_stockham_plain)
+            else:
+                fast = split(_sk.stft_spectrum, _ik.istft)
+                plain = split(_sk.stft_spectrum_plain, _ik.istft_plain)
+
+            if route == "torch":
+                out = plain(xp)
+            else:
+                out = kernel_with_torch_vjp(fast, plain)(xp)
+            return out[..., pad:pad + n]
 
     def _gate(self, spec: torch.Tensor) -> torch.Tensor:
         """Zero every bin whose magnitude is below threshold x its frame's
@@ -393,6 +407,10 @@ class SpectralGate(nn.Module):
         out = _par.reconstruct_shards(spec.map(self._gate), self.nfft,
                                       self.hop, self.window_np)
         return out.crop(pad, pad + n)
+
+
+# calls of forward by ``gate_route``'s route, always on
+SpectralGate.route_calls = dict.fromkeys(("full_nfft", "split", "torch"), 0)
 
 
 def frontend_params(nfft: int = 1024, n_mels: int = 26, n_mfcc: int = 13,

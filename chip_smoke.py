@@ -34,7 +34,10 @@ Phases, each fatal on failure:
    bound ms, the bound's share, ptxas's figures, the plan's dynamic shared
    memory; the power rows with the one-sided spectrum kernel's time at the
    same geometry, their yardstick, since no PyTorch call computes the
-   power in one pass).
+   power in one pass); the packed inverse's rows also print its spectrum
+   stage's tally (istft_kernels.ring_tally: groups walked, and the share
+   whose rows had landed when their block first looked) over one call
+   under a profiler, held to the walk's count (fft_plan.istft_groups).
    The two tensor-core kernels print the same row (kernel and bound ms,
    the bound's share, ptxas's figures): the banded upfirdn at each tier at
    the chain head, each against its own tier's bound (f32 the lesser of
@@ -952,6 +955,24 @@ def istft_phase(xc, win, failed: list, log: list[str]) -> dict:
                  f"istft_kernelILi{NFFT // 2}ELb{gate}E",
                  fft_plan.packed_istft_smem(NFFT, HOP), kind="redesign")
     r["gated_ms"] = out.pop("istft_gated")["ms"]
+    groups = fft_plan.istft_groups(c, nf, NFFT, HOP, n_pad)
+    for gate in (None, GATE_T):
+        ik.ring_tally(xp.device, reset=True)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            ik.istft(spec, NFFT, HOP, n_pad, win, norm, gate)
+        t = ik.ring_tally(xp.device, reset=True)
+        label = "no gate" if gate is None else f"gate {gate:g}"
+        ok = (t["launches"] == 1 and t["groups"] == groups
+              and 0 <= t["ready"] <= groups)
+        share = t["ready"] / max(t["groups"], 1)
+        print(f"  istft ring [{label}]: {t['ready']} of {t['groups']} groups "
+              f"landed when first tested ({share:.4f}; the walk has "
+              f"{groups}), kernel {r['ms' if gate is None else 'gated_ms']:.4f}"
+              f" ms {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"istft ring tally [{label}]: {t}")
+        r["ring_ready_share" + ("" if gate is None else "_gated")] = share
     try:
         lib = lambda: torch.istft(spec.transpose(1, 2), NFFT, HOP, window=win,
                                   center=False, length=n_pad)

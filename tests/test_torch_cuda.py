@@ -1341,13 +1341,17 @@ def test_packed_launchers_refuse_a_plan_not_their_own(dev):
     wk = tsk._fft_tables(nfft, dev)[1]
     ptrs = [_build.ptr(t) for t in (win, tw, wk, norm, out)]
     plan = fft_plan.packed_istft_smem(nfft, hop)
-    assert plan == fft_plan.gate_packed_smem(nfft, hop)
-    for smem in (plan - 8, plan + 4, fft_plan.packed_istft_smem(nfft, 1)
-                 + 8 * 1024):
+    gate_plan = fft_plan.gate_packed_smem(nfft, hop)
+    # each block its own layout: the inverse's with its spectrum stage
+    assert (plan, gate_plan) == (73816, 61416)
+    for smem in (plan - 8, plan + 8, gate_plan, plan + 4,
+                 fft_plan.packed_istft_smem(nfft, 1) + 8 * 1024):
         for gate in (0, 1):
             assert lib.vv_istft(_build.ptr(spec), *ptrs, 1, nf, nfft, hop, n,
                                 gate, 0.01, smem, dev.index,
-                                _build.stream_handle(spec)) != 0
+                                _build.stream_handle(spec), None) != 0
+    for smem in (gate_plan - 8, gate_plan + 8, plan, gate_plan + 4,
+                 fft_plan.gate_packed_smem(nfft, 16) + 8 * 1024):
         assert lib.vv_stft_gate_packed(
             _build.ptr(x), *ptrs, 1, n, nf, nfft, hop, 0.01, smem,
             dev.index, _build.stream_handle(x)) != 0
@@ -1355,9 +1359,83 @@ def test_packed_launchers_refuse_a_plan_not_their_own(dev):
     assert (out == 7.0).all()
     assert lib.vv_istft(_build.ptr(spec), *ptrs, 1, nf, nfft, hop, n, 1,
                         0.01, plan, dev.index,
-                        _build.stream_handle(spec)) == 0
+                        _build.stream_handle(spec), None) == 0
     torch.cuda.synchronize()
     assert (out == 0.0).all()
+
+
+def _ring_case(dev, gen, c, nf, nfft, hop, gate, offset=0):
+    """The packed inverse on a random (c, nf, nfft/2 + 1) spectrum whose
+    first bin sits `offset` float2 past a 16-byte boundary, against its
+    plain version, twice; the kernel's output. The DC and Nyquist bins
+    keep random imaginary parts, which both versions drop (cuFFT's c2r
+    transform reads them at such batches; the plain version zeroes them
+    first)."""
+    bins = nfft // 2 + 1
+    flat = torch.complex(*(torch.as_tensor(
+        gen.standard_normal(c * nf * bins + offset), dtype=torch.float32)
+        for _ in range(2))).to(dev)
+    spec = flat[offset:].view(c, nf, bins)
+    assert (spec.data_ptr() % 16 == 8) == bool(offset % 2)
+    win = STFT(nfft, hop).win(dev)
+    out_len = (nf - 1) * hop + nfft
+    norm = tik.ola_norm(get_window_np("hann", nfft), hop, nf, out_len, dev)
+    got = tik.istft(spec, nfft, hop, out_len, win, norm, gate)
+    assert torch.equal(got, tik.istft(spec, nfft, hop, out_len, win, norm,
+                                      gate))
+    want = tik.istft_plain(spec, nfft, hop, out_len, win, norm, gate)
+    assert _rel(got * norm, want * norm) < 5e-6, (c, nf, nfft, hop, gate)
+    return got
+
+
+@pytest.mark.parametrize("gate", [None, 0.1])
+@pytest.mark.parametrize("c,nf,nfft,hop,offset", [
+    (2, 40, 1024, 256, 0),    # rows 513 bins long: every other row starts
+    (2, 40, 1024, 256, 1),    # 8 bytes past 16, and the tensor itself
+    (3, 1, 1024, 256, 1),     # nf < 2048/M: one row a group, partly empty
+    (3, 3, 1024, 256, 0),
+    (2, 5, 512, 128, 1),      # 8 frames a group at M = 256, nf < 8
+    (96, 75, 1024, 256, 1),   # rows of 19,968 samples, more items than
+    (200, 32, 4096, 512, 0),  # blocks: a block walks on to another channel
+])
+def test_istft_ring_walk(dev, gen, c, nf, nfft, hop, offset, gate):
+    """The spectrum stage's copies (csrc/istft.cu): strips whose first
+    frame is odd (an 8-byte-aligned copy), a tensor that starts 8 bytes
+    past a 16-byte boundary, fewer frames than a group, and enough
+    channels that blocks walk items across channel boundaries, the next
+    item's first copy in flight (the grid holds at most 3 blocks an SM);
+    each gated and not, equal to the plain version and to itself."""
+    from vv_dsp_tpu_torch.ops import fft_plan
+    if c >= 96:
+        out_len = (nf - 1) * hop + nfft
+        per_row = -(-(-(-out_len // hop)) // fft_plan.owned_segments(nfft,
+                                                                     hop))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert c * per_row > 3 * sms
+    _ring_case(dev, gen, c, nf, nfft, hop, gate, offset)
+
+
+def test_istft_ring_tally_counts_only_under_a_profiler(dev, gen):
+    """ring_tally counts exactly the walk's groups (fft_plan.istft_groups)
+    and at most as many ready ones while a torch.profiler session runs,
+    and nothing without one; the output is the same bits either way."""
+    from vv_dsp_tpu_torch.ops import fft_plan
+    c, nf, nfft, hop = 5, 75, 1024, 256
+    tik.ring_tally(dev, reset=True)
+    quiet = _ring_case(dev, np.random.default_rng(3), c, nf, nfft, hop, 0.1)
+    assert tik.ring_tally(dev) == {"launches": 0, "groups": 0, "ready": 0}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        traced = _ring_case(dev, np.random.default_rng(3), c, nf, nfft, hop,
+                            0.1)
+    read = tik.ring_tally(dev, reset=True)
+    groups = fft_plan.istft_groups(c, nf, nfft, hop, (nf - 1) * hop + nfft)
+    assert read["launches"] == 2                      # the case runs twice
+    assert read["groups"] == 2 * groups
+    assert 0 <= read["ready"] <= read["groups"]
+    assert torch.equal(quiet, traced)
+    _ring_case(dev, gen, c, nf, nfft, hop, None)
+    assert tik.ring_tally(dev) == {"launches": 0, "groups": 0, "ready": 0}
 
 
 def test_stockham_launchers_refuse_a_plan_not_their_own(dev):

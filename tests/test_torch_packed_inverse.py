@@ -226,7 +226,7 @@ def test_fused_gate_replay_matches_plain(nfft, hop, thresh):
         assert err < 5e-6 * np.abs(want[c]).max(), err
 
 
-def _reckoned(nfft, hop):
+def _reckoned_gate(nfft, hop):
     """The packed overlap-add block, laid out by hand: the M-point twiddle
     table, wk, two 2048-point exchanges, the window, 8 peak slots and the
     strip (owned_segments hops)."""
@@ -234,6 +234,16 @@ def _reckoned(nfft, hop):
     seg = max(4 * (q - 1), -(-4096 // hop), 1)
     return 8 * (len(fft_plan.pass_twiddles_np(m)) + (m + 1) + 2 * 2048) \
         + 4 * (nfft + 8 + seg * hop)
+
+
+def _reckoned(nfft, hop):
+    """The inverse's block: the spectrum stage (a group's 2048/M rows of
+    M + 1 bins plus one float2 at each end, rounded down to 16 bytes), then
+    the packed overlap-add block without the twiddle table."""
+    m = nfft // 2
+    stage = 8 * (2048 // m * (m + 1) + 2) // 16 * 16
+    return stage + _reckoned_gate(nfft, hop) \
+        - 8 * len(fft_plan.pass_twiddles_np(m))
 
 
 @pytest.mark.parametrize("nfft", [256, 4096])
@@ -256,7 +266,7 @@ def test_gate_plan_fits_a_block(nfft, hop):
             if tsk.packed_gate_supported(nfft, h)]
     assert hop in (min(hops), max(hops))
     smem = fft_plan.gate_packed_smem(nfft, hop)
-    assert smem == _reckoned(nfft, hop)
+    assert smem == _reckoned_gate(nfft, hop)
     assert smem <= BLOCK_BYTES, (nfft, hop, smem)
 
 
@@ -265,5 +275,111 @@ def test_plans_at_every_geometry_the_wrappers_take():
     nfft 4096 at hop 1, is the one the plan's docstring gives."""
     for nfft in (256, 512, 1024, 2048, 4096):
         for hop in (h for h in range(1, nfft + 1) if nfft % h == 0):
+            assert tik.istft_supported(nfft, hop)
             assert fft_plan.packed_istft_smem(nfft, hop) <= BLOCK_BYTES
-    assert fft_plan.packed_istft_smem(4096, 1) == 147448
+    assert fft_plan.packed_istft_smem(4096, 1) == 147496
+    assert fft_plan.packed_istft_smem(1024, 256) == 73816
+
+
+def test_gate_plan_keeps_its_own_layout():
+    """The fused gate reads no spectrum, so its block has no stage: at every
+    geometry of packed_gate_supported its plan is the overlap-add block
+    alone (61,416 bytes at 1024/256), and the inverse's is that block with
+    the stage in place of the twiddle table."""
+    n = 0
+    for nfft in (256, 512, 1024, 2048, 4096):
+        for hop in range(1, nfft + 1):
+            if not tsk.packed_gate_supported(nfft, hop):
+                continue
+            gate = fft_plan.gate_packed_smem(nfft, hop)
+            assert gate == _reckoned_gate(nfft, hop), (nfft, hop)
+            assert fft_plan.packed_istft_smem(nfft, hop) == (
+                gate + fft_plan.istft_stage_bytes(nfft)
+                - 8 * fft_plan.table_size(nfft // 2))
+            n += 1
+    assert n > 20
+    assert fft_plan.gate_packed_smem(1024, 256) == 61416
+
+
+def _walk(channels, nf, nfft, hop, output_len, blocks):
+    """Each block's frame groups in the order its threads compute them
+    (``csrc/istft.cu istft_kernel``'s loops over StripItems), and in the
+    order thread 0 copies them (``CopyCursor``: item (c, s) of channel c
+    and strip s, entered at its first frame, a step of 2048/m frames after
+    each copy, then past finished items), each as (channel, first frame,
+    frames)."""
+    m = nfft // 2
+    seg, q, fb = fft_plan.owned_segments(nfft, hop), nfft // hop, 2048 // m
+    per_row = -(-(-(-output_len // hop)) // seg)
+    strips = per_row * channels
+
+    def frames(s):
+        s0 = s * seg
+        return max(s0 - (q - 1), 0), min(s0 + seg - 1, nf - 1)
+
+    walks, copies = [], []
+    for b in range(blocks):
+        walk = []
+        for g in range(b, strips, blocks):
+            c, (f_lo, f_hi) = g // per_row, frames(g % per_row)
+            walk += [(c, f0, min(fb, f_hi - f0 + 1))
+                     for f0 in range(f_lo, f_hi + 1, fb)]
+        walks.append(walk)
+        copy = []
+        if b < strips:
+            c, s = b // per_row, b % per_row
+            f, f_hi = frames(s)
+            while True:
+                while f > f_hi:                  # seek
+                    s += blocks
+                    if s >= per_row:
+                        c, s = c + s // per_row, s % per_row
+                    if c * per_row + s >= strips:
+                        break
+                    f, f_hi = frames(s)
+                if c * per_row + s >= strips:    # done
+                    break
+                copy.append((c, f, min(fb, f_hi - f + 1)))
+                f += fb
+        copies.append(copy)
+    return walks, copies
+
+
+@pytest.mark.parametrize("nfft,hop,channels,nf,out_len,blocks", [
+    (1024, 256, 5, 75, 19456, 7),      # items across channels, a block's
+    (4096, 512, 5, 32, 20480, 3),      # walk carried from row to row
+    (1024, 256, 2, 3, 1536, 4),        # nf < 2048/M
+    (1024, 256, 3, 2, 6000, 4),        # items with no frames
+    (256, 64, 3, 40, 2900, 2),         # output past the frames' cover
+    (4096, 1, 1, 9000, 9000, 5),       # hop 1, one frame a group
+])
+def test_ring_walk_copies_each_group_once_in_order(nfft, hop, channels, nf,
+                                                   out_len, blocks):
+    """Thread 0's copy cursor visits exactly the groups its block computes,
+    in the same order, across strip items and channels; their total is
+    fft_plan.istft_groups (what ring_tally counts). Each copy, its start
+    rounded down to 16 bytes and its end up, fits a stage; a stage read at
+    the kernel's offset (0 or 1 float2) and bins k and M - k gives every
+    frame's bins, for a row base of either 16-byte phase."""
+    m = nfft // 2
+    bins = m + 1
+    walks, copies = _walk(channels, nf, nfft, hop, out_len, blocks)
+    assert walks == copies
+    assert sum(map(len, walks)) == fft_plan.istft_groups(
+        channels, nf, nfft, hop, out_len)
+    stage = fft_plan.istft_stage_bytes(nfft) // 8
+    rng = np.random.default_rng(nfft + hop)
+    spec = rng.standard_normal(channels * nf * bins + 4)
+    k = np.arange(m // 8)[:, None] + np.arange(8)[None, :] * (m // 8)
+    for base in (0, 1):                # the tensor's first float2, in units
+        for c, f0, nb in sum(walks, []):
+            a = base + (c * nf + f0) * bins
+            lo, hi = a // 2 * 2, -(-(a + nb * bins) // 2) * 2
+            assert hi - lo <= stage and stage % 2 == 0
+            ring = np.full(stage, np.nan)
+            ring[:hi - lo] = spec[lo:hi]
+            for fb in range(nb):
+                row = ring[a % 2 + fb * bins:]
+                want = spec[a + fb * bins:a + (fb + 1) * bins]
+                np.testing.assert_array_equal(row[k], want[k])
+                np.testing.assert_array_equal(row[m - k], want[m - k])

@@ -111,7 +111,7 @@ def load(path) -> ctypes.CDLL:
                                  I, I, F, I, I, I, L, I, P]
     lib.vv_stft_power.argtypes = [P, P, P, P, P, I, L, I, I, I, I, P]
     lib.vv_istft.argtypes = [P, P, P, P, P, P, I, I, I, I, L, I, F, L, I,
-                             P]
+                             P, P]
     lib.vv_stockham_spectrum.argtypes = [P, P, P, P, I, L, I, I, I, I, I, P]
     lib.vv_stockham_power.argtypes = [P, P, P, P, I, L, I, I, I, I, P]
     lib.vv_stockham_mel.argtypes = [P, P, P, P, P, P, P, I, L, I, I, I, I,

@@ -181,11 +181,11 @@ struct PackedSample {
   }
 };
 
-// Dynamic shared memory of a block of the packed overlap-add kernels
-// (istft.cu, gate_packed.cu; fft_plan.packed_istft_smem and
-// gate_packed_smem): the M-point twiddle table, wk (M + 1), two exchange
-// buffers, the window, a peak slot a warp and the strip of
-// owned_segments(2M, hop) hops.
+// Dynamic shared memory of a block of the packed fused gate (gate_packed.cu,
+// fft_plan.gate_packed_smem; istft.cu's istft_smem is this layout with its
+// spectrum stage in place of the twiddle table): the M-point twiddle table,
+// wk (M + 1), two exchange buffers, the window, a peak slot a warp and the
+// strip of owned_segments(2M, hop) hops.
 template <int M>
 inline size_t packed_ola_smem(int hop) {
   return (fr_table_size(M) + M + 1 + 2 * FR_POINTS) * sizeof(float2) +

@@ -218,16 +218,49 @@ def stockham_gate_smem(nfft: int, hop: int) -> int:
 # ---- the packed inverse and fused gate (csrc/istft.cu, csrc/gate_packed.cu)
 
 
-def packed_istft_smem(nfft: int, hop: int) -> int:
-    """Dynamic shared memory of a packed inverse block, bytes
+def gate_packed_smem(nfft: int, hop: int) -> int:
+    """Dynamic shared memory of a packed fused gate block, bytes
     (``csrc/packed.cuh packed_ola_smem``): the m = nfft/2 point twiddle
     table, wk (m + 1), two exchange buffers, the window, a peak slot a warp
-    and the strip of ``owned_segments`` hops. At nfft 4096 it is largest at
-    hop 1 (16,380 owned samples), 147,448 bytes: one block an SM."""
+    and the strip of ``owned_segments`` hops. The packed inverse's block
+    has its spectrum stage in place of the table (``packed_istft_smem``).
+    """
     m = nfft // 2
     return (8 * (table_size(m) + m + 1 + 2 * FR_POINTS)
             + 4 * (nfft + WARPS + owned_segments(nfft, hop) * hop))
 
 
-# the fused gate's block has the inverse's layout: it keeps no spectrum
-gate_packed_smem = packed_istft_smem
+def istft_stage_bytes(nfft: int) -> int:
+    """The packed inverse's spectrum stage (``csrc/istft.cu istft_stage``):
+    a group's 2048/m rows of m + 1 bins, the float2 that rounding the copy
+    to 16 bytes may add at either end, rounded to 16 bytes (16,432 bytes
+    at nfft 1024)."""
+    m = nfft // 2
+    return 8 * ((FR_POINTS // m * (m + 1) + 2) & ~1)
+
+
+def packed_istft_smem(nfft: int, hop: int) -> int:
+    """Dynamic shared memory of a packed inverse block, bytes
+    (``csrc/istft.cu istft_smem``): the fused gate's layout
+    (``gate_packed_smem``) with the spectrum stage (``istft_stage_bytes``)
+    in place of the twiddle table, which the inverse reads from device
+    memory. At nfft 4096 it is largest at hop 1 (16,380 owned samples),
+    147,496 bytes: one block an SM; 73,816 at 1024/256, three."""
+    return (istft_stage_bytes(nfft) - 8 * table_size(nfft // 2)
+            + gate_packed_smem(nfft, hop))
+
+
+def istft_groups(channels: int, nf: int, nfft: int, hop: int,
+                 output_len: int) -> int:
+    """Frame groups the packed inverse walks in one launch over `channels`
+    rows (``csrc/istft.cu``; ``istft_kernels.ring_tally`` counts them):
+    each strip item of ``owned_segments`` hops takes the frames that touch
+    it, 2048/m at a time, m = nfft/2."""
+    seg, q = owned_segments(nfft, hop), nfft // hop
+    fb = FR_POINTS // (nfft // 2)
+    per_row = -(-(-(-output_len // hop)) // seg)
+    groups = 0
+    for s in range(per_row):
+        f_lo, f_hi = max(s * seg - (q - 1), 0), min(s * seg + seg - 1, nf - 1)
+        groups += max(-(-(f_hi - f_lo + 1) // fb), 0)
+    return channels * groups

@@ -12,14 +12,20 @@ bin k of a frame is zeroed first unless ``p2[k] >= t^2 * max(p2)``, with
 ``p2 = re^2 + im^2`` over the frame's nfft//2+1 bins, in float32.
 
 Both versions ignore the imaginary parts of the DC and Nyquist bins, as
-``torch.fft.irfft`` does (the TPU kernel folds them into its repack; for
-the spectrum of a real signal they are rounding noise). On a CUDA tensor
+``torch.fft.irfft`` does on the CPU (the TPU kernel folds them into its
+repack; for the spectrum of a real signal they are rounding noise). The
+plain version zeroes them itself: cuFFT's c2r transform reads them at
+large batches (2.9% of scale at 60 x 76 frames of 1024/256). On a CUDA tensor
 ``istft`` launches the kernel in ``csrc/istft.cu`` or raises, and
 ``stft_gate_packed`` the kernel in ``csrc/gate_packed.cu``; on a CPU
 tensor each runs its plain version. Both kernels run the nfft/2-point
 register-resident transform of ``csrc/fft_reg.cuh`` (its twiddle table
-``fft_plan.pass_twiddles``, the block's layout
-``fft_plan.packed_istft_smem``, which the launchers check).
+``fft_plan.pass_twiddles``; the blocks' layouts ``fft_plan.packed_istft_smem``
+and ``fft_plan.gate_packed_smem``, which the launchers check). The inverse
+copies each group's spectrum rows into a shared-memory stage one group
+ahead of their use; while a ``torch.profiler`` session runs, each launch
+also counts its groups and those whose rows had landed when first looked
+at (``ring_tally``).
 """
 
 from __future__ import annotations
@@ -97,16 +103,24 @@ def gate_plain(spec: torch.Tensor, gate_threshold: float) -> torch.Tensor:
     return torch.where(p2 >= thresh2 * peak2, spec, torch.zeros_like(spec))
 
 
+def _real_ends(spec: torch.Tensor) -> torch.Tensor:
+    """spec with the imaginary parts of its DC and Nyquist bins zeroed."""
+    k = torch.arange(spec.shape[-1], device=spec.device)
+    ends = (k == 0) | (k == spec.shape[-1] - 1)
+    return torch.where(ends, torch.complex(spec.real,
+                                           torch.zeros_like(spec.real)), spec)
+
+
 def istft_plain(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
                 window: torch.Tensor, norm: torch.Tensor,
                 gate_threshold: float | None = None) -> torch.Tensor:
     """(..., frames, nfft//2+1) one-sided spectrum -> (..., output_len):
-    the gate when given, irfft, window, overlap-add, divide by the norm
-    (``ola_norm``)."""
+    the gate when given, the DC and Nyquist bins made real, irfft, window,
+    overlap-add, divide by the norm (``ola_norm``)."""
     if gate_threshold is not None:
         spec = gate_plain(spec, gate_threshold)
-    return overlap_add_normalized(_fft.irfft(spec, nfft), window, hop,
-                                  output_len, norm)
+    return overlap_add_normalized(_fft.irfft(_real_ends(spec), nfft), window,
+                                  hop, output_len, norm)
 
 
 def istft(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
@@ -141,19 +155,56 @@ def istft(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
         gate = gate_threshold is not None
         thresh2 = float(gate_threshold) ** 2 if gate else 0.0
         lib = _build.library()
+        tally = (_build.ptr(_tally_on(spec.device))
+                 if profiling._profiler_on() else None)
         for r0, rows in chunks:
             err = lib.vv_istft(
                 _build.ptr(spec, r0), _build.ptr(window), _build.ptr(tw),
                 _build.ptr(wk), _build.ptr(norm), _build.ptr(out, r0), rows,
                 nf, nfft, hop, output_len, int(gate), thresh2,
                 fft_plan.packed_istft_smem(nfft, hop), spec.device.index,
-                _build.stream_handle(spec))
+                _build.stream_handle(spec), tally)
             _build.check(err, "istft")
             istft.launches += 1
+            if tally is not None:
+                istft.ring_launches += 1
         return out
 
 
 istft.launches = 0
+istft.ring_launches = 0      # launches that added to ring_tally
+
+_tallies: dict[torch.device, torch.Tensor] = {}
+
+
+def _tally_on(device: torch.device) -> torch.Tensor:
+    """The spectrum stage's two device counters on `device`: groups
+    walked, and groups whose rows had landed when the block first
+    looked."""
+    if device not in _tallies:
+        _tallies[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _tallies[device]
+
+
+def ring_tally(device=None, reset: bool = False) -> dict:
+    """What the inverse's spectrum stage counted on `device` (the current
+    CUDA device if None) over the launches made while a ``torch.profiler``
+    session ran: ``groups`` walked, ``ready``, those whose copy had landed
+    when their block first tested its barrier, and ``launches`` (all
+    devices'). reset zeroes them after the read. Synchronises the device:
+    for tests and ``chip_smoke.py``, never the hot path."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    groups, ready = (int(v) for v in _tally_on(device).tolist())
+    read = {"launches": istft.ring_launches, "groups": groups,
+            "ready": ready}
+    if reset:
+        _tally_on(device).zero_()
+        istft.ring_launches = 0
+    return read
 
 
 def periodic_norm_np(window, hop: int, n: int) -> np.ndarray:

@@ -243,3 +243,31 @@ def test_row_chunks():
     t = torch.zeros((5, 3, 7), dtype=torch.complex64)
     assert _build.ptr(t, 2).value == t[2].data_ptr()
     assert _build.ptr(t).value == t.data_ptr()
+
+
+@pytest.mark.parametrize("channels", [1, 65535, 65536, 140000])
+def test_launch_walks_the_row_chunks(channels, monkeypatch):
+    """_build.launch, the wrappers' one launch frame, with a stand-in for a
+    kernel entry: one call a run of row_chunks, in order, each counted in
+    the wrapper's launches; an entry's error raises under its name."""
+    @_build.counted
+    def wrapper():
+        pass
+
+    runs = _build.row_chunks(channels)
+    calls = []
+    n = _build.launch(wrapper, channels,
+                      lambda r0, k: calls.append((r0, k)) or 0)
+    assert calls == runs and n == len(runs) == wrapper.launches
+
+    class Lib:     # the error strings, without the kernel library
+        @staticmethod
+        def vv_error_string(err):
+            return b"an error string"
+
+    monkeypatch.setattr(_build, "library", lambda: Lib)
+    calls.clear()
+    with pytest.raises(RuntimeError, match=r"^wrapper: CUDA error 700 "):
+        _build.launch(wrapper, channels,
+                      lambda r0, k: calls.append((r0, k)) or 700)
+    assert calls == runs[:1] and wrapper.launches == len(runs)

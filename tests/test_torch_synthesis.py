@@ -391,3 +391,38 @@ def test_istft_wrapper_refuses_other_devices():
     assert tik.istft_supported(1024, 256) and tik.istft_supported(4096, 4096)
     assert not tik.istft_supported(1024, 384)
     assert not tik.istft_supported(128, 32)
+
+
+def _entry_call(name):
+    """One entry point as a function of a (..., n) signal."""
+    plan = STFT(512, 128)
+    if name == "process":
+        return plan.process
+    if name == "power":
+        return plan.power
+    if name == "reconstruct":
+        def inverse(x):
+            spec = plan.process(x.reshape(-1, x.shape[-1]), rfft=True)
+            return plan.reconstruct(spec.reshape(x.shape[:-1]
+                                                 + spec.shape[-2:]),
+                                    x.shape[-1], rfft=True)
+        return inverse
+    if name == "mfcc":
+        return lambda x: tmel.mfcc_stft(x, 512, 128, 40, 13, 16000.0)
+    return SpectralGate(512, 128, device="cpu")
+
+
+@pytest.mark.parametrize("lead", [(), (3, 2)])
+@pytest.mark.parametrize("name", ["process", "power", "reconstruct", "mfcc",
+                                  "gate"])
+def test_entry_points_flatten_leading_axes(rng, name, lead):
+    """(n,) and (3, 2, n) signals give the (channels, n) call's result on
+    the flattened rows, bit for bit, in the leading shape."""
+    fn = _entry_call(name)
+    x = torch.as_tensor(rng.standard_normal(lead + (3000,)),
+                        dtype=torch.float32)
+    flat = fn(x.reshape(-1, 3000))
+    got = fn(x)
+    assert got.shape == lead + flat.shape[1:]
+    torch.testing.assert_close(got.reshape(flat.shape), flat, rtol=0,
+                               atol=0)

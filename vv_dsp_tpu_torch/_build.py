@@ -9,6 +9,8 @@ objects into one shared library under
 ``build/vv_dsp_tpu_torch/<hash of the sources and flags>/`` beside the
 package, and loads it with ``ctypes``. A later process with the same
 sources reuses the library. A failed build raises with nvcc's stderr.
+Every kernel wrapper checks its rows with ``require_rows`` and calls its
+entry through ``launch``: one call a run of ``row_chunks``, counted.
 
 Nothing here runs at import: machines without ``nvcc`` (the CPU test
 runs) import every module and never call ``library()``.
@@ -152,20 +154,58 @@ def stream_handle(t) -> ctypes.c_void_p:
 
 
 def ptr(t, row: int = 0) -> ctypes.c_void_p:
-    """The address of row `row` (along dim 0) of contiguous tensor t."""
-    return ctypes.c_void_p(t.data_ptr() + row * t.stride(0) * t.element_size())
+    """The address of row `row` (along dim 0) of contiguous tensor t; at row
+    0, as every pointer of a one-launch call is, with no stride lookups."""
+    off = row * t.stride(0) * t.element_size() if row else 0
+    return ctypes.c_void_p(t.data_ptr() + off)
 
 
 def row_chunks(rows: int) -> list[tuple[int, int]]:
-    """(first row, rows) of each launch over `rows` rows (rows >= 1): runs
-    of at most MAX_ROWS, the rows a kernel entry takes in one launch (its
-    rows go on gridDim.y, or it checks that limit). A wrapper launches once
-    a chunk, with pointers to the chunk's first rows, and counts each
-    launch; up to MAX_ROWS rows it launches once, as before."""
+    """(first row, rows) of each launch over `rows` >= 1 rows: runs of at
+    most MAX_ROWS, the rows a kernel entry takes in one launch."""
     if rows < 1:
         raise ValueError(f"channels must be positive, got {rows}")
     return [(r0, min(MAX_ROWS, rows - r0))
             for r0 in range(0, rows, MAX_ROWS)]
+
+
+def counted(op):
+    """Declare kernel wrapper op's launch counter, op.launches = 0."""
+    op.launches = 0
+    return op
+
+
+def target(t) -> tuple:
+    """(library(), t's device index, ``stream_handle(t)``): what each
+    launch of a call on t's device passes."""
+    return library(), t.device.index, stream_handle(t)
+
+
+def launch(op, channels: int, call) -> int:
+    """Launch kernel wrapper op's entry over `channels` rows: call(r0, k)
+    calls the entry on rows [r0, r0 + k) and returns its error code, once
+    a run of ``row_chunks(channels)``, in order. An error raises under
+    op's name; each launch adds one to op.launches. Returns the launches."""
+    chunks = row_chunks(channels)
+    for r0, rows in chunks:
+        check(call(r0, rows), op.__name__)
+        op.launches += 1
+    return len(chunks)
+
+
+def require_rows(t, op: str, name: str = "x", ndim: int = 2,
+                 dtype=None) -> None:
+    """Raise unless t is rows op's kernel entry takes: on a CUDA device,
+    of ndim axes, at least one row along the first, then ``require``'s
+    contiguous tensor of `dtype` (float32 when None)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{op}: unsupported device {t.device}")
+    if t.ndim != ndim:
+        raise ValueError(f"{op} expects {name} of {ndim} axes, channels "
+                         f"first, got shape {tuple(t.shape)}")
+    if t.shape[0] < 1:
+        raise ValueError(f"{op}: channels must be positive, got 0")
+    require(t, name, t.device, dtype=dtype)
 
 
 def require(t, name: str, device, shape=None, dtype=None) -> None:

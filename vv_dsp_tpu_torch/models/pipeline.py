@@ -52,6 +52,7 @@ from vv_dsp_tpu_torch.parallel.sharded import ShardedTensor, shard
 from vv_dsp_tpu_torch.utils import profiling
 from vv_dsp_tpu_torch.utils.device import build_device as _build_device
 from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
+from vv_dsp_tpu_torch.utils.shapes import collapse_leading
 
 
 def _check_input(x: torch.Tensor, buffer: torch.Tensor, name: str) -> None:
@@ -336,8 +337,9 @@ class SpectralGate(nn.Module):
         x = config.as_compute(x)
         if x.is_complex():
             raise TypeError("SpectralGate requires real input")
+        restore = None
         if x.ndim != 2:
-            return self(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+            x, restore = collapse_leading(x)
         with profiling.span("gate"):
             _check_input(x, self.window, "SpectralGate")
             x = x.float()
@@ -377,7 +379,8 @@ class SpectralGate(nn.Module):
                 out = plain(xp)
             else:
                 out = kernel_with_torch_vjp(fast, plain)(xp)
-            return out[..., pad:pad + n]
+            out = out[..., pad:pad + n]
+            return out if restore is None else restore(out)
 
     def _gate(self, spec: torch.Tensor) -> torch.Tensor:
         """Zero every bin whose magnitude is below threshold x its frame's

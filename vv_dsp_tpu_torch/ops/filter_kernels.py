@@ -11,7 +11,7 @@ versions, and the best-path dispatch of FIR and resampling (counterpart of
   ``resample_poly_plain`` (``resample.resample_poly``) on a CPU tensor.
 
 On a CUDA tensor each wrapper launches its kernel (once per 65,535 rows,
-``_build.row_chunks``) or raises. The best
+``_build.launch``) or raises. The best
 paths route as the JAX package routes on the TPU, on every device:
 
 - ``fir_apply_best``: up to 16 taps the direct kernel; from 512 host taps
@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from vv_dsp_tpu_torch import _build, config
+from vv_dsp_tpu_torch._build import ptr
 from vv_dsp_tpu_torch.ops import poly_plan
 from vv_dsp_tpu_torch.ops.fir import fir_apply, fir_apply_mxu, taps_like
 from vv_dsp_tpu_torch.ops.resample import (_reduce, _resample_poly_filter,
@@ -52,18 +53,12 @@ KERNEL_MAX_TAPS = 2048
 POLY_MAX_WEIGHTS = poly_plan.POLY_MAX_WEIGHTS
 
 
-def _check_cuda(x: torch.Tensor, name: str) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.ndim != 2:
-        raise ValueError(f"{name} expects (channels, n)")
-
-
 def fir_direct_plain(h, x: torch.Tensor) -> torch.Tensor:
     """Plain version of the direct FIR kernel: ``fir.fir_apply``."""
     return fir_apply(h, x)
 
 
+@_build.counted
 def fir_direct(h, x: torch.Tensor) -> torch.Tensor:
     """Causal FIR, lfilter(h, [1], x), (c, n) -> (c, n). Refuses taps where
     the JAX kernel does (its VMEM cap: taps > 2048). A CPU tensor takes the
@@ -76,28 +71,19 @@ def fir_direct(h, x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return fir_direct_plain(h, x)
     with profiling.span("kernel.fir_direct"):
-        _check_cuda(x, "fir_direct")
+        _build.require_rows(x, "fir_direct")
         # host taps come from the per-filter device cache, with no copy a call
         h = (taps_like(h, x).contiguous() if isinstance(h, torch.Tensor)
              else polyphase_table(h, 1, x.device)[0])
-        _build.require(x, "x", x.device)
         _build.require(h, "h", x.device, (taps,))
         c, n = x.shape
-        chunks = _build.row_chunks(c)
         y = torch.empty_like(x)
         if n == 0:
             return y
-        lib = _build.library()
-        for r0, rows in chunks:
-            err = lib.vv_fir_direct(
-                _build.ptr(x, r0), _build.ptr(h), _build.ptr(y, r0), rows, n,
-                taps, x.device.index, _build.stream_handle(x))
-            _build.check(err, "fir_direct")
-            fir_direct.launches += 1
+        lib, dev, stream = _build.target(x)
+        _build.launch(fir_direct, c, lambda r0, k: lib.vv_fir_direct(
+            ptr(x, r0), ptr(h), ptr(y, r0), k, n, taps, dev, stream))
         return y
-
-
-fir_direct.launches = 0
 
 
 def resample_poly_plain(x: torch.Tensor, up: int, down: int) -> torch.Tensor:
@@ -105,6 +91,7 @@ def resample_poly_plain(x: torch.Tensor, up: int, down: int) -> torch.Tensor:
     return resample_poly(x, up, down)
 
 
+@_build.counted
 def resample_poly_kernel(x: torch.Tensor, up: int,
                          down: int) -> torch.Tensor:
     """scipy.signal.resample_poly parity, (..., n) -> (..., ceil(n*up/down)),
@@ -125,29 +112,20 @@ def resample_poly_kernel(x: torch.Tensor, up: int,
         x2, restore = collapse_leading(x)
         return restore(resample_poly_kernel(x2, up, down), 1)
     with profiling.span("kernel.resample_poly_kernel"):
-        _check_cuda(x, "resample_poly_kernel")
-        _build.require(x, "x", x.device)
+        _build.require_rows(x, "resample_poly_kernel")
         c, n_in = x.shape
-        chunks = _build.row_chunks(c)
         n_out = -(-n_in * up // down)
         y = torch.empty((c, n_out), dtype=torch.float32, device=x.device)
         if n_out == 0:
             return y
         p = poly_plan.poly_plan(up, down)
         weights, offsets = poly_plan.poly_tables(up, down, x.device)
-        lib = _build.library()
-        for r0, rows in chunks:
-            err = lib.vv_poly(
-                _build.ptr(x, r0), _build.ptr(weights), _build.ptr(offsets),
-                _build.ptr(y, r0), rows, n_in, n_out, up, down, p.ncls,
-                p.n_big, p.k, p.lo, p.row_len, p.q_pitch, p.p_pitch, p.frames,
-                p.threads, p.smem, x.device.index, _build.stream_handle(x))
-            _build.check(err, "resample_poly_kernel")
-            resample_poly_kernel.launches += 1
+        lib, dev, stream = _build.target(x)
+        _build.launch(resample_poly_kernel, c, lambda r0, k: lib.vv_poly(
+            ptr(x, r0), ptr(weights), ptr(offsets), ptr(y, r0), k, n_in,
+            n_out, up, down, p.ncls, p.n_big, p.k, p.lo, p.row_len,
+            p.q_pitch, p.p_pitch, p.frames, p.threads, p.smem, dev, stream))
         return y
-
-
-resample_poly_kernel.launches = 0
 
 
 def fir_apply_best(h, x: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from vv_dsp_tpu_torch import _build, config
+from vv_dsp_tpu_torch._build import ptr
 from vv_dsp_tpu_torch.ops import fft as _fft
 from vv_dsp_tpu_torch.ops import fft_plan, framing
 from vv_dsp_tpu_torch.ops import stft_kernels as _sk
@@ -123,6 +124,7 @@ def istft_plain(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
                                   hop, output_len, norm)
 
 
+@_build.counted
 def istft(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
           window: torch.Tensor, norm: torch.Tensor,
           gate_threshold: float | None = None) -> torch.Tensor:
@@ -133,20 +135,13 @@ def istft(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
         return istft_plain(spec, nfft, hop, output_len, window, norm,
                            gate_threshold)
     with profiling.span("kernel.istft"):
-        if spec.device.type != "cuda":
-            raise ValueError(f"istft: unsupported device {spec.device}")
-        if spec.ndim != 3:
-            raise ValueError("istft expects (channels, frames, nfft//2+1)")
-        if not istft_supported(nfft, hop):
-            raise ValueError(f"istft: unsupported geometry nfft={nfft} "
-                             f"hop={hop}; check istft_supported()")
+        _sk.require_frames("istft", spec, window, nfft, hop, istft_supported,
+                           "spec", 3, torch.complex64)
         c, nf, _ = spec.shape
-        chunks = _build.row_chunks(c)
         if output_len < 1:
             raise ValueError(f"output_len must be positive, got {output_len}")
         _build.require(spec, "spec", spec.device, (c, nf, nfft // 2 + 1),
                        torch.complex64)
-        _build.require(window, "window", spec.device, (nfft,))
         _build.require(norm, "norm", spec.device, (output_len,))
         out = torch.empty((c, output_len), dtype=torch.float32,
                           device=spec.device)
@@ -154,24 +149,19 @@ def istft(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
         wk = _sk._fft_tables(nfft, spec.device)[1]
         gate = gate_threshold is not None
         thresh2 = float(gate_threshold) ** 2 if gate else 0.0
-        lib = _build.library()
-        tally = (_build.ptr(_tally_on(spec.device))
+        smem = fft_plan.packed_istft_smem(nfft, hop)
+        tally = (ptr(_tally_on(spec.device))
                  if profiling._profiler_on() else None)
-        for r0, rows in chunks:
-            err = lib.vv_istft(
-                _build.ptr(spec, r0), _build.ptr(window), _build.ptr(tw),
-                _build.ptr(wk), _build.ptr(norm), _build.ptr(out, r0), rows,
-                nf, nfft, hop, output_len, int(gate), thresh2,
-                fft_plan.packed_istft_smem(nfft, hop), spec.device.index,
-                _build.stream_handle(spec), tally)
-            _build.check(err, "istft")
-            istft.launches += 1
-            if tally is not None:
-                istft.ring_launches += 1
+        lib, dev, stream = _build.target(spec)
+        launches = _build.launch(istft, c, lambda r0, k: lib.vv_istft(
+            ptr(spec, r0), ptr(window), ptr(tw), ptr(wk), ptr(norm),
+            ptr(out, r0), k, nf, nfft, hop, output_len, int(gate), thresh2,
+            smem, dev, stream, tally))
+        if tally is not None:
+            istft.ring_launches += launches
         return out
 
 
-istft.launches = 0
 istft.ring_launches = 0      # launches that added to ring_tally
 
 _tallies: dict[torch.device, torch.Tensor] = {}
@@ -256,6 +246,7 @@ def stft_gate_packed_plain(x: torch.Tensor, nfft: int, hop: int,
     return istft_plain(spec, nfft, hop, x.shape[-1], window, norm, threshold)
 
 
+@_build.counted
 def stft_gate_packed(x: torch.Tensor, nfft: int, hop: int, threshold: float,
                      window: torch.Tensor, norm: torch.Tensor,
                      algorithm: str | None = None) -> torch.Tensor:
@@ -273,34 +264,19 @@ def stft_gate_packed(x: torch.Tensor, nfft: int, hop: int, threshold: float,
     if x.device.type == "cpu":
         return stft_gate_packed_plain(x, nfft, hop, threshold, window, norm)
     with profiling.span("kernel.stft_gate_packed"):
-        if x.device.type != "cuda":
-            raise ValueError(f"stft_gate_packed: unsupported device "
-                             f"{x.device}")
-        if x.ndim != 2:
-            raise ValueError("stft_gate_packed expects (channels, n)")
-        if not _sk.packed_gate_supported(nfft, hop):
-            raise ValueError(f"stft_gate_packed: unsupported geometry "
-                             f"nfft={nfft} hop={hop}; check "
-                             f"packed_gate_supported()")
+        _sk.require_frames("stft_gate_packed", x, window, nfft, hop,
+                           _sk.packed_gate_supported)
         c, n = x.shape
-        chunks = _build.row_chunks(c)
-        _build.require(x, "x", x.device)
-        _build.require(window, "window", x.device, (nfft,))
         _build.require(norm, "norm", x.device, (n,))
         out = torch.empty_like(x)
+        nf = framing.stft_num_frames(n, nfft, hop)
         tw = fft_plan.pass_twiddles(nfft // 2, x.device)
         wk = _sk._fft_tables(nfft, x.device)[1]
-        lib = _build.library()
-        for r0, rows in chunks:
-            err = lib.vv_stft_gate_packed(
-                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-                _build.ptr(wk), _build.ptr(norm), _build.ptr(out, r0), rows, n,
-                framing.stft_num_frames(n, nfft, hop), nfft, hop,
-                float(threshold) ** 2, fft_plan.gate_packed_smem(nfft, hop),
-                x.device.index, _build.stream_handle(x))
-            _build.check(err, "stft_gate_packed")
-            stft_gate_packed.launches += 1
+        smem = fft_plan.gate_packed_smem(nfft, hop)
+        lib, dev, stream = _build.target(x)
+        _build.launch(stft_gate_packed, c, lambda r0, k:
+                      lib.vv_stft_gate_packed(
+                          ptr(x, r0), ptr(window), ptr(tw), ptr(wk),
+                          ptr(norm), ptr(out, r0), k, n, nf, nfft, hop,
+                          float(threshold) ** 2, smem, dev, stream))
         return out
-
-
-stft_gate_packed.launches = 0

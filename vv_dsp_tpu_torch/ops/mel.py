@@ -25,6 +25,7 @@ from vv_dsp_tpu_torch.ops import stockham_kernels as _stk
 from vv_dsp_tpu_torch.ops.dct import _dct2_matrix
 from vv_dsp_tpu_torch.ops.window import get_window_np
 from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
+from vv_dsp_tpu_torch.utils.shapes import collapse_leading
 
 
 def hz_to_mel(hz, variant: str = "htk"):
@@ -246,29 +247,30 @@ def mfcc_stft_with(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
     x = config.as_compute(x)
     if x.is_complex():
         raise TypeError("mfcc_stft requires real input")
+    restore = None
     if x.ndim != 2:
-        lead = x.shape[:-1]
-        y = mfcc_stft_with(x.reshape(-1, x.shape[-1]), nfft, hop, window,
-                           mel_fb, bands, dct, log_epsilon, algorithm)
-        return y.reshape(lead + y.shape[-2:])
+        x, restore = collapse_leading(x)
     x = x.float().contiguous()   # the kernels take contiguous rows
     route = mel_route(nfft, hop)
     if route == "torch":
-        return _sk.stft_mfcc_plain(x, nfft, hop, window, mel_fb, dct,
-                                   log_epsilon, None)
-    if route == "full_nfft":
-        # the JAX package's full-nfft route takes no tier: float32
-        fast = lambda xv: _stk.stft_mel_stockham(xv, nfft, hop, window,
-                                                 mel_fb, bands, dct,
-                                                 log_epsilon)
+        y = _sk.stft_mfcc_plain(x, nfft, hop, window, mel_fb, dct,
+                                log_epsilon, None)
     else:
-        fast = lambda xv: _sk.stft_mfcc(xv, nfft, hop, window, mel_fb, bands,
-                                        dct, log_epsilon, algorithm)
-    return kernel_with_torch_vjp(
-        fast,
-        lambda xv: _sk.stft_mfcc_plain(xv, nfft, hop, window, mel_fb, dct,
-                                       log_epsilon, "f32"),
-    )(x)
+        if route == "full_nfft":
+            # the JAX package's full-nfft route takes no tier: float32
+            fast = lambda xv: _stk.stft_mel_stockham(xv, nfft, hop, window,
+                                                     mel_fb, bands, dct,
+                                                     log_epsilon)
+        else:
+            fast = lambda xv: _sk.stft_mfcc(xv, nfft, hop, window, mel_fb,
+                                            bands, dct, log_epsilon,
+                                            algorithm)
+        y = kernel_with_torch_vjp(
+            fast,
+            lambda xv: _sk.stft_mfcc_plain(xv, nfft, hop, window, mel_fb, dct,
+                                           log_epsilon, "f32"),
+        )(x)
+    return y if restore is None else restore(y, 2)
 
 
 def mfcc_stft(x: torch.Tensor, nfft: int, hop: int, n_mels: int,

@@ -46,6 +46,7 @@ from vv_dsp_tpu_torch.ops.packed import PackedSpectrum
 from vv_dsp_tpu_torch.ops.window import get_window, get_window_np
 from vv_dsp_tpu_torch.utils import profiling
 from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
+from vv_dsp_tpu_torch.utils.shapes import collapse_leading
 
 
 @functools.lru_cache(maxsize=32)
@@ -115,10 +116,9 @@ class STFT:
         runs): ``stft`` around the call."""
         with profiling.span("stft"):
             x = self._signal(x)
-            lead = None
+            restore = None
             if x.ndim != 2 and not x.is_complex():
-                lead = x.shape[:-1]
-                x = x.reshape(-1, x.shape[-1])
+                x, restore = collapse_leading(x)
             win = self.win(x.device)
             route = spectrum_route(self.nfft, self.hop, x.is_complex())
             if route == "torch":
@@ -133,27 +133,28 @@ class STFT:
                     lambda xv: _sk.stft_spectrum_plain(xv, self.nfft, self.hop,
                                                        win, onesided=rfft),
                 )(x)
-            return y if lead is None else y.reshape(lead + y.shape[-2:])
+            return y if restore is None else restore(y, 2)
 
     def power(self, x: torch.Tensor) -> torch.Tensor:
         """One-sided power spectrogram |rfft(w * frame)|^2, the complex
         spectrum never in device memory: (..., n) -> (..., frames,
         nfft//2+1)."""
         x = self._signal(x)
+        restore = None
         if x.ndim != 2 and not x.is_complex():
-            lead = x.shape[:-1]
-            y = self.power(x.reshape(-1, x.shape[-1]))
-            return y.reshape(lead + y.shape[-2:])
+            x, restore = collapse_leading(x)
         win = self.win(x.device)
         route = power_route(self.nfft, self.hop, x.is_complex())
         if route == "torch":
-            return _sk.stft_power_plain(x, self.nfft, self.hop, win)
-        power = (_stk.stft_power_stockham if route == "full_nfft"
-                 else _sk.stft_power)
-        return kernel_with_torch_vjp(
-            lambda xv: power(xv, self.nfft, self.hop, win),
-            lambda xv: _sk.stft_power_plain(xv, self.nfft, self.hop, win),
-        )(x)
+            y = _sk.stft_power_plain(x, self.nfft, self.hop, win)
+        else:
+            power = (_stk.stft_power_stockham if route == "full_nfft"
+                     else _sk.stft_power)
+            y = kernel_with_torch_vjp(
+                lambda xv: power(xv, self.nfft, self.hop, win),
+                lambda xv: _sk.stft_power_plain(xv, self.nfft, self.hop, win),
+            )(x)
+        return y if restore is None else restore(y, 2)
 
     def power_parts(self, x: torch.Tensor, nf: int | None = None):
         """(re, im) of the windowed rfft, framing-free, for hop | nfft:
@@ -205,11 +206,9 @@ class STFT:
         half spectrum in its rfft=True form; where hop divides a power of
         two nfft in [256, 4096], the packed inverse; elsewhere the plain
         version (irfft, then the deterministic overlap-add)."""
-        if spec.ndim != 3:
-            lead = spec.shape[:-2]
-            out = self.reconstruct(spec.reshape((-1,) + spec.shape[-2:]),
-                                   output_len, rfft)
-            return out.reshape(lead + out.shape[-1:])
+        lead = spec.shape[:-2]
+        if spec.ndim != 3:     # a 1-D spectrum is one frame
+            spec = spec.reshape((-1,) + torch.atleast_2d(spec).shape[-2:])
         m = self.nfft // 2
         bins = m + 1 if rfft else self.nfft
         if spec.shape[-1] != bins:
@@ -220,20 +219,19 @@ class STFT:
         win = self.win(spec.device)
         norm = self._norm(spec.shape[-2], output_len, spec.device)
         route = inverse_route(self.nfft, self.hop)
+        plain = lambda sp: _ik.istft_plain(sp, self.nfft, self.hop,
+                                           output_len, win, norm)
         if route == "torch":
-            return _ik.istft_plain(half, self.nfft, self.hop, output_len,
-                                   win, norm)
-        if route == "full_nfft":
-            fast = lambda sp: _stk.istft_stockham(
-                sp, self.nfft, self.hop, output_len, win, norm, rfft=True)
+            out = plain(half)
         else:
-            fast = lambda sp: _ik.istft(sp, self.nfft, self.hop, output_len,
-                                        win, norm)
-        return kernel_with_torch_vjp(
-            fast,
-            lambda sp: _ik.istft_plain(sp, self.nfft, self.hop, output_len,
-                                       win, norm),
-        )(half)
+            if route == "full_nfft":
+                fast = lambda sp: _stk.istft_stockham(
+                    sp, self.nfft, self.hop, output_len, win, norm, rfft=True)
+            else:
+                fast = lambda sp: _ik.istft(sp, self.nfft, self.hop,
+                                            output_len, win, norm)
+            out = kernel_with_torch_vjp(fast, plain)(half)
+        return out.reshape(lead + out.shape[-1:])
 
     def reconstruct_parts(self, re: torch.Tensor, im: torch.Tensor,
                           output_len: int) -> torch.Tensor:

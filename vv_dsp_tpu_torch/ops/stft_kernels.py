@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from vv_dsp_tpu_torch import _build, config
+from vv_dsp_tpu_torch._build import ptr
 from vv_dsp_tpu_torch.ops import fft as _fft
 from vv_dsp_tpu_torch.ops import fft_plan, mma_plan
 from vv_dsp_tpu_torch.ops.framing import frames_strided, stft_num_frames
@@ -71,17 +72,17 @@ def _fft_tables(nfft: int, device: torch.device):
             torch.as_tensor(wk, device=device))
 
 
-def _check_signal(x: torch.Tensor, window: torch.Tensor, nfft: int,
-                  hop: int, name: str) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.ndim != 2:
-        raise ValueError(f"{name} expects (channels, n)")
-    _build.require(x, "x", x.device)
+def require_frames(op: str, x: torch.Tensor, window: torch.Tensor,
+                   nfft: int, hop: int, supported=stft_supported,
+                   name: str = "x", ndim: int = 2, dtype=None) -> None:
+    """The STFT kernels' refusal: raise unless x is rows op's entry takes
+    (``_build.require_rows``), window an (nfft,) float32 tensor on x's
+    device and supported(nfft, hop)."""
+    _build.require_rows(x, op, name, ndim, dtype)
     _build.require(window, "window", x.device, (nfft,))
-    if not stft_supported(nfft, hop):
-        raise ValueError(f"{name}: unsupported geometry nfft={nfft} "
-                         f"hop={hop}; check stft_supported()")
+    if not supported(nfft, hop):
+        raise ValueError(f"{op}: unsupported geometry nfft={nfft} hop={hop}; "
+                         f"check {supported.__name__}()")
 
 
 def stft_spectrum_plain(x: torch.Tensor, nfft: int, hop: int,
@@ -96,6 +97,7 @@ def stft_spectrum_plain(x: torch.Tensor, nfft: int, hop: int,
     return _fft.fft(frames)
 
 
+@_build.counted
 def stft_spectrum(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
                   onesided: bool = False) -> torch.Tensor:
     """(c, n) float32 -> (c, frames, nfft) complex64 (two-sided, the
@@ -103,27 +105,19 @@ def stft_spectrum(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
     if x.device.type == "cpu":
         return stft_spectrum_plain(x, nfft, hop, window, onesided)
     with profiling.span("kernel.stft_spectrum"):
-        _check_signal(x, window, nfft, hop, "stft_spectrum")
+        require_frames("stft_spectrum", x, window, nfft, hop)
         c, n = x.shape
-        chunks = _build.row_chunks(c)
         nf = stft_num_frames(n, nfft, hop)
         bins = nfft // 2 + 1 if onesided else nfft
         out = torch.empty((c, nf, bins), dtype=torch.complex64,
                           device=x.device)
         tw = fft_plan.pass_twiddles(nfft // 2, x.device)
         wk = _fft_tables(nfft, x.device)[1]
-        lib = _build.library()
-        for r0, rows in chunks:
-            err = lib.vv_stft_spectrum(
-                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-                _build.ptr(wk), _build.ptr(out, r0), rows, n, nf, nfft, hop,
-                bins, x.device.index, _build.stream_handle(x))
-            _build.check(err, "stft_spectrum")
-            stft_spectrum.launches += 1
+        lib, dev, stream = _build.target(x)
+        _build.launch(stft_spectrum, c, lambda r0, k: lib.vv_stft_spectrum(
+            ptr(x, r0), ptr(window), ptr(tw), ptr(wk), ptr(out, r0), k, n,
+            nf, nfft, hop, bins, dev, stream))
         return out
-
-
-stft_spectrum.launches = 0
 
 
 def stft_power_plain(x: torch.Tensor, nfft: int, hop: int,
@@ -134,6 +128,7 @@ def stft_power_plain(x: torch.Tensor, nfft: int, hop: int,
     return spec.real * spec.real + spec.imag * spec.imag
 
 
+@_build.counted
 def stft_power(x: torch.Tensor, nfft: int, hop: int,
                window: torch.Tensor) -> torch.Tensor:
     """(c, n) float32 -> (c, frames, nfft//2+1) float32 one-sided power in
@@ -143,26 +138,18 @@ def stft_power(x: torch.Tensor, nfft: int, hop: int,
     if x.device.type == "cpu":
         return stft_power_plain(x, nfft, hop, window)
     with profiling.span("kernel.stft_power"):
-        _check_signal(x, window, nfft, hop, "stft_power")
+        require_frames("stft_power", x, window, nfft, hop)
         c, n = x.shape
-        chunks = _build.row_chunks(c)
         nf = stft_num_frames(n, nfft, hop)
         out = torch.empty((c, nf, nfft // 2 + 1), dtype=torch.float32,
                           device=x.device)
         tw = fft_plan.pass_twiddles(nfft // 2, x.device)
         wk = _fft_tables(nfft, x.device)[1]
-        lib = _build.library()
-        for r0, rows in chunks:
-            err = lib.vv_stft_power(
-                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-                _build.ptr(wk), _build.ptr(out, r0), rows, n, nf, nfft, hop,
-                x.device.index, _build.stream_handle(x))
-            _build.check(err, "stft_power")
-            stft_power.launches += 1
+        lib, dev, stream = _build.target(x)
+        _build.launch(stft_power, c, lambda r0, k: lib.vv_stft_power(
+            ptr(x, r0), ptr(window), ptr(tw), ptr(wk), ptr(out, r0), k, n,
+            nf, nfft, hop, dev, stream))
         return out
-
-
-stft_power.launches = 0
 
 
 def stft_mfcc_plain(x: torch.Tensor, nfft: int, hop: int,
@@ -218,6 +205,7 @@ def _mel_tables(mel_fb: torch.Tensor, bands: torch.Tensor):
     return hit[3]
 
 
+@_build.counted
 def stft_mfcc(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
               mel_fb: torch.Tensor, bands: torch.Tensor,
               dct: torch.Tensor | None = None, log_eps: float = 1e-10,
@@ -237,7 +225,7 @@ def stft_mfcc(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
         return stft_mfcc_plain(x, nfft, hop, window, mel_fb, dct, log_eps,
                                algorithm)
     with profiling.span("kernel.stft_mfcc"):
-        _check_signal(x, window, nfft, hop, "stft_mfcc")
+        require_frames("stft_mfcc", x, window, nfft, hop)
         n_mels = mel_fb.shape[0]
         _build.require(mel_fb, "mel_fb", x.device, (n_mels, nfft // 2 + 1))
         _build.require(bands, "bands", x.device, (2, n_mels), torch.int32)
@@ -246,7 +234,6 @@ def stft_mfcc(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
             n_out = dct.shape[0]
             _build.require(dct, "dct", x.device, (n_out, n_mels))
         c, n = x.shape
-        chunks = _build.row_chunks(c)
         nf = stft_num_frames(n, nfft, hop)
         weights, index = _mel_tables(mel_fb, bands)
         plan = fft_plan.mfcc_plan(nfft, n_mels, n_out, weights.numel(),
@@ -254,23 +241,14 @@ def stft_mfcc(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
         out = torch.empty((c, nf, n_out), dtype=torch.float32, device=x.device)
         tw = fft_plan.pass_twiddles(nfft // 2, x.device)
         wk = _fft_tables(nfft, x.device)[1]
-        lib = _build.library()
-        for r0, rows in chunks:
-            err = lib.vv_stft_mfcc(
-                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-                _build.ptr(wk), _build.ptr(weights), _build.ptr(index),
-                _build.ptr(dct if dct is not None else weights),
-                _build.ptr(out, r0), rows, n, nf, nfft, hop, n_mels, n_out,
-                weights.numel(), float(log_eps),
-                config.ALGORITHMS.index(algorithm), int(dct is not None),
-                int(plan.staged), plan.smem, x.device.index,
-                _build.stream_handle(x))
-            _build.check(err, "stft_mfcc")
-            stft_mfcc.launches += 1
+        lib, dev, stream = _build.target(x)
+        _build.launch(stft_mfcc, c, lambda r0, k: lib.vv_stft_mfcc(
+            ptr(x, r0), ptr(window), ptr(tw), ptr(wk), ptr(weights),
+            ptr(index), ptr(dct if dct is not None else weights), ptr(out, r0),
+            k, n, nf, nfft, hop, n_mels, n_out, weights.numel(),
+            float(log_eps), config.ALGORITHMS.index(algorithm),
+            int(dct is not None), int(plan.staged), plan.smem, dev, stream))
         return out
-
-
-stft_mfcc.launches = 0
 
 
 @functools.lru_cache(maxsize=16)
@@ -352,6 +330,7 @@ def _dft_parts_on(nfft: int, window: str, param, device: torch.device):
                            device=device).to(torch.bfloat16).contiguous()
 
 
+@_build.counted
 def stft_power_dft(x: torch.Tensor, nfft: int, hop: int,
                    window: str = "hann", window_param=None,
                    n_frames: int | None = None) -> torch.Tensor:
@@ -369,13 +348,8 @@ def stft_power_dft(x: torch.Tensor, nfft: int, hop: int,
         return stft_power_dft_plain(x, nfft, hop, window, window_param,
                                     n_frames)
     with profiling.span("kernel.stft_power_dft"):
-        if x.device.type != "cuda":
-            raise ValueError(f"stft_power_dft: unsupported device {x.device}")
-        if x.ndim != 2:
-            raise ValueError("stft_power_dft expects (channels, n)")
-        _build.require(x, "x", x.device)
+        _build.require_rows(x, "stft_power_dft")
         c, n = x.shape
-        chunks = _build.row_chunks(c)
         if n_frames is None:
             n_frames = stft_num_frames(n, nfft, hop)
         if n_frames < 1:
@@ -385,15 +359,9 @@ def stft_power_dft(x: torch.Tensor, nfft: int, hop: int,
         bparts = _dft_parts_on(nfft, window, window_param, x.device)
         out = torch.empty((c, n_frames, bins), dtype=torch.float32,
                           device=x.device)
-        lib = _build.library()
-        for r0, rows in chunks:
-            err = lib.vv_dft_power(
-                _build.ptr(x, r0), _build.ptr(bparts), _build.ptr(out, r0),
-                rows, n, n_frames, nfft, hop, bins, mma_plan.dft_cols(nfft),
-                plan.tiles, plan.smem, x.device.index, _build.stream_handle(x))
-            _build.check(err, "stft_power_dft")
-            stft_power_dft.launches += 1
+        lib, dev, stream = _build.target(x)
+        _build.launch(stft_power_dft, c, lambda r0, k: lib.vv_dft_power(
+            ptr(x, r0), ptr(bparts), ptr(out, r0), k, n, n_frames, nfft,
+            hop, bins, mma_plan.dft_cols(nfft), plan.tiles, plan.smem, dev,
+            stream))
         return out
-
-
-stft_power_dft.launches = 0

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from vv_dsp_tpu_torch import _build
+from vv_dsp_tpu_torch._build import ptr
 from vv_dsp_tpu_torch.ops import fft as _fft
 from vv_dsp_tpu_torch.ops import fft_plan
 from vv_dsp_tpu_torch.ops import istft_kernels as _ik
@@ -71,23 +72,11 @@ def takes_stockham_128(nfft: int, hop: int) -> bool:
     return nfft == 128 and stockham_supported(nfft, hop)
 
 
-def _check_signal(x: torch.Tensor, window: torch.Tensor, nfft: int,
-                  hop: int, name: str, supported=stockham_supported) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.ndim != 2:
-        raise ValueError(f"{name} expects (channels, n)")
-    _build.require(x, "x", x.device)
-    _build.require(window, "window", x.device, (nfft,))
-    if not supported(nfft, hop):
-        raise ValueError(f"{name}: unsupported geometry nfft={nfft} "
-                         f"hop={hop}; check {supported.__name__}()")
-
-
 stft_spectrum_stockham_plain = _sk.stft_spectrum_plain
 stft_power_stockham_plain = _sk.stft_power_plain
 
 
+@_build.counted
 def stft_spectrum_stockham(x: torch.Tensor, nfft: int, hop: int,
                            window: torch.Tensor,
                            onesided: bool = False) -> torch.Tensor:
@@ -96,28 +85,23 @@ def stft_spectrum_stockham(x: torch.Tensor, nfft: int, hop: int,
     if x.device.type == "cpu":
         return stft_spectrum_stockham_plain(x, nfft, hop, window, onesided)
     with profiling.span("kernel.stft_spectrum_stockham"):
-        _check_signal(x, window, nfft, hop, "stft_spectrum_stockham")
+        _sk.require_frames("stft_spectrum_stockham", x, window, nfft, hop,
+                           stockham_supported)
         c, n = x.shape
-        chunks = _build.row_chunks(c)
         nf = stft_num_frames(n, nfft, hop)
         bins = nfft // 2 + 1 if onesided else nfft
         out = torch.empty((c, nf, bins), dtype=torch.complex64,
                           device=x.device)
         tw = fft_plan.pass_twiddles(nfft, x.device)
-        lib = _build.library()
-        for r0, rows in chunks:
-            err = lib.vv_stockham_spectrum(
-                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-                _build.ptr(out, r0), rows, n, nf, nfft, hop, bins,
-                x.device.index, _build.stream_handle(x))
-            _build.check(err, "stft_spectrum_stockham")
-            stft_spectrum_stockham.launches += 1
+        lib, dev, stream = _build.target(x)
+        _build.launch(stft_spectrum_stockham, c, lambda r0, k:
+                      lib.vv_stockham_spectrum(
+                          ptr(x, r0), ptr(window), ptr(tw), ptr(out, r0), k,
+                          n, nf, nfft, hop, bins, dev, stream))
         return out
 
 
-stft_spectrum_stockham.launches = 0
-
-
+@_build.counted
 def stft_power_stockham(x: torch.Tensor, nfft: int, hop: int,
                         window: torch.Tensor) -> torch.Tensor:
     """(c, n) float32 -> (c, frames, nfft//2+1) float32 one-sided power in
@@ -125,25 +109,19 @@ def stft_power_stockham(x: torch.Tensor, nfft: int, hop: int,
     if x.device.type == "cpu":
         return stft_power_stockham_plain(x, nfft, hop, window)
     with profiling.span("kernel.stft_power_stockham"):
-        _check_signal(x, window, nfft, hop, "stft_power_stockham")
+        _sk.require_frames("stft_power_stockham", x, window, nfft, hop,
+                           stockham_supported)
         c, n = x.shape
-        chunks = _build.row_chunks(c)
         nf = stft_num_frames(n, nfft, hop)
         out = torch.empty((c, nf, nfft // 2 + 1), dtype=torch.float32,
                           device=x.device)
         tw = fft_plan.pass_twiddles(nfft, x.device)
-        lib = _build.library()
-        for r0, rows in chunks:
-            err = lib.vv_stockham_power(
-                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-                _build.ptr(out, r0), rows, n, nf, nfft, hop, x.device.index,
-                _build.stream_handle(x))
-            _build.check(err, "stft_power_stockham")
-            stft_power_stockham.launches += 1
+        lib, dev, stream = _build.target(x)
+        _build.launch(stft_power_stockham, c, lambda r0, k:
+                      lib.vv_stockham_power(
+                          ptr(x, r0), ptr(window), ptr(tw), ptr(out, r0), k,
+                          n, nf, nfft, hop, dev, stream))
         return out
-
-
-stft_power_stockham.launches = 0
 
 
 def stft_mel_stockham_plain(x: torch.Tensor, nfft: int, hop: int,
@@ -155,6 +133,7 @@ def stft_mel_stockham_plain(x: torch.Tensor, nfft: int, hop: int,
                                "f32")
 
 
+@_build.counted
 def stft_mel_stockham(x: torch.Tensor, nfft: int, hop: int,
                       window: torch.Tensor, mel_fb: torch.Tensor,
                       bands: torch.Tensor, dct: torch.Tensor | None = None,
@@ -170,7 +149,8 @@ def stft_mel_stockham(x: torch.Tensor, nfft: int, hop: int,
         return stft_mel_stockham_plain(x, nfft, hop, window, mel_fb, dct,
                                        log_eps)
     with profiling.span("kernel.stft_mel_stockham"):
-        _check_signal(x, window, nfft, hop, "stft_mel_stockham")
+        _sk.require_frames("stft_mel_stockham", x, window, nfft, hop,
+                           stockham_supported)
         n_mels = mel_fb.shape[0]
         _build.require(mel_fb, "mel_fb", x.device, (n_mels, nfft // 2 + 1))
         _build.require(bands, "bands", x.device, (2, n_mels), torch.int32)
@@ -179,29 +159,19 @@ def stft_mel_stockham(x: torch.Tensor, nfft: int, hop: int,
             n_out = dct.shape[0]
             _build.require(dct, "dct", x.device, (n_out, n_mels))
         c, n = x.shape
-        chunks = _build.row_chunks(c)
         nf = stft_num_frames(n, nfft, hop)
         weights, index = _sk._mel_tables(mel_fb, bands)
         plan = fft_plan.stockham_mel_plan(nfft, n_mels, n_out, weights.numel(),
                                           dct is not None)
         out = torch.empty((c, nf, n_out), dtype=torch.float32, device=x.device)
         tw = fft_plan.pass_twiddles(nfft, x.device)
-        lib = _build.library()
-        for r0, rows in chunks:
-            err = lib.vv_stockham_mel(
-                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-                _build.ptr(weights), _build.ptr(index),
-                _build.ptr(dct if dct is not None else weights),
-                _build.ptr(out, r0), rows, n, nf, nfft, hop, n_mels, n_out,
-                weights.numel(), float(log_eps), int(dct is not None),
-                int(plan.staged), plan.smem, x.device.index,
-                _build.stream_handle(x))
-            _build.check(err, "stft_mel_stockham")
-            stft_mel_stockham.launches += 1
+        lib, dev, stream = _build.target(x)
+        _build.launch(stft_mel_stockham, c, lambda r0, k: lib.vv_stockham_mel(
+            ptr(x, r0), ptr(window), ptr(tw), ptr(weights), ptr(index),
+            ptr(dct if dct is not None else weights), ptr(out, r0), k, n, nf,
+            nfft, hop, n_mels, n_out, weights.numel(), float(log_eps),
+            int(dct is not None), int(plan.staged), plan.smem, dev, stream))
         return out
-
-
-stft_mel_stockham.launches = 0
 
 
 def stft_gate_stockham_plain(x: torch.Tensor, nfft: int, hop: int,
@@ -216,6 +186,7 @@ def stft_gate_stockham_plain(x: torch.Tensor, nfft: int, hop: int,
     return _ik.overlap_add_normalized(time, window, hop, x.shape[-1], norm)
 
 
+@_build.counted
 def stft_gate_stockham(x: torch.Tensor, nfft: int, hop: int,
                        window: torch.Tensor, norm: torch.Tensor,
                        threshold: float) -> torch.Tensor:
@@ -228,27 +199,21 @@ def stft_gate_stockham(x: torch.Tensor, nfft: int, hop: int,
         return stft_gate_stockham_plain(x, nfft, hop, window, norm,
                                         threshold)
     with profiling.span("kernel.stft_gate_stockham"):
-        _check_signal(x, window, nfft, hop, "stft_gate_stockham",
-                      stockham_gate_supported)
+        _sk.require_frames("stft_gate_stockham", x, window, nfft, hop,
+                           stockham_gate_supported)
         c, n = x.shape
-        chunks = _build.row_chunks(c)
         _build.require(norm, "norm", x.device, (n,))
         out = torch.empty_like(x)
+        nf = stft_num_frames(n, nfft, hop)
         tw = fft_plan.pass_twiddles(nfft, x.device)
-        lib = _build.library()
-        for r0, rows in chunks:
-            err = lib.vv_stockham_gate(
-                _build.ptr(x, r0), _build.ptr(window), _build.ptr(tw),
-                _build.ptr(norm), _build.ptr(out, r0), rows, n,
-                stft_num_frames(n, nfft, hop), nfft, hop,
-                float(threshold) ** 2, fft_plan.stockham_gate_smem(nfft, hop),
-                x.device.index, _build.stream_handle(x))
-            _build.check(err, "stft_gate_stockham")
-            stft_gate_stockham.launches += 1
+        smem = fft_plan.stockham_gate_smem(nfft, hop)
+        lib, dev, stream = _build.target(x)
+        _build.launch(stft_gate_stockham, c, lambda r0, k:
+                      lib.vv_stockham_gate(
+                          ptr(x, r0), ptr(window), ptr(tw), ptr(norm),
+                          ptr(out, r0), k, n, nf, nfft, hop,
+                          float(threshold) ** 2, smem, dev, stream))
         return out
-
-
-stft_gate_stockham.launches = 0
 
 
 def istft_stockham_plain(spec: torch.Tensor, nfft: int, hop: int,
@@ -263,6 +228,7 @@ def istft_stockham_plain(spec: torch.Tensor, nfft: int, hop: int,
     return _ik.overlap_add_normalized(time, window, hop, output_len, norm)
 
 
+@_build.counted
 def istft_stockham(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
                    window: torch.Tensor, norm: torch.Tensor,
                    rfft: bool = False) -> torch.Tensor:
@@ -284,36 +250,18 @@ def istft_stockham(spec: torch.Tensor, nfft: int, hop: int, output_len: int,
         return istft_stockham_plain(spec, nfft, hop, output_len, window, norm,
                                     rfft)
     with profiling.span("kernel.istft_stockham"):
-        if spec.device.type != "cuda":
-            raise ValueError(f"istft_stockham: unsupported device "
-                             f"{spec.device}")
-        if spec.ndim != 3:
-            raise ValueError("istft_stockham expects (channels, frames, bins)")
-        if not stockham_supported(nfft, hop):
-            raise ValueError(f"istft_stockham: unsupported geometry "
-                             f"nfft={nfft} hop={hop}; check "
-                             f"stockham_supported()")
+        _sk.require_frames("istft_stockham", spec, window, nfft, hop,
+                           stockham_supported, "spec", 3, torch.complex64)
         c, nf, _ = spec.shape
-        chunks = _build.row_chunks(c)
         if output_len < 1:
             raise ValueError(f"output_len must be positive, got {output_len}")
-        _build.require(spec, "spec", spec.device, (c, nf, bins),
-                       torch.complex64)
-        _build.require(window, "window", spec.device, (nfft,))
         _build.require(norm, "norm", spec.device, (output_len,))
         out = torch.empty((c, output_len), dtype=torch.float32,
                           device=spec.device)
         tw = fft_plan.pass_twiddles(nfft, spec.device)
-        lib = _build.library()
-        for r0, rows in chunks:
-            err = lib.vv_istft_stockham(
-                _build.ptr(spec, r0), _build.ptr(window), _build.ptr(tw),
-                _build.ptr(norm), _build.ptr(out, r0), rows, nf, nfft, hop,
-                bins, output_len, fft_plan.istft_smem(nfft, hop),
-                spec.device.index, _build.stream_handle(spec))
-            _build.check(err, "istft_stockham")
-            istft_stockham.launches += 1
+        smem = fft_plan.istft_smem(nfft, hop)
+        lib, dev, stream = _build.target(spec)
+        _build.launch(istft_stockham, c, lambda r0, k: lib.vv_istft_stockham(
+            ptr(spec, r0), ptr(window), ptr(tw), ptr(norm), ptr(out, r0), k,
+            nf, nfft, hop, bins, output_len, smem, dev, stream))
         return out
-
-
-istft_stockham.launches = 0

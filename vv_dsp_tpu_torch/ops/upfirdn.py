@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from vv_dsp_tpu_torch import _build, config
+from vv_dsp_tpu_torch._build import ptr
 from vv_dsp_tpu_torch.ops import mma_plan
 from vv_dsp_tpu_torch.utils import profiling
 
@@ -144,6 +145,7 @@ def upfirdn_tall(x: torch.Tensor, taps: torch.Tensor, up: int, down: int,
     return y.reshape(x.shape[:-1] + (k_frames * u,))[..., :n_out]
 
 
+@_build.counted
 def upfirdn_banded(x: torch.Tensor, taps: torch.Tensor, up: int, down: int,
                    offset: int, n_out: int,
                    algorithm: str | None = None) -> torch.Tensor:
@@ -153,21 +155,16 @@ def upfirdn_banded(x: torch.Tensor, taps: torch.Tensor, up: int, down: int,
     tile layout (B resident, or streamed in depth chunks for long filters)
     and B's bf16 parts, cached per table; the kernel entry refuses a
     geometry it cannot run (up, down or taps_pp < 1, offset < 0). Rows
-    beyond 65,535 take one launch a run of 65,535 (``_build.row_chunks``).
+    beyond 65,535 take one launch a run of 65,535 (``_build.launch``).
     """
     algorithm = config.dot_algorithm(algorithm)
     if x.device.type == "cpu":
         return upfirdn_tall(x, taps, up, down, offset, n_out, algorithm)
     with profiling.span("kernel.upfirdn_banded"):
-        if x.device.type != "cuda":
-            raise ValueError(f"upfirdn_banded: unsupported device {x.device}")
-        if x.ndim != 2:
-            raise ValueError("upfirdn_banded expects (channels, n)")
+        _build.require_rows(x, "upfirdn_banded")
         taps_pp = taps.shape[-1]
-        _build.require(x, "x", x.device)
         _build.require(taps, "taps", x.device, (up, taps_pp))
         c, n_in = x.shape
-        chunks = _build.row_chunks(c)
         y = torch.empty((c, n_out), dtype=torch.float32, device=x.device)
         if n_out == 0:
             return y
@@ -175,18 +172,10 @@ def upfirdn_banded(x: torch.Tensor, taps: torch.Tensor, up: int, down: int,
             _build.check(_EINVAL, "upfirdn_banded")
         p = mma_plan.upfirdn_plan(up, down, taps_pp, offset, algorithm)
         bparts = mma_plan.band_parts(taps, p, algorithm)
-        lib = _build.library()
-        for r0, rows in chunks:
-            err = lib.vv_upfirdn(
-                _build.ptr(x, r0), _build.ptr(bparts), _build.ptr(y, r0), rows,
-                n_in, n_out, up, down, offset, taps_pp, p.n_real, p.n_tiles,
-                p.n_pad, p.stride, p.k_pad, p.k_chunk, p.m_tiles, p.a_pitch,
-                p.win, p.flush, p.smem, p.c_lo,
-                config.ALGORITHMS.index(algorithm), x.device.index,
-                _build.stream_handle(x))
-            _build.check(err, "upfirdn_banded")
-            upfirdn_banded.launches += 1
+        lib, dev, stream = _build.target(x)
+        _build.launch(upfirdn_banded, c, lambda r0, k: lib.vv_upfirdn(
+            ptr(x, r0), ptr(bparts), ptr(y, r0), k, n_in, n_out, up, down,
+            offset, taps_pp, p.n_real, p.n_tiles, p.n_pad, p.stride, p.k_pad,
+            p.k_chunk, p.m_tiles, p.a_pitch, p.win, p.flush, p.smem, p.c_lo,
+            config.ALGORITHMS.index(algorithm), dev, stream))
         return y
-
-
-upfirdn_banded.launches = 0

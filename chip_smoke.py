@@ -462,10 +462,14 @@ def usage_text(log: list[str], tag: str) -> str:
             f"{got.get('static smem', 0)} bytes static shared memory")
 
 
-def ptxas_usage(log: list[str], kernel: str, n: int, onesided: bool) -> str:
+def ptxas_usage(log: list[str], kernel: str, n: int, onesided: bool,
+                lead: bool | None = None) -> str:
     """ptxas's figures of one instance of a spectrum kernel template
-    <N, ONESIDED>."""
-    return usage_text(log, f"{kernel}ILi{n}ELb{int(onesided)}E")
+    <N, ONESIDED>, or <N, ONESIDED, LEAD> where lead is given."""
+    tag = f"{kernel}ILi{n}ELb{int(onesided)}E"
+    if lead is not None:
+        tag += f"Lb{int(lead)}E"
+    return usage_text(log, tag)
 
 
 # kernels whose instances may not spill: the two tensor-core kernels
@@ -503,14 +507,17 @@ def checked_spills(log: list[str]) -> list[str]:
     return spills
 
 
-def redesign_line(name, label, r, log, kernel, n, onesided, smem) -> None:
+def redesign_line(name, label, r, log, kernel, n, onesided, smem,
+                  lead=None) -> None:
     """The redesigned spectrum kernels' row: kernel, torch.stft and bound
-    ms, the bound's share of the kernel time, and what ptxas gave it."""
+    ms, the bound's share of the kernel time, and what ptxas gave it (the
+    instance without LEAD where lead is False)."""
     print(f"  redesign {name} [{label}]: kernel {r['ms']:.4f} ms, torch.stft "
           f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x), "
           f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share of the "
           f"bound {r['bound_ms'] / r['ms']:.3f}; build.log: "
-          f"{ptxas_usage(log, kernel, n, onesided)}; dynamic shared memory "
+          f"{ptxas_usage(log, kernel, n, onesided, lead)}; dynamic shared "
+          f"memory "
           f"{smem} bytes a block (the launcher's request)")
 
 
@@ -703,6 +710,32 @@ def record(name, label, got, want, tol, fast, plain, failed: list,
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def edge_pad_row(xc, failed: list, log: list[str]) -> dict:
+    """SpectralGate's one-sided spectrum of its edge-padded rows: the
+    kernel's LEAD instance reading the pad in place beside the kernel on
+    F.pad's padded copy (the copy's fill and write timed with it), which
+    must give the same bits, and the LEAD instance's ptxas figures."""
+    from vv_dsp_tpu_torch.ops import stft_kernels as sk
+    from vv_dsp_tpu_torch.ops.stft import STFT
+
+    pad = NFFT - HOP
+    win = STFT(NFFT, HOP).win(xc.device)
+    lead = lambda: sk.stft_spectrum(xc, NFFT, HOP, win, True, pad=pad)
+    padded = lambda: sk.stft_spectrum(
+        torch.nn.functional.pad(xc, (pad, pad)), NFFT, HOP, win, True)
+    same = torch.equal(torch.view_as_real(lead()).view(torch.int32),
+                       torch.view_as_real(padded()).view(torch.int32))
+    lead_ms, padded_ms = cuda_ms(lead), cuda_ms(padded)
+    print(f"  stft_spectrum [{NFFT}/{HOP} one-sided, edge pad {pad} on "
+          f"{tuple(xc.shape)}]: LEAD instance {lead_ms:.4f} ms, F.pad + "
+          f"kernel {padded_ms:.4f} ms ({padded_ms / lead_ms:.2f}x), "
+          f"bit-identical {same}; build.log: "
+          f"{ptxas_usage(log, 'stft_spectrum_kernel', NFFT // 2, True, True)}")
+    if not same:
+        failed.append(f"stft_spectrum [edge pad {pad}]")
+    return {"edge_pad_ms": lead_ms, "edge_pad_padded_ms": padded_ms}
+
+
 def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
     """Each kernel against its plain version at the main path's shapes
     (the MFCC kernel at the chain's and at MFCCFrontend's geometry)."""
@@ -856,12 +889,13 @@ def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
         redesign_line("stft_spectrum", f"{NFFT}/{HOP} "
                       f"{'one' if onesided else 'two'}-sided", r, log,
                       "stft_spectrum_kernel", NFFT // 2, onesided,
-                      fr_smem(NFFT // 2, True))
+                      fr_smem(NFFT // 2, True), lead=False)
         if not onesided:
             results["stft_spectrum"] = r
         else:
             results["stft_spectrum"].update(
                 {f"onesided_{k}": v for k, v in r.items()})
+    results["stft_spectrum"].update(edge_pad_row(xc, failed, log))
     # the ends of the packed kernel's range, N = 128 and 2048, on 2 channels
     for nfft, hop in ((256, 64), (4096, 1024)):
         w = STFT(nfft, hop).win(xs.device)
@@ -2146,8 +2180,9 @@ def route_checks(routes, outs) -> None:
 
 def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
     """Drive every entry point of the slice once, each with the launch
-    counters and the fused head's ``tails_in_place`` zeroed just before it
-    and read just after, then check and time them. Returns each kernel's
+    counters, the fused head's ``tails_in_place`` and the spectrum's
+    ``edge_pads`` zeroed just before it and read just after (one edge pad
+    for SpectralGate, none elsewhere), then check and time them. Returns each kernel's
     launches summed over the paths."""
     from vv_dsp_tpu_torch.models import SpectralGate
     from vv_dsp_tpu_torch.ops import filter_kernels as fk
@@ -2253,23 +2288,31 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
         ("stft_1024_256_spectrogram", lambda: plan.spectrogram(xs),
          {"stft_spectrum": 1}, N_STFT))
     paths += tuple(p[:3] for p in last_paths)
-    # the fused head's staged tails, each written into the head's buffer
+    # the fused head's staged tails, each written into the head's buffer,
+    # and the spectrum launches that read an edge pad in place
     tails = {"chain": 1, "route fir_resample_fused 4/3, refused head": 1}
+    edge_pads = {"SpectralGate": 1}
     outs, launches = {}, dict.fromkeys(counters, 0)
     for name, fn, want in paths:
         for counted in counters.values():
             counted.launches = 0
         rs.fir_resample_fused.tails_in_place = 0
+        sk.stft_spectrum.edge_pads = 0
         outs[name] = fn()
         torch.cuda.synchronize()
         got = {k: f.launches for k, f in counters.items() if f.launches}
         in_place = rs.fir_resample_fused.tails_in_place
-        print(f"launches [{name}]: {got}, tails in place {in_place}")
+        pads = sk.stft_spectrum.edge_pads
+        print(f"launches [{name}]: {got}, tails in place {in_place}, "
+              f"stft_spectrum.edge_pads {pads}")
         if got != want:
             raise AssertionError(f"{name} launched {got}, expected {want}")
         if in_place != tails.get(name, 0):
             raise AssertionError(f"{name} wrote {in_place} tails in place, "
                                  f"expected {tails.get(name, 0)}")
+        if pads != edge_pads.get(name, 0):
+            raise AssertionError(f"{name} read {pads} edge pads in place, "
+                                 f"expected {edge_pads.get(name, 0)}")
         for k, count in got.items():
             launches[k] += count
     print(f"slice launches, summed over the paths: {launches}")

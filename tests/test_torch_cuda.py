@@ -70,11 +70,13 @@ must land beyond the limit; chip_smoke.py runs the same probes at the main
 path's shapes.
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
-from vv_dsp_tpu_torch import config
+from vv_dsp_tpu_torch import _build, config
 from vv_dsp_tpu_torch.models import MFCCFrontend, NorthStarChain, SpectralGate
 from vv_dsp_tpu_torch.ops import filter_kernels as tfk
 from vv_dsp_tpu_torch.ops import istft_kernels as tik
@@ -221,6 +223,68 @@ def test_spectrum_kernel_matches_plain(dev, gen, nfft, hop, n, onesided):
     want = tsk.stft_spectrum_plain(x, nfft, hop, win, onesided)
     assert got.shape == want.shape and got.dtype == torch.complex64
     assert _cplx_rel(got, want) < 5e-5
+
+
+def _sha256(t):
+    """The sha256 of a tensor's bytes, on the host."""
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("nfft,hop,channels,n,pad", [
+    (1024, 256, 64, 479232, 768),   # SpectralGate's cell
+    (2048, 512, 3, 30011, 1536),
+    (1024, 256, 2, 9001, 333),      # odd: every frame takes scalar loads
+    (1024, 256, 2, 700, 768),       # n < nfft
+    (1024, 256, 2, 700, 5),
+    (256, 64, 65537, 600, 192)])    # two runs of rows
+@pytest.mark.parametrize("onesided", [False, True])
+def test_spectrum_kernel_reads_its_pad_in_place(dev, gen, nfft, hop,
+                                                channels, n, pad, onesided):
+    """The kernel's lead instance on the unpadded rows is bit for bit the
+    kernel on the rows zero-padded by F.pad, and counts its launches in
+    stft_spectrum.edge_pads."""
+    x = torch.as_tensor(gen.standard_normal((channels, n)),
+                        dtype=torch.float32, device=dev)
+    win = STFT(nfft, hop).win(dev)
+    want = tsk.stft_spectrum(torch.nn.functional.pad(x, (pad, pad)), nfft,
+                             hop, win, onesided)
+    before = (tsk.stft_spectrum.launches, tsk.stft_spectrum.edge_pads)
+    got = tsk.stft_spectrum(x, nfft, hop, win, onesided, pad=pad)
+    torch.cuda.synchronize()
+    runs = len(_build.row_chunks(channels))
+    assert runs == (2 if channels > 65535 else 1)
+    assert (tsk.stft_spectrum.launches, tsk.stft_spectrum.edge_pads) == (
+        before[0] + runs, before[1] + runs)
+    assert got.shape == want.shape
+    assert _sha256(got) == _sha256(want)
+
+
+def test_gate_on_card_is_the_padded_input_bit_for_bit(dev, gen):
+    """SpectralGate at the gate cell's shape, its spectrum reading the edge
+    pad in place, against the spectrum kernel on F.pad's padded copy and
+    the gated inverse: the same bits. One edge-pad launch a gate call; the
+    STFT's process and the chain launch none."""
+    nfft, hop, n = 1024, 256, 479232
+    pad = nfft - hop
+    x = torch.as_tensor(gen.standard_normal((64, n)), dtype=torch.float32,
+                        device=dev)
+    gate = SpectralGate(nfft, hop, 0.1, device=dev)
+    before = tsk.stft_spectrum.edge_pads
+    got = gate(x)
+    torch.cuda.synchronize()
+    assert tsk.stft_spectrum.edge_pads == before + 1
+    xp = torch.nn.functional.pad(x, (pad, pad))
+    n_pad = xp.shape[-1]
+    norm = tik.ola_norm(gate.window_np, hop,
+                        stft_num_frames(n_pad, nfft, hop), n_pad, dev)
+    spec = tsk.stft_spectrum(xp, nfft, hop, gate.window, True)
+    want = tik.istft(spec, nfft, hop, n_pad, gate.window, norm, 0.1)
+    assert _sha256(got) == _sha256(want[..., pad:pad + n])
+    before = tsk.stft_spectrum.edge_pads
+    STFT(nfft, hop).process(x[:2], rfft=True)
+    NorthStarChain(device=dev)(x[:2, :48000])
+    torch.cuda.synchronize()
+    assert tsk.stft_spectrum.edge_pads == before
 
 
 # the register-resident spectrum kernels (csrc/fft_reg.cuh) at every

@@ -18,6 +18,12 @@ import torch
 from h100bench.manifest import BENCH_DIR, ROOT, Cell
 from h100bench.reference import spectral_gate_1024_256 as ref
 from vv_dsp_tpu_torch.models import SpectralGate
+from vv_dsp_tpu_torch.models.pipeline import gate_route
+from vv_dsp_tpu_torch.ops import istft_kernels as tik
+from vv_dsp_tpu_torch.ops import stft_kernels as tsk
+from vv_dsp_tpu_torch.ops import stockham_kernels as tstk
+from vv_dsp_tpu_torch.ops.framing import stft_num_frames
+from torch_one_thread import one_thread
 
 FIELDS = json.loads((BENCH_DIR / "configs" / "spectral_gate_1024_256.json"
                      ).read_text())
@@ -42,6 +48,46 @@ def test_port_matches_the_reference(seed):
     got = SpectralGate(device="cpu")(ref.probe(SMALL, x))
     assert got.shape == x.shape and got.dtype == torch.float32
     assert _err(got, ref.call(SMALL, x)) < 2e-5
+
+
+def _padded_gate(gate: SpectralGate, x: torch.Tensor) -> torch.Tensor:
+    """SpectralGate through a padded copy of its input: F.pad by the edge
+    pad, the plain spectrum and gated inverse (or the full-nfft plain gate)
+    of the padded rows, the crop."""
+    nfft, hop, t = gate.nfft, gate.hop, gate.threshold
+    pad, n = gate.edge_pad, x.shape[-1]
+    xp = torch.nn.functional.pad(x, (pad, pad))
+    n_pad = xp.shape[-1]
+    norm = tik.ola_norm(gate.window_np, hop,
+                        stft_num_frames(n_pad, nfft, hop), n_pad, x.device)
+    if gate_route(nfft, hop) == "full_nfft":
+        out = tstk.stft_gate_stockham_plain(xp, nfft, hop, gate.window, norm,
+                                            t)
+    else:
+        spec = tsk.stft_spectrum_plain(xp, nfft, hop, gate.window,
+                                       onesided=True)
+        out = tik.istft_plain(spec, nfft, hop, n_pad, gate.window, norm, t)
+    return out[..., pad:pad + n]
+
+
+@pytest.mark.parametrize("nfft,hop", [(1024, 256), (256, 64), (128, 24),
+                                      (128, 32)])
+def test_gate_output_and_grad_match_the_padded_input(nfft, hop):
+    """SpectralGate on a CPU input, whose spectrum takes the edge pad as an
+    argument on the split and torch routes, against the same gate on a
+    padded copy: the output and x.grad bit for bit, on every route."""
+    gate = SpectralGate(nfft, hop, 0.1, device="cpu")
+    x = _noise(2, 5000, 29)
+    weight = _noise(2, 5000, 31)
+    with one_thread():
+        xa = x.clone().requires_grad_(True)
+        got = gate(xa)
+        (got * weight).sum().backward()
+        xb = x.clone().requires_grad_(True)
+        want = _padded_gate(gate, xb)
+        (want * weight).sum().backward()
+    assert torch.equal(got, want)
+    assert torch.equal(xa.grad, xb.grad) and xa.grad.abs().max() > 0
 
 
 def _numpy_gate(p: np.ndarray, f: dict) -> np.ndarray:

@@ -77,6 +77,36 @@ def test_plain_spectrum_matches_pallas(sig, nfft, hop, onesided):
     assert _rel(got.numpy(), want) < 5e-5
 
 
+@pytest.mark.parametrize("onesided", [False, True])
+@pytest.mark.parametrize("pad", [0, 768, 333])
+@pytest.mark.parametrize("n", [700, 1024, 5000])
+def test_spectrum_pad_is_the_padded_input(rng, onesided, pad, n):
+    """A zero pad of pad samples at both ends, taken by the plain version
+    and by the wrapper on a CPU tensor, is F.pad of the input, bit for bit:
+    n below, at and above nfft, no pad, the gate's 1024/256 pad and an odd
+    one."""
+    x = torch.as_tensor(rng.standard_normal((2, n)), dtype=torch.float32)
+    win = STFT(1024, 256).win(x.device)
+    xp = torch.nn.functional.pad(x, (pad, pad))
+    before = tsk.stft_spectrum.edge_pads
+    with one_thread():
+        want = tsk.stft_spectrum_plain(xp, 1024, 256, win, onesided)
+        got = tsk.stft_spectrum_plain(x, 1024, 256, win, onesided, pad)
+        wrapped = tsk.stft_spectrum(x, 1024, 256, win, onesided, pad=pad)
+    assert want.shape[1] == stft_num_frames(n + 2 * pad, 1024, 256)
+    assert got.shape == want.shape and wrapped.shape == want.shape
+    assert torch.equal(torch.view_as_real(got), torch.view_as_real(want))
+    assert torch.equal(torch.view_as_real(wrapped), torch.view_as_real(want))
+    # a CPU tensor launches nothing
+    assert tsk.stft_spectrum.edge_pads == before
+
+
+def test_spectrum_refuses_a_negative_pad():
+    x = torch.zeros(2, 4096)
+    with pytest.raises(ValueError, match="pad"):
+        tsk.stft_spectrum(x, 1024, 256, torch.ones(1024), pad=-1)
+
+
 @pytest.mark.parametrize("n", [1500, 2047, 9001])
 def test_edge_lengths_short_and_ragged(rng, n):
     """n < nfft (one zero-padded frame) and n not a multiple of hop (a

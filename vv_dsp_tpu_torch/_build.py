@@ -108,7 +108,8 @@ def load(path) -> ctypes.CDLL:
                   ctypes.c_float)
     lib.vv_upfirdn.argtypes = [P, P, P, I, L, L, I, I, L, I, I, I, I, I, I,
                                I, I, I, I, I, I, L, I, I, P]
-    lib.vv_stft_spectrum.argtypes = [P, P, P, P, P, I, L, I, I, I, I, I, P]
+    lib.vv_stft_spectrum.argtypes = [P, P, P, P, P, I, L, I, I, I, I, I, I,
+                                     P]
     lib.vv_stft_mfcc.argtypes = [P, P, P, P, P, P, P, P, I, L, I, I, I, I,
                                  I, I, F, I, I, I, L, I, P]
     lib.vv_stft_power.argtypes = [P, P, P, P, P, I, L, I, I, I, I, P]

@@ -61,15 +61,36 @@ __device__ __forceinline__ float2 repack_bin(
 // s M/8, of frame f of row xc (n samples; zero past the signal and for
 // f >= nf), with its window pairs w[s] = (win[2p], win[2p+1]): one 8-byte
 // load a point where the frame lies inside the signal at an even float
-// offset, else two bounds-checked scalar loads, so any hop works.
-template <int M>
+// offset, else two bounds-checked scalar loads, so any hop works. With
+// LEAD, the row's first lead samples are zeros that are not in memory (xc
+// points lead floats before the signal, and n counts them): frames from
+// f_in = ceil(lead / hop) on start inside the signal and load as without
+// it; the frames before take the scalar loads, bounded below too. Without
+// LEAD, lead and f_in are not read.
+template <int M, bool LEAD = false>
 __device__ __forceinline__ void packed_frame_regs(
     float2 (&v)[8], const float* __restrict__ xc, long long n, int f, int nf,
-    int hop, int j, const float2 (&w)[8]) {
+    int hop, int j, const float2 (&w)[8], int lead = 0, int f_in = 0) {
   constexpr int T = M / 8;
   // samples of frame f left in the signal (none past the last frame)
   const long long left = f < nf ? n - (long long)f * hop : 0;
   const float* xf = xc + (f < nf ? (long long)f * hop : 0);
+  if constexpr (LEAD) {
+    if (f < f_in || left < 2 * M ||
+        (reinterpret_cast<uintptr_t>(xf) & 7) != 0) {
+      // the frame's samples below `below` lie in the lead
+      const long long below = (long long)lead - (long long)f * hop;
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const int i = 2 * (j + s * T);
+        const float e = i < left && i >= below ? __ldg(xf + i) : 0.f;
+        const float o =
+            i + 1 < left && i + 1 >= below ? __ldg(xf + i + 1) : 0.f;
+        v[s] = make_float2(e * w[s].x, o * w[s].y);
+      }
+      return;
+    }
+  }
   if (left >= 2 * M && (reinterpret_cast<uintptr_t>(xf) & 7) == 0) {
     const float2* x2 = reinterpret_cast<const float2*>(xf);
 #pragma unroll

@@ -14,7 +14,9 @@
 //     stft_power_packed) together with its _packed_natural_onesided
 //     epilogue.
 //
-// Frame f covers x[f*hop, f*hop + nfft), zero past the signal. Its
+// Frame f covers x[f*hop, f*hop + nfft), zero past the signal (the
+// spectrum kernel can also read the signal as if zero-padded at both
+// ends: frame f then covers x[f*hop - lead, f*hop - lead + nfft)). Its
 // nfft-point real FFT is a packed-real transform: an m = nfft/2 point
 // complex FFT of the even/odd packed, windowed frame, then the Hermitian
 // unpack of bins 0..m (packed.cuh). All three kernels run the m-point
@@ -67,12 +69,15 @@
 // and wk are staged in shared memory once a block. For each group,
 // store(z, wks, c, f0, nb) gets the group's spectra Z (FB rows of M points
 // in shared memory, natural order), its channel and first frame and the
-// number of its frames below nf; frames past nf run on zeros.
-template <int M, class Store>
+// number of its frames below nf; frames past nf run on zeros. With LEAD,
+// frame f starts at signal sample f*hop - lead (packed_frame_regs): the
+// rows are read as if zero-padded by lead samples in front.
+template <int M, bool LEAD, class Store>
 __device__ __forceinline__ void packed_spectrum_walk(
     const float* __restrict__ x, const float* __restrict__ win,
     const float2* __restrict__ tw, const float2* __restrict__ wk, long long n,
-    int nf, int hop, int groups_per_row, long long groups, Store store) {
+    int nf, int hop, int groups_per_row, long long groups, int lead,
+    Store store) {
   constexpr int T = M / 8, FB = FR_POINTS / M;
   extern __shared__ float2 sm[];
   float2* tws = sm;
@@ -82,6 +87,9 @@ __device__ __forceinline__ void packed_spectrum_walk(
   fr_stage(tws, tw, fr_table_size(M));
   fr_stage(wks, wk, M + 1);
   const int fb = threadIdx.x / T, j = threadIdx.x % T;
+  // with LEAD, the rows as packed_frame_regs reads them: lead zeros, then
+  // the signal; f_in, the first frame wholly past the zeros
+  const int f_in = LEAD ? (lead + hop - 1) / hop : 0;
   float2 w[8];
   packed_window_regs<M>(w, win, j);
   __syncthreads();
@@ -89,7 +97,9 @@ __device__ __forceinline__ void packed_spectrum_walk(
     const int c = (int)(g / groups_per_row);
     const int f0 = (int)(g - (long long)c * groups_per_row) * FB;
     float2 v[8];
-    packed_frame_regs<M>(v, x + (long long)c * n, n, f0 + fb, nf, hop, j, w);
+    packed_frame_regs<M, LEAD>(v, x + (long long)c * n - (LEAD ? lead : 0),
+                               n + (LEAD ? lead : 0), f0 + fb, nf, hop, j, w,
+                               lead, f_in);
     fr_fft<M>(v, j, tws, a + fb * M, b + fb * M);
     store(fr_result<M>(a, b), wks, c, f0, min(FB, nf - f0));
     fr_swap_after<M>(a, b);
@@ -100,18 +110,21 @@ __device__ __forceinline__ void packed_spectrum_walk(
 // X[2M-k] = conj X[k]) or M + 1 (one-sided). Bins 0..M are unpacked from
 // the group's Z (unpack_bin) and the FB rows, contiguous in out, written as
 // one coalesced run (the division by BINS is by a constant), the mirror
-// bins as conjugates.
-template <int M, bool ONESIDED>
+// bins as conjugates. With LEAD, the rows of n samples are read as if
+// zero-padded by lead samples at both ends (nf counts the padded rows'
+// frames), so an edge-padded input needs no padded copy; lead comes last,
+// so the instances without it take their other parameters where they did.
+template <int M, bool ONESIDED, bool LEAD>
 __global__ void __launch_bounds__(FR_THREADS, 4)
 stft_spectrum_kernel(const float* __restrict__ x,
                      const float* __restrict__ win,
                      const float2* __restrict__ tw,
                      const float2* __restrict__ wk, float2* __restrict__ out,
                      long long n, int nf, int hop, int groups_per_row,
-                     long long groups) {
+                     long long groups, int lead) {
   constexpr int NFFT = 2 * M, BINS = ONESIDED ? M + 1 : NFFT;
-  packed_spectrum_walk<M>(
-      x, win, tw, wk, n, nf, hop, groups_per_row, groups,
+  packed_spectrum_walk<M, LEAD>(
+      x, win, tw, wk, n, nf, hop, groups_per_row, groups, lead,
       [=](const float2* z, const float2* wks, int c, int f0, int nb) {
         float2* o = out + ((long long)c * nf + f0) * BINS;
         for (int idx = threadIdx.x; idx < nb * BINS; idx += FR_THREADS) {
@@ -135,8 +148,8 @@ stft_power_kernel(const float* __restrict__ x, const float* __restrict__ win,
                   long long n, int nf, int hop, int groups_per_row,
                   long long groups) {
   constexpr int BINS = M + 1;
-  packed_spectrum_walk<M>(
-      x, win, tw, wk, n, nf, hop, groups_per_row, groups,
+  packed_spectrum_walk<M, false>(
+      x, win, tw, wk, n, nf, hop, groups_per_row, groups, 0,
       [=](const float2* z, const float2* wks, int c, int f0, int nb) {
         float* o = out + ((long long)c * nf + f0) * BINS;
         for (int idx = threadIdx.x; idx < nb * BINS; idx += FR_THREADS) {
@@ -149,19 +162,21 @@ stft_power_kernel(const float* __restrict__ x, const float* __restrict__ win,
 
 // Launch a kernel on packed_spectrum_walk: a persistent grid over the
 // groups of FB = 2048/M frames of each channel; the dynamic shared memory
-// holds the twiddle table, wk and two exchange buffers.
-template <int M, auto Kernel, class Out>
+// holds the twiddle table, wk and two exchange buffers. extra: the
+// kernel's parameters after the group count.
+template <int M, auto Kernel, class Out, class... Extra>
 static cudaError_t launch_walk(const float* x, const float* win,
                                const void* tw, const void* wk, Out* out,
                                int channels, long long n, int nf, int hop,
-                               int device, cudaStream_t stream) {
+                               int device, cudaStream_t stream,
+                               Extra... extra) {
   constexpr int FB = FR_POINTS / M;
   const int per_row = (nf + FB - 1) / FB;
   return fr_launch<Kernel>(
       (fr_table_size(M) + M + 1 + 2 * FR_POINTS) * sizeof(float2),
       (long long)per_row * channels, device, stream, x, win,
       (const float2*)tw, (const float2*)wk, out, n, nf, hop, per_row,
-      (long long)per_row * channels);
+      (long long)per_row * channels, extra...);
 }
 
 // out: (channels, nf, n_mfcc) MFCCs when FUSE_DCT, else (channels, nf,
@@ -282,22 +297,29 @@ static cudaError_t launch_mfcc(const float* x, const float* win,
       (long long)per_row * channels);
 }
 
+// lead: zero samples read in at both ends of each row of n samples (nf is
+// the padded rows' frame count); the LEAD instances run only where it is
+// positive.
 extern "C" int vv_stft_spectrum(const float* x, const float* win,
                                 const void* tw, const void* wk, void* out,
                                 int channels, long long n, int nf, int nfft,
-                                int hop, int bins, int device,
+                                int hop, int bins, int lead, int device,
                                 void* stream) {
-  if (bins != nfft && bins != nfft / 2 + 1) return (int)cudaErrorInvalidValue;
+  if ((bins != nfft && bins != nfft / 2 + 1) || lead < 0)
+    return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = (cudaStream_t)stream;
   const bool one = bins != nfft;
   float2* o = (float2*)out;
-#define VV_SPECTRUM(M)                                                       \
-  return (int)(one ? launch_walk<M, stft_spectrum_kernel<M, true>>(         \
-                         x, win, tw, wk, o, channels, n, nf, hop, device, s) \
-                   : launch_walk<M, stft_spectrum_kernel<M, false>>(        \
-                         x, win, tw, wk, o, channels, n, nf, hop, device, s))
+#define VV_SPECTRUM_AT(M, ONE, LEAD)                                   \
+  launch_walk<M, stft_spectrum_kernel<M, ONE, LEAD>>(                  \
+      x, win, tw, wk, o, channels, n, nf, hop, device, s, lead)
+#define VV_SPECTRUM(M)                                                 \
+  return (int)(one ? (lead ? VV_SPECTRUM_AT(M, true, true)            \
+                           : VV_SPECTRUM_AT(M, true, false))          \
+                   : (lead ? VV_SPECTRUM_AT(M, false, true)           \
+                           : VV_SPECTRUM_AT(M, false, false)))
   switch (nfft) {
     case 256: VV_SPECTRUM(128);
     case 512: VV_SPECTRUM(256);
@@ -306,6 +328,7 @@ extern "C" int vv_stft_spectrum(const float* x, const float* win,
     case 4096: VV_SPECTRUM(2048);
   }
 #undef VV_SPECTRUM
+#undef VV_SPECTRUM_AT
   return (int)cudaErrorInvalidValue;
 }
 

@@ -294,8 +294,10 @@ class SpectralGate(nn.Module):
     sample of the signal has full window coverage (at the edges the w^2
     norm goes to 0, and dividing a gated frame by it would amplify the
     error without bound), and the output is cut back to the input's
-    length. The route is ``gate_route``'s: on a CUDA tensor the spectrum
-    kernel (one-sided) and then the inverse kernel with the gate; where
+    length; the spectrum kernel reads that pad in place, and only the
+    full-nfft route pads a copy. The route is ``gate_route``'s: on a CUDA
+    tensor the spectrum kernel (one-sided) and then the inverse kernel
+    with the gate; where
     the JAX package takes its fused full-nfft gate kernel
     (``stockham_kernels.takes_stockham_gate``: nfft = 128, or hop = 8) the
     one fused gate kernel, whose peak and mask cover all nfft bins of the
@@ -344,8 +346,7 @@ class SpectralGate(nn.Module):
             _check_input(x, self.window, "SpectralGate")
             x = x.float()
             n, pad = x.shape[-1], self.edge_pad
-            xp = F.pad(x, (pad, pad))
-            n_pad = xp.shape[-1]
+            n_pad = n + 2 * pad
             nfft, hop = self.nfft, self.hop
             win, t = self.window, self.threshold
             norm = _ik.ola_norm(self.window_np, hop,
@@ -361,7 +362,8 @@ class SpectralGate(nn.Module):
             def split(spectrum, inverse):
                 def body(xv):
                     with profiling.span("gate.analysis", device=xv.device):
-                        spec = spectrum(xv, nfft, hop, win, onesided=True)
+                        spec = spectrum(xv, nfft, hop, win, onesided=True,
+                                        pad=pad)
                     with profiling.span("gate.synthesis", device=xv.device):
                         return inverse(spec, nfft, hop, n_pad, win, norm, t)
                 return body
@@ -371,14 +373,17 @@ class SpectralGate(nn.Module):
             if route == "full_nfft":
                 fast = fused(_stk.stft_gate_stockham)
                 plain = fused(_stk.stft_gate_stockham_plain)
+                x = F.pad(x, (pad, pad))
             else:
+                # the spectrum reads the edge pad in place
                 fast = split(_sk.stft_spectrum, _ik.istft)
                 plain = split(_sk.stft_spectrum_plain, _ik.istft_plain)
+                x = x.contiguous()
 
             if route == "torch":
-                out = plain(xp)
+                out = plain(x)
             else:
-                out = kernel_with_torch_vjp(fast, plain)(xp)
+                out = kernel_with_torch_vjp(fast, plain)(x)
             out = out[..., pad:pad + n]
             return out if restore is None else restore(out)
 

@@ -8,11 +8,12 @@ product (``vv_dsp_tpu/ops/pallas_kernels.py::stft_power_pallas``), whose
 plain version is the framing-free ``power_parts``.
 
 Frame f covers x[f*hop, f*hop + nfft), zero-padded past the signal, and a
-signal of n samples has ``stft_num_frames(n, nfft, hop)`` frames. On a CUDA
-tensor ``stft_spectrum`` and ``stft_mfcc`` launch the kernels in
-``csrc/stft.cu``, or raise; on a CPU tensor they run the plain versions
-(framing, window, ``torch.fft``, matmuls at the same tier). The same holds
-for ``stft_power``.
+signal of n samples has ``stft_num_frames(n, nfft, hop)`` frames;
+``stft_spectrum`` also takes a zero pad at both ends, which its kernel
+reads in place. On a CUDA tensor ``stft_spectrum`` and ``stft_mfcc``
+launch the kernels in ``csrc/stft.cu``, or raise; on a CPU tensor they run
+the plain versions (framing, window, ``torch.fft``, matmuls at the same
+tier). The same holds for ``stft_power``.
 """
 
 from __future__ import annotations
@@ -86,10 +87,13 @@ def require_frames(op: str, x: torch.Tensor, window: torch.Tensor,
 
 
 def stft_spectrum_plain(x: torch.Tensor, nfft: int, hop: int,
-                        window: torch.Tensor,
-                        onesided: bool = False) -> torch.Tensor:
+                        window: torch.Tensor, onesided: bool = False,
+                        pad: int = 0) -> torch.Tensor:
     """Windowed STFT: (..., n) -> (..., frames, nfft) complex, or
-    (..., frames, nfft//2+1) when onesided (real input only)."""
+    (..., frames, nfft//2+1) when onesided (real input only), of x
+    zero-padded by pad samples at both ends."""
+    if pad:
+        x = torch.nn.functional.pad(x, (pad, pad))
     nf = stft_num_frames(x.shape[-1], nfft, hop)
     frames = frames_strided(x, nfft, hop, nf) * window
     if onesided:
@@ -99,25 +103,37 @@ def stft_spectrum_plain(x: torch.Tensor, nfft: int, hop: int,
 
 @_build.counted
 def stft_spectrum(x: torch.Tensor, nfft: int, hop: int, window: torch.Tensor,
-                  onesided: bool = False) -> torch.Tensor:
+                  onesided: bool = False, pad: int = 0) -> torch.Tensor:
     """(c, n) float32 -> (c, frames, nfft) complex64 (two-sided, the
-    Hermitian mirror written by the kernel) or (c, frames, nfft//2+1)."""
+    Hermitian mirror written by the kernel) or (c, frames, nfft//2+1), of
+    x zero-padded by pad samples at both ends: the kernel reads the pad in
+    place (frame f starts at f*hop - pad), so no padded copy is made; each
+    launch with pad > 0 adds one to ``stft_spectrum.edge_pads``."""
+    if pad < 0:
+        raise ValueError(f"stft_spectrum: pad must be >= 0, got {pad}")
     if x.device.type == "cpu":
-        return stft_spectrum_plain(x, nfft, hop, window, onesided)
+        return stft_spectrum_plain(x, nfft, hop, window, onesided, pad)
     with profiling.span("kernel.stft_spectrum"):
         require_frames("stft_spectrum", x, window, nfft, hop)
         c, n = x.shape
-        nf = stft_num_frames(n, nfft, hop)
+        nf = stft_num_frames(n + 2 * pad, nfft, hop)
         bins = nfft // 2 + 1 if onesided else nfft
         out = torch.empty((c, nf, bins), dtype=torch.complex64,
                           device=x.device)
         tw = fft_plan.pass_twiddles(nfft // 2, x.device)
         wk = _fft_tables(nfft, x.device)[1]
         lib, dev, stream = _build.target(x)
-        _build.launch(stft_spectrum, c, lambda r0, k: lib.vv_stft_spectrum(
-            ptr(x, r0), ptr(window), ptr(tw), ptr(wk), ptr(out, r0), k, n,
-            nf, nfft, hop, bins, dev, stream))
+        launches = _build.launch(
+            stft_spectrum, c, lambda r0, k: lib.vv_stft_spectrum(
+                ptr(x, r0), ptr(window), ptr(tw), ptr(wk), ptr(out, r0), k,
+                n, nf, nfft, hop, bins, pad, dev, stream))
+        if pad:
+            stft_spectrum.edge_pads += launches
         return out
+
+
+# launches of stft_spectrum that read an edge pad in place, always on
+stft_spectrum.edge_pads = 0
 
 
 def stft_power_plain(x: torch.Tensor, nfft: int, hop: int,

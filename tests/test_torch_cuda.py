@@ -15,7 +15,10 @@ tail written into the kernel's buffer (no second output buffer, no cat);
 the windowed-DFT power at
 hop | nfft, 128 | hop, n < nfft and extra frames; the per-phase
 resampler at all 377 ratios it takes and one of each of its instances;
-every kernel wrapper at 65,536 rows (two launches); the full-nfft inverse
+every kernel wrapper at 65,536 rows (two launches); ``fir_apply_best``
+with taps on the card at the ``fir1024.batch64`` cell's shape (no copy
+from the card after the first call, the host taps' bits, the cell's
+limit); the full-nfft inverse
 with all nfft bins of a non-Hermitian spectrum and with the one-sided
 half, at q = 1 to 128; the packed fused gate at threshold 0 and on the
 tone probe, with bit-identical reruns; the packed inverse and fused gate
@@ -88,7 +91,7 @@ from vv_dsp_tpu_torch.ops import savgol as tsg
 from vv_dsp_tpu_torch.ops import stft_kernels as tsk
 from vv_dsp_tpu_torch.ops import stockham_kernels as tstk
 from vv_dsp_tpu_torch.ops import upfirdn as tuf
-from vv_dsp_tpu_torch.ops.fir import design_lowpass_np
+from vv_dsp_tpu_torch.ops.fir import design_lowpass, design_lowpass_np
 from vv_dsp_tpu_torch.ops.framing import stft_num_frames
 from vv_dsp_tpu_torch.ops.stft import STFT
 from vv_dsp_tpu_torch.ops.window import get_window_np
@@ -1107,6 +1110,51 @@ def test_fir_apply_best_gradient_on_card(dev, gen):
                                          (xt, ht), cot.to(d)))
     for got, want in zip(grads[1], grads[0]):
         assert _rel(got, want) < 1e-5
+
+
+@pytest.fixture
+def fir_cell_rows(dev):
+    """The ``fir1024.batch64`` cell's call: 64 x 479,232 N(0, 1) rows on the
+    card and its 1,024 taps at cutoff 0.45 designed on the card."""
+    g = torch.Generator(device=dev).manual_seed(2**31 + 26)
+    x = torch.randn((64, 479232), generator=g, device=dev)
+    return design_lowpass(1024, 0.45, device=dev), x
+
+
+def test_fir_apply_best_reads_card_taps_back_once(dev, fir_cell_rows):
+    """With taps on the card, the banded route's first call reads them
+    back; later calls launch the kernel once each and copy nothing from
+    the card (CUDA's sync-debug mode raises on a synchronising copy)."""
+    h, x = fir_cell_rows
+    tfk.fir_apply_best(h, x)
+    torch.cuda.synchronize()
+    before = tuf.upfirdn_banded.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tfk.fir_apply_best(h, x)
+        tfk.fir_apply_best(h, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tuf.upfirdn_banded.launches == before + 2
+
+
+def test_fir_apply_best_card_taps_are_the_host_taps_bit_for_bit(
+        dev, fir_cell_rows):
+    """At the cell's shape: card taps give the host taps' bits, and both
+    lie within the cell's limit of the float64 reference."""
+    from h100bench.reference import fir_lowpass_1024 as fref
+    from h100bench.reference.common import MaxError
+    h, x = fir_cell_rows
+    got = tfk.fir_apply_best(h, x)
+    host = tfk.fir_apply_best(h.cpu().double().numpy(), x)
+    assert _sha256(got) == _sha256(host)
+    fields = {"fir_taps": 1024, "fir_cutoff": 0.45, "window": "hamming"}
+    acc = MaxError()
+    for r0 in range(0, x.shape[0], 8):
+        acc.add(got[r0:r0 + 8], fref.call(fields, x[r0:r0 + 8]))
+    assert acc.numbers()["err_of_scale"] < fref.LIMITS["call"][
+        "err_of_scale"]
 
 
 # the three kernels of the last slice: the windowed-DFT power (1e-5 of max

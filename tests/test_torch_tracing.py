@@ -1,22 +1,24 @@
 """The port's own spans (``vv_dsp_tpu_torch.utils.profiling.span``): off
 without a profiler, on under ``torch.profiler``.
 
-Off, the chain, ``SpectralGate``, ``STFT.process`` and the live stream
-leave no record and call no ``record_function``. Under a CPU profiler each
-entry records exactly the spans of PERF.md's table (the chain's two
-stages, the gate's two on its split route and one on its full-nfft route,
-the stream's four steps, the STFT entry; a kernel wrapper's span opens only
-past its CPU return, so on the CPU there is none), with their parents,
-one call id a root and its descendants, each span inside its parent's
-host interval, and each a ``user_annotation`` of its name in the exported
-Chrome trace.
+Off, the chain, ``SpectralGate``, ``STFT.process``, ``fir_apply_best`` and
+the live stream leave no record and call no ``record_function``. Under a
+CPU profiler each entry records exactly the spans of PERF.md's table (the
+chain's two stages, the gate's two on its split route and one on its
+full-nfft route, the stream's four steps, the STFT entry, one ``fir`` root
+a ``fir_apply_best`` call on each of its three routes at any rank; a kernel
+wrapper's span opens only past its CPU return, so on the CPU there is
+none), with their parents, one call id a root and its descendants, each
+span inside its parent's host interval, and each a ``user_annotation`` of
+its name in the exported Chrome trace.
 The ring drops its oldest records past its bound and counts them; a
 device span's timing events are reused once the card has passed them; no
 span takes a name of the benchmark harness's own ranges; the gate counts
 its calls by route. On the card (``cuda`` marker), every one of the 14
 kernel wrappers records one ``kernel.<wrapper>`` span a call, inside the
-entry's span, and the chain's and the gate's two stages carry device
-times.
+entry's span, the chain's and the gate's two stages carry device
+times, and the ``fir`` span does on its first and ninth call, holding its
+route's kernel span.
 """
 
 import collections
@@ -30,6 +32,9 @@ import torch
 
 from vv_dsp_tpu_torch.models import (NorthStarChain, SpectralGate,
                                      StreamingNorthStar)
+from vv_dsp_tpu_torch.ops import filter_kernels
+from vv_dsp_tpu_torch.ops.filter_kernels import fir_apply_best
+from vv_dsp_tpu_torch.ops.fir import design_lowpass
 from vv_dsp_tpu_torch.ops.stft import STFT
 from vv_dsp_tpu_torch.utils import profiling
 
@@ -42,12 +47,18 @@ KERNELS = ("upfirdn_banded", "stft_spectrum", "stft_power", "stft_mfcc",
            "stft_power_stockham", "stft_mel_stockham", "stft_gate_stockham",
            "istft_stockham", "stft_power_dft", "fir_direct",
            "resample_poly_kernel")
+# fir_apply_best's taps on each of its routes: the direct kernel, the
+# block-Toeplitz matmuls, the banded upfirdn
+FIR_TAPS = {"fir_direct": 16, "fir_mxu": 64, "fir_banded": 1024}
 # each entry's spans on the CPU as (name, parent), in the order they start
 ENTRY_SPANS = {
     "chain": [("chain", None), ("chain.head", "chain"),
               ("chain.mfcc", "chain")],
     "chain_staged": [("chain", None), ("chain.head", "chain"),
-                     ("chain.mfcc", "chain")],
+                     ("fir", "chain.head"), ("chain.mfcc", "chain")],
+    "fir_banded": [("fir", None)],
+    "fir_direct": [("fir", None)],
+    "fir_mxu": [("fir", None)],
     "gate": [("gate", None), ("gate.analysis", "gate"),
              ("gate.synthesis", "gate")],
     "stft": [("stft", None)],
@@ -65,6 +76,10 @@ def _entry(name: str, device):
         chain = NorthStarChain(fused_head=name == "chain", device=device)
         x = torch.randn((2, 9600), generator=g).to(device)
         return lambda: chain(x)
+    if name.startswith("fir"):
+        h = design_lowpass(FIR_TAPS[name], 0.45, device=device)
+        x = torch.randn((2, 4800), generator=g).to(device)
+        return lambda: fir_apply_best(h, x)
     if name == "gate":
         gate = SpectralGate(device=device)
         x = torch.randn((2, 4800), generator=g).to(device)
@@ -278,7 +293,7 @@ def test_span_sites_and_no_harness_name():
     names = _span_names_in_source()
     want = {"chain", "chain.head", "chain.mfcc", "stream", "stream.fir",
             "stream.resample", "stream.frames", "stream.mfcc", "stft",
-            "gate", "gate.analysis", "gate.synthesis", "gate.fused"}
+            "gate", "gate.analysis", "gate.synthesis", "gate.fused", "fir"}
     assert names == want | {f"kernel.{k}" for k in KERNELS}
     assert not names & set(HARNESS)
     # the wrappers with spans are the ones that count their launches
@@ -310,6 +325,46 @@ def test_gate_fused_route_records_its_span():
     assert [(r.name, r.parent) for r in sorted(
         profiling.spans(), key=lambda r: r.start)] == [
         ("gate", None), ("gate.fused", "gate")]
+
+
+@pytest.mark.parametrize("shape", [(4800,), (2, 4800), (2, 3, 1600)],
+                         ids=["rank1", "rank2", "rank3"])
+@pytest.mark.parametrize("route", sorted(FIR_TAPS))
+def test_fir_records_one_root_a_call_at_any_rank(route, shape):
+    h = design_lowpass(FIR_TAPS[route], 0.45, device="cpu")
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(12))
+    want = fir_apply_best(h, x)
+    _profiled(lambda: (fir_apply_best(h, x), fir_apply_best(h, x)))
+    recs = profiling.spans()
+    assert [(r.name, r.parent) for r in recs] == [("fir", None)] * 2
+    assert recs[0].call != recs[1].call
+    assert want.shape == x.shape
+
+
+def test_fir_span_times_the_device_on_the_first_and_every_8th(monkeypatch):
+    """fir_apply_best opens its span with the input's device: given a CUDA
+    device (a stand-in here), the first and every 8th ``fir`` span carry
+    device times, the others none."""
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _FakeStream())
+    monkeypatch.setattr(_FakeEvent, "busy", False)
+    monkeypatch.setattr(profiling, "_free_events", {})
+    card = torch.device("cuda", 0)
+    devices = []
+
+    def span(name, device=None):
+        devices.append(device)
+        return profiling.span(name, device=None if device is None else card)
+
+    monkeypatch.setattr(filter_kernels, "profiling",
+                        type("P", (), {"span": staticmethod(span)}))
+    h = design_lowpass(16, 0.45, device="cpu")
+    x = torch.randn((2, 600), generator=torch.Generator().manual_seed(13))
+    _profiled(lambda: [fir_apply_best(h, x) for _ in range(17)])
+    assert devices == [x.device] * 17
+    got = [r.device_ms for r in profiling.spans() if r.name == "fir"]
+    assert got == [0.25 if k % 8 == 0 else None for k in range(17)]
 
 
 def _wrapper_modules():
@@ -403,3 +458,29 @@ def test_stft_span_holds_its_wrapper_on_the_card(dev):
     (kern,) = [r for r in recs if r.name.startswith("kernel.")]
     assert root.name == "stft" and kern.parent_id == root.id
     assert root.start <= kern.start <= kern.end <= root.end
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,kernel", [("fir_direct", "fir_direct"),
+                                          ("fir_banded", "upfirdn_banded"),
+                                          ("fir_mxu", None)])
+def test_fir_span_holds_its_wrapper_on_the_card(dev, route, kernel):
+    h = design_lowpass(FIR_TAPS[route], 0.45, device=dev)
+    x = torch.randn((2, 3, 16000), device=dev)
+    fir_apply_best(h, x)
+    torch.cuda.synchronize()
+    profiling.clear_spans()
+    _profiled(lambda: [fir_apply_best(h, x) for _ in range(9)], CUDA_ACTS)
+    recs = profiling.spans()
+    roots = [r for r in recs if r.parent is None]
+    assert [r.name for r in roots] == ["fir"] * 9
+    assert [r.device_ms is not None for r in roots] == [True] + [False] * 7 \
+        + [True]
+    assert all(r.device_ms > 0 for r in roots if r.device_ms is not None)
+    kids = [r for r in recs if r.parent is not None]
+    want = [] if kernel is None else [f"kernel.{kernel}"] * 9
+    assert [r.name for r in kids] == want
+    for k in kids:
+        root = next(r for r in roots if r.id == k.parent_id)
+        assert k.parent == "fir"
+        assert root.start <= k.start <= k.end <= root.end

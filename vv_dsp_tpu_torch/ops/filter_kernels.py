@@ -14,10 +14,11 @@ On a CUDA tensor each wrapper launches its kernel (once per 65,535 rows,
 ``_build.launch``) or raises. The best
 paths route as the JAX package routes on the TPU, on every device:
 
-- ``fir_apply_best``: up to 16 taps the direct kernel; from 512 host taps
-  where ``banded_supported(1, 1, taps, 0)`` the banded upfirdn at
-  up = down = 1; anything else (taps that require grad included)
-  ``fir.fir_apply_mxu``.
+- ``fir_apply_best``: up to 16 taps the direct kernel; from 512 taps that
+  need no grad, where ``banded_supported(1, 1, taps, 0)``, the banded
+  upfirdn at up = down = 1 (tensor taps read back to the host once per
+  tensor, ``_host_taps``); anything else (taps that require grad
+  included) ``fir.fir_apply_mxu``.
 - ``resample_poly_best``: up < 32 (after the gcd) where
   ``banded_supported`` the banded upfirdn at offset half_len; anything else
   ``resample.resample_poly_mxu``.
@@ -43,6 +44,7 @@ from vv_dsp_tpu_torch.ops.upfirdn import (banded_supported, polyphase_table,
 from vv_dsp_tpu_torch.utils import profiling
 from vv_dsp_tpu_torch.utils.kernel_grad import kernel_with_torch_vjp
 from vv_dsp_tpu_torch.utils.shapes import collapse_leading
+from vv_dsp_tpu_torch.utils.tensor_cache import PerTensor
 
 DIRECT_MAX_TAPS = 16      # fir_apply_best's direct-kernel route
 BANDED_MIN_TAPS = 512     # ... and its banded route
@@ -130,11 +132,18 @@ def resample_poly_kernel(x: torch.Tensor, up: int,
 
 def fir_apply_best(h, x: torch.Tensor) -> torch.Tensor:
     """Causal FIR, lfilter(h, [1], x), over the last axis, routed as the
-    JAX package routes on the TPU (module docstring)."""
+    JAX package routes on the TPU (module docstring). Span (while a
+    profiler runs): ``fir`` around the call, one a call at any rank, timed
+    on the device."""
     x = config.as_compute(x)
-    if x.ndim != 2:
-        x2, restore = collapse_leading(x)
-        return restore(fir_apply_best(h, x2), 1)
+    with profiling.span("fir", device=x.device):
+        if x.ndim != 2:
+            x2, restore = collapse_leading(x)
+            return restore(_fir_apply_best_2d(h, x2), 1)
+        return _fir_apply_best_2d(h, x)
+
+
+def _fir_apply_best_2d(h, x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     taps = np.shape(h)[-1]
     if taps <= DIRECT_MAX_TAPS and isinstance(h, torch.Tensor):
@@ -146,15 +155,25 @@ def fir_apply_best(h, x: torch.Tensor) -> torch.Tensor:
     learned = isinstance(h, torch.Tensor) and h.requires_grad
     if (taps >= BANDED_MIN_TAPS and not learned
             and banded_supported(1, 1, taps, 0)):
-        h_np = (h.detach().cpu().double().numpy()
-                if isinstance(h, torch.Tensor)
-                else np.asarray(h, np.float64))
+        h_np = _host_taps(h)
         table = polyphase_table(h_np, 1, x.device)
         return kernel_with_torch_vjp(
             lambda xv: upfirdn_banded(xv, table, 1, 1, 0, xv.shape[-1]),
             lambda xv: fir_apply_mxu(h_np, xv),
         )(x)
     return fir_apply_mxu(h, x)
+
+
+_HOST_TAPS = PerTensor()
+
+
+def _host_taps(h) -> np.ndarray:
+    """The taps as float64 on the host; a tensor's copy is kept for it
+    (``PerTensor``), so taps on the card are read back once, not at every
+    call."""
+    if not isinstance(h, torch.Tensor):
+        return np.asarray(h, np.float64)
+    return _HOST_TAPS.get(h, None, lambda: h.detach().cpu().double().numpy())
 
 
 def resample_poly_best(x: torch.Tensor, up: int, down: int) -> torch.Tensor:

@@ -48,11 +48,12 @@ over as few tiles as fit a block.
 from __future__ import annotations
 
 import functools
-import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from vv_dsp_tpu_torch.utils.tensor_cache import PerTensor
 
 # the kernels' tier codes (config.ALGORITHMS order) and their part counts
 PARTS = {"f32": 3, "bf16x3": 2, "bf16": 1}
@@ -320,7 +321,7 @@ def band_parts_np(table: np.ndarray, p: UpfirdnPlan,
                      for q in split_parts_np(b, PARTS[algorithm])])
 
 
-_BAND_PARTS: dict = {}
+_BAND_PARTS = PerTensor()
 
 
 def band_parts(taps: torch.Tensor, p: UpfirdnPlan,
@@ -328,18 +329,12 @@ def band_parts(taps: torch.Tensor, p: UpfirdnPlan,
     """band_parts_np as a bf16 tensor on taps' device, cached for the table
     tensor (rebuilt if it is written in place), so a call reads no table
     back from the device after its first."""
-    key = (p, algorithm, taps._version)
-    hit = _BAND_PARTS.get(id(taps))
-    if hit is None or hit[0]() is not taps or key not in hit[1]:
+    def build():
         table = taps.detach().cpu().numpy().astype(np.float32)
-        parts = torch.as_tensor(band_parts_np(table, p, algorithm),
-                                device=taps.device).to(torch.bfloat16)
-        if hit is None or hit[0]() is not taps:
-            hit = (weakref.ref(taps, lambda _, i=id(taps):
-                               _BAND_PARTS.pop(i, None)), {})
-            _BAND_PARTS[id(taps)] = hit
-        hit[1][key] = parts.contiguous()
-    return hit[1][key]
+        return torch.as_tensor(band_parts_np(table, p, algorithm),
+                               device=taps.device).to(
+                                   torch.bfloat16).contiguous()
+    return _BAND_PARTS.get(taps, (p, algorithm), build)
 
 
 # ---- windowed-DFT power -------------------------------------------------

@@ -19,7 +19,6 @@ tier). The same holds for ``stft_power``.
 from __future__ import annotations
 
 import functools
-import weakref
 
 import numpy as np
 import torch
@@ -31,6 +30,7 @@ from vv_dsp_tpu_torch.ops import fft_plan, mma_plan
 from vv_dsp_tpu_torch.ops.framing import frames_strided, stft_num_frames
 from vv_dsp_tpu_torch.ops.window import get_window_np
 from vv_dsp_tpu_torch.utils import profiling
+from vv_dsp_tpu_torch.utils.tensor_cache import PerTensor
 
 
 def stft_supported(nfft: int, hop: int) -> bool:
@@ -195,30 +195,24 @@ def band_edges_np(mel_fb) -> np.ndarray:
     return np.stack([lo, hi]).astype(np.int32)
 
 
-_MEL_TABLES: dict = {}
+_MEL_TABLES = PerTensor()
 
 
 def _mel_tables(mel_fb: torch.Tensor, bands: torch.Tensor):
     """(weights, index): ``fft_plan.compact_filterbank_np`` of the
     filterbank on its device, cached for the filterbank tensor (rebuilt if
     it or its bands are written in place, or other bands come with it), so
-    a call reads nothing back from the device after its first."""
-    versions = (mel_fb._version, bands._version)
-    hit = _MEL_TABLES.get(id(mel_fb))
-    if (hit is None or hit[0]() is not mel_fb or hit[1]() is not bands
-            or hit[2] != versions):
+    a call reads nothing back from the device after its first. The entry
+    holds its bands, so their id names them while it lives."""
+    def build():
         fb = mel_fb.detach().cpu().numpy()
         lo, hi = bands.cpu().numpy()
         if not ((0 <= lo) & (lo <= hi) & (hi <= fb.shape[1])).all():
             raise ValueError("bands must be [lo; hi) bin ranges of mel_fb's "
                              "rows (band_edges_np)")
-        tables = tuple(torch.as_tensor(t, device=mel_fb.device) for t in
-                       fft_plan.compact_filterbank_np(fb, (lo, hi)))
-        hit = (weakref.ref(mel_fb, lambda _, i=id(mel_fb):
-                           _MEL_TABLES.pop(i, None)), weakref.ref(bands),
-               versions, tables)
-        _MEL_TABLES[id(mel_fb)] = hit
-    return hit[3]
+        return bands, tuple(torch.as_tensor(t, device=mel_fb.device) for t in
+                            fft_plan.compact_filterbank_np(fb, (lo, hi)))
+    return _MEL_TABLES.get(mel_fb, (id(bands), bands._version), build)[1]
 
 
 @_build.counted

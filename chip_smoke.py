@@ -64,7 +64,12 @@ Phases, each fatal on failure:
    1024) spectrum with all bins inverted, and at 128/32 on (16, 14974,
    65); the packed fused gate at 1024/256 on the COLA-padded (16, 480768)
    input at threshold 0, on the tone probe and at the gate's threshold
-   (SpectralGate's split pair timed beside it). Each of the 14 kernel
+   (SpectralGate's split pair timed beside it). The overlap-save FIR
+   kernel at 1,024 taps on (16, 479232) against its plain version, with
+   the banded kernel's f32 tier, fir_apply_mxu, the bound and ptxas's
+   figures, edge checks at 512 and 2,048 taps on 2 channels, and the taps
+   sweep (128 to 2,048 at 16 and 64 channels: the overlap-save kernel, the
+   banded kernel at f32 and fir_apply_mxu). Each of the 15 kernel
    wrappers at 65,536 rows of a short signal: two launches (65,535 rows
    and 1), against its plain version. Savitzky-Golay's kernel path, the
    banded upfirdn at 1/1 and offset wl - 1, at savgol_filter(x, 31, 3)'s
@@ -72,7 +77,9 @@ Phases, each fatal on failure:
    F.conv1d, the bound, ptxas's figures and float64 scipy, then at wl 5,
    101, 257 and deriv 1 on 2 channels; the filter tier at 1,024 taps
    (fir_apply_os, fir_apply_fft and F.conv1d timed beside fir_apply_best,
-   each held to float64 lfilter; filtfilt_fir to a float64 oracle of its
+   which runs the overlap-save kernel, with its kernel time, bound and
+   launches, each held to float64 lfilter; filtfilt_fir to a float64
+   oracle of its
    form); the core API (DCTs, statistics, framing, FFT extras) against its
    CPU results. Then tier probes, inputs
    on which a kernel must match the plain version at its own tier and land
@@ -274,6 +281,11 @@ ISTFT_ALL_TOL = 1e-2
 SAVGOL = (31, 3)
 SAVGOL_OTHERS = ((5, 3, 0), (101, 3, 0), (257, 3, 0), (31, 3, 1))
 FILTER_TIER_TAPS = 1024
+# the overlap-save FIR kernel against its plain version (the same segments
+# and table through cuFFT), of max |y|; its taps sweep, at 16 and 64
+# channels of N_CHAIN samples
+OS_TOL = 1e-6
+OS_SWEEP_TAPS = (128, 256, 512, 768, 1024, 1536, 2048)
 # the core API on the card against its CPU result, as its CPU test holds
 # it (tests/test_torch_core_api.py), of max |value|: the DCTs and the
 # statistics 1e-5 (the excess kurtosis, near 0 on Gaussian input, 1e-5
@@ -477,12 +489,12 @@ def ptxas_usage(log: list[str], kernel: str, n: int, onesided: bool,
 # (csrc/stft.cu), the full-nfft inverse, fused gate, mel/MFCC and power
 # kernels (csrc/stockham.cu), the packed inverse and the packed fused gate
 # (csrc/istft.cu, csrc/gate_packed.cu), the per-phase resampler
-# (csrc/filter.cu)
+# (csrc/filter.cu), the overlap-save FIR (csrc/fir_os.cu)
 NO_SPILL = ("upfirdn_mma_kernel", "dft_power_kernel", "stft_mfcc_kernel",
             "istft_stockham_kernel", "istft_kernel",
             "stft_gate_packed_kernel", "stockham_gate_kernel",
             "stockham_mel_kernel", "stft_power_kernel",
-            "stockham_power_kernel", "poly_kernel")
+            "stockham_power_kernel", "poly_kernel", "fir_os_kernel")
 
 
 def kernel_name(mangled: str) -> str:
@@ -614,6 +626,16 @@ def fr_smem(n: int, packed: bool) -> int:
 def fft_flops(frames: int, nfft: int) -> float:
     """Operations of one real nfft-point FFT per frame (2.5 N log2 N)."""
     return frames * 2.5 * nfft * np.log2(nfft)
+
+
+def os_flops(c: int, n: int, taps: int) -> float:
+    """Operations of the overlap-save kernel: per segment two complex
+    FFTs of M = 2,048 points (5 M log2 M each) and the table's two complex
+    products and sum a bin (14 M)."""
+    from vv_dsp_tpu_torch.ops import filter_kernels as fk
+    m = fk.OS_NFFT // 2
+    segs = c * -(-n // fk.os_geometry(taps)[1])
+    return segs * (2 * 5 * m * np.log2(m) + 14 * m)
 
 
 def mel_bound(x, out, front) -> dict:
@@ -925,6 +947,7 @@ def kernel_phase(xc, xs, chain, front, front128, log: list[str]) -> dict:
     results.update(istft_phase(xc, win, failed, log))
     results.update(stockham_phase(xc, xs, front128, failed, log))
     results.update(filter_phase(xc, failed, log))
+    results["fir_os"] = fir_os_phase(xc, failed, log)
     results["upfirdn_banded"].update(core_phase(xc, failed, log))
     results["stft_power_dft"] = dft_power_phase(xs, win, failed, log)
     results["istft_stockham"] = istft_stockham_phase(xc, win, failed, log)
@@ -1391,6 +1414,71 @@ def filter_phase(xc, failed: list, log: list[str]) -> dict:
     return out
 
 
+def fir_os_phase(xc, failed: list, log: list[str]) -> dict:
+    """The overlap-save FIR kernel against its plain version at 1,024 taps
+    on (16, 479232), beside the banded kernel's f32 tier and
+    fir_apply_mxu on the same input, with its bound (the input read and
+    the output written once, against os_flops at the float32 peak) and
+    ptxas's figures; on 2 channels at 512 and 2,048 taps and at 64 taps on
+    100 samples; then the taps sweep at 16 and 64 channels, whose crossover
+    sets fir_apply_best's OS_MIN_TAPS."""
+    from vv_dsp_tpu_torch.ops import filter_kernels as fk
+    from vv_dsp_tpu_torch.ops import upfirdn as uf
+    from vv_dsp_tpu_torch.ops.fir import design_lowpass_np, fir_apply_mxu
+
+    c, n = xc.shape
+    taps = FILTER_TIER_TAPS
+    h = design_lowpass_np(taps, 0.3)
+    table = fk.os_table(h, xc.device)
+    fast = lambda: fk.fir_os(xc, table, taps)
+    plain = lambda: fk.fir_os_plain(xc, table, taps)
+    got = fast()
+    if not torch.equal(got, fast()):
+        failed.append("fir_os differs between two runs")
+    r = record("fir_os", f"{taps} taps, {c} x {n}", got, plain(), OS_TOL,
+               fast, plain, failed)
+    r.update(bound(4 * 2 * xc.numel(), os_flops(c, n, taps),
+                   F32_FLOP_PER_S))
+    band = uf.polyphase_table(h, 1, xc.device)
+    r["banded_ms"] = cuda_ms(
+        lambda: uf.upfirdn_banded(xc, band, 1, 1, 0, n, "f32"))
+    r["library_ms"] = None
+    mxu_ms = cuda_ms(lambda: fir_apply_mxu(h, xc))
+    print(f"  redesign fir_os [{taps} taps, {c} x {n}]: kernel "
+          f"{r['ms']:.4f} ms, the banded kernel's f32 tier "
+          f"{r['banded_ms']:.4f} ms ({r['banded_ms'] / r['ms']:.2f}x), "
+          f"fir_apply_mxu {mxu_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}), share of the bound "
+          f"{r['bound_ms'] / r['ms']:.3f}; build.log: "
+          f"{usage_text(log, 'fir_os_kernel')}; dynamic shared memory "
+          f"{8 * (fk.OS_NFFT + 2 * 2048)} B")
+    x2 = xc[:2].contiguous()
+    for t, xv in ((512, x2), (2048, x2), (64, x2[:, :100].contiguous())):
+        hv = design_lowpass_np(t, 0.3)
+        tv = fk.os_table(hv, xc.device)
+        fast = lambda: fk.fir_os(xv, tv, t)
+        plain = lambda: fk.fir_os_plain(xv, tv, t)
+        record("fir_os", f"{t} taps, 2 x {xv.shape[1]}", fast(), plain(),
+               OS_TOL, fast, plain, failed)
+    for ch in (16, 64):
+        xv = torch.randn((ch, n), generator=torch.Generator(
+            device=xc.device).manual_seed(ch), device=xc.device)
+        for t in OS_SWEEP_TAPS:
+            hv = design_lowpass_np(t, 0.3)
+            tv = fk.os_table(hv, xc.device)
+            bt = uf.polyphase_table(hv, 1, xc.device)
+            row = {"os_ms": cuda_ms(lambda: fk.fir_os(xv, tv, t)),
+                   "banded_f32_ms": cuda_ms(lambda: uf.upfirdn_banded(
+                       xv, bt, 1, 1, 0, n, "f32")),
+                   "mxu_ms": cuda_ms(lambda: fir_apply_mxu(hv, xv))}
+            print(f"  fir_os sweep [{t} taps, {ch} x {n}]: overlap-save "
+                  f"{row['os_ms']:.4f} ms, banded f32 "
+                  f"{row['banded_f32_ms']:.4f} ms, fir_apply_mxu "
+                  f"{row['mxu_ms']:.4f} ms")
+            r[f"sweep_{ch}_{t}"] = row
+    return r
+
+
 def core_phase(xc, failed: list, log: list[str]) -> dict:
     """Savitzky-Golay's kernel path, the banded upfirdn at 1/1 and offset
     wl - 1, against its plain version (the shift-add correlation) at
@@ -1398,7 +1486,7 @@ def core_phase(xc, failed: list, log: list[str]) -> dict:
     TF32 off), the bound and ptxas's figures of the instance, and float64
     scipy (mode "mirror") on 2 channels; then wl 5, 101, 257 and deriv 1
     on 2 channels. Then the filter tier at 1,024 taps: fir_apply_os and
-    fir_apply_fft timed beside fir_apply_best (the banded kernel) and
+    fir_apply_fft timed beside fir_apply_best (the overlap-save kernel) and
     F.conv1d, each held to float64 lfilter, and filtfilt_fir to a float64
     oracle of its own form; then the core API on the card against its CPU
     result. Returns the savgol row's and fir_1024_best's numbers."""
@@ -1470,10 +1558,23 @@ def core_phase(xc, failed: list, log: list[str]) -> dict:
     b = min((bound(io, 2 * macs, F32_FLOP_PER_S),
              bound(io, 6 * 2 * macs, BF16_FLOP_PER_S)),
             key=lambda v: v["bound_ms"])
-    out["fir_1024_best_bound_ms"] = b["bound_ms"]
     print(f"filter tier bound at {taps} taps, the banded kernel's f32 tier: "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-    forms = (("fir_apply_best (banded kernel)",
+    b = bound(4 * 2 * xc.numel(), os_flops(c, n, taps), F32_FLOP_PER_S)
+    out["fir_1024_best_bound_ms"] = b["bound_ms"]
+    table = fk.os_table(h, xc.device)
+    out["fir_1024_best_os_ms"] = cuda_ms(lambda: fk.fir_os(xc, table, taps))
+    before = fk.fir_os.launches
+    fk.fir_apply_best(h, xc)
+    torch.cuda.synchronize()
+    out["fir_1024_best_launches"] = fk.fir_os.launches - before
+    print(f"filter tier bound at {taps} taps, the overlap-save kernel: "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); the kernel "
+          f"{out['fir_1024_best_os_ms']:.4f} ms, {fk.fir_os.launches - before}"
+          f" launch a fir_apply_best call")
+    if out["fir_1024_best_launches"] != 1:
+        failed.append("fir_apply_best at 1,024 taps: not one fir_os launch")
+    forms = (("fir_apply_best (overlap-save kernel)",
               lambda: fk.fir_apply_best(h, xc)),
              ("fir_apply_os", lambda: fir.fir_apply_os(h, xc)),
              ("fir_apply_fft", lambda: fir.fir_apply_fft(h, xc)),
@@ -1568,6 +1669,7 @@ def rows_phase(failed: list) -> None:
     n_st = ik.ola_norm(h128, 32, stft_num_frames(256, 128, 32), 256, dev)
     n_ist = ik.ola_norm(h128, 32, 2, 160, dev)
     lp = design_lowpass_np(16, 0.3)
+    os_tab = fk.os_table(design_lowpass_np(64, 0.3), dev)
     f32, c64 = torch.float32, torch.complex64
     cases = (   # wrapper, kernel, plain, row shape, dtype, tol, weight
         (uf.upfirdn_banded,
@@ -1621,6 +1723,9 @@ def rows_phase(failed: list) -> None:
          lambda x: fk.fir_direct_plain(lp, x), (64,), f32, FIR_TOL, None),
         (fk.resample_poly_kernel, lambda x: fk.resample_poly_kernel(x, 4, 3),
          lambda x: fk.resample_poly_plain(x, 4, 3), (64,), f32, POLY_TOL,
+         None),
+        (fk.fir_os, lambda x: fk.fir_os(x, os_tab, 64),
+         lambda x: fk.fir_os_plain(x, os_tab, 64), (300,), f32, OS_TOL,
          None),
     )
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -2228,14 +2333,14 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
         ("spectrum 512/8 one-sided", lambda: dense.process(xs, rfft=True),
          {"stft_spectrum_stockham": 1}),
         ("staged chain", lambda: staged(xc),
-         {"upfirdn_banded": 2, "stft_mfcc": 1}))
+         {"fir_os": 1, "upfirdn_banded": 1, "stft_mfcc": 1}))
     # the filter and resample entry points on the TPU's routes, with the
     # input samples a channel each row counts
     filter_paths = [
         (f"fir_{taps}_best", lambda h=h: fk.fir_apply_best(h, xc), want,
          N_CHAIN)
         for (taps, h), want in zip(firs.items(), (
-            {"fir_direct": 1}, {}, {}, {"upfirdn_banded": 1}))]
+            {"fir_direct": 1}, {}, {}, {"fir_os": 1}))]
     filter_paths += [
         (f"resample_poly_{u}_{d}",
          lambda u=u, d=d: fk.resample_poly_best(cut[d], u, d), want,
@@ -2441,7 +2546,7 @@ def slice_phase(xc, xs, chain, staged, front, front128, card: str) -> dict:
 
 
 def kernel_counters() -> dict:
-    """The 14 kernel wrappers by name, each counting its launches."""
+    """The 15 kernel wrappers by name, each counting its launches."""
     from vv_dsp_tpu_torch.ops import filter_kernels as fk
     from vv_dsp_tpu_torch.ops import istft_kernels as ik
     from vv_dsp_tpu_torch.ops import stft_kernels as sk
@@ -2458,7 +2563,8 @@ def kernel_counters() -> dict:
             "poly_kernel": fk.resample_poly_kernel,
             "stft_power_dft": sk.stft_power_dft,
             "istft_stockham": stk.istft_stockham,
-            "stft_gate_packed": ik.stft_gate_packed}
+            "stft_gate_packed": ik.stft_gate_packed,
+            "fir_os": fk.fir_os}
 
 
 def stream_oracle(x64: np.ndarray, chain) -> np.ndarray:
@@ -3777,6 +3883,8 @@ def main() -> None:
                            "vv_dsp_tpu/ops/pallas_fft.py:2365"),
         "stft_gate_packed": ("vv_dsp_tpu_torch/csrc/gate_packed.cu",
                              "vv_dsp_tpu/ops/pallas_fft.py:2028"),
+        "fir_os": ("vv_dsp_tpu_torch/csrc/fir_os.cu",
+                   "none (vv_dsp_tpu/ops/fir.py:fir_apply_os is XLA rffts)"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

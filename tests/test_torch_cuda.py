@@ -17,8 +17,12 @@ hop | nfft, 128 | hop, n < nfft and extra frames; the per-phase
 resampler at all 377 ratios it takes and one of each of its instances;
 every kernel wrapper at 65,536 rows (two launches); ``fir_apply_best``
 with taps on the card at the ``fir1024.batch64`` cell's shape (no copy
-from the card after the first call, the host taps' bits, the cell's
-limit); the full-nfft inverse
+from the card after the first call on the overlap-save route and on the
+banded one at bf16x3, the host taps' bits, the cell's limit, the
+overlap-save route counted once a call); the overlap-save FIR kernel
+against its plain version at the cell's shape, at taps 1 to 2,048, n from
+1 through one segment either side of a multiple of its block, and on an
+unaligned row, and its refusals; the full-nfft inverse
 with all nfft bins of a non-Hermitian spectrum and with the one-sided
 half, at q = 1 to 128; the packed fused gate at threshold 0 and on the
 tone probe, with bit-identical reruns; the packed inverse and fused gate
@@ -142,13 +146,13 @@ def _gate_rel(got, want, nfft, hop):
 
 
 def _counters():
-    """The 14 kernel wrappers, each counting its launches."""
+    """The 15 kernel wrappers, each counting its launches."""
     return (tuf.upfirdn_banded, tsk.stft_mfcc, tsk.stft_spectrum,
             tsk.stft_power, tik.istft, tstk.stft_power_stockham,
             tstk.stft_mel_stockham, tstk.stft_gate_stockham,
             tstk.stft_spectrum_stockham, tfk.fir_direct,
             tfk.resample_poly_kernel, tsk.stft_power_dft,
-            tstk.istft_stockham, tik.stft_gate_packed)
+            tstk.istft_stockham, tik.stft_gate_packed, tfk.fir_os)
 
 
 @pytest.mark.parametrize("up,down", [(4, 3), (7, 5), (2, 1), (1, 2), (3, 4)])
@@ -1063,14 +1067,14 @@ def test_filter_entry_points_on_card_match_cpu(dev, gen):
     counters = {"fir_direct": tfk.fir_direct,
                 "poly_kernel": tfk.resample_poly_kernel,
                 "upfirdn_banded": tuf.upfirdn_banded,
-                "stft_mfcc": tsk.stft_mfcc}
+                "stft_mfcc": tsk.stft_mfcc, "fir_os": tfk.fir_os}
     staged = (NorthStarChain(fused_head=False, device="cpu"),
               NorthStarChain(fused_head=False, device=dev))
     paths = [(f"fir_{t}", lambda v, t=t: tfk.fir_apply_best(_lowpass(t), v),
               tol, want)
              for t, tol, want in ((16, FIR_TOL, {"fir_direct": 1}),
                                   (64, FIR_TOL, {}), (256, FIR_TOL, {}),
-                                  (1024, FIR_TOL, {"upfirdn_banded": 1}))]
+                                  (1024, FIR_TOL, {"fir_os": 1}))]
     paths += [(f"resample_{u}_{d}",
                lambda v, u=u, d=d: tfk.resample_poly_best(v, u, d), POLY_TOL,
                want)
@@ -1083,7 +1087,7 @@ def test_filter_entry_points_on_card_match_cpu(dev, gen):
               ("poly_kernel", lambda v: tfk.resample_poly_kernel(v, 4, 3),
                POLY_TOL, {"poly_kernel": 1}),
               ("staged chain", lambda v: staged[v.is_cuda](v), 5e-5,
-               {"upfirdn_banded": 2, "stft_mfcc": 1})]
+               {"fir_os": 1, "upfirdn_banded": 1, "stft_mfcc": 1})]
     for name, fn, tol, want in paths:
         ref = fn(x)
         for f in counters.values():
@@ -1121,14 +1125,13 @@ def fir_cell_rows(dev):
     return design_lowpass(1024, 0.45, device=dev), x
 
 
-def test_fir_apply_best_reads_card_taps_back_once(dev, fir_cell_rows):
-    """With taps on the card, the banded route's first call reads them
-    back; later calls launch the kernel once each and copy nothing from
-    the card (CUDA's sync-debug mode raises on a synchronising copy)."""
-    h, x = fir_cell_rows
+def _reads_card_taps_back_once(h, x, wrapper):
+    """fir_apply_best(h, x) launches wrapper once a call, and from its
+    second call on copies nothing from the card (CUDA's sync-debug mode
+    raises on a synchronising copy)."""
     tfk.fir_apply_best(h, x)
     torch.cuda.synchronize()
-    before = tuf.upfirdn_banded.launches
+    before = wrapper.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         tfk.fir_apply_best(h, x)
@@ -1136,7 +1139,111 @@ def test_fir_apply_best_reads_card_taps_back_once(dev, fir_cell_rows):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert tuf.upfirdn_banded.launches == before + 2
+    assert wrapper.launches == before + 2
+
+
+def test_fir_apply_best_reads_card_taps_back_once(dev, fir_cell_rows):
+    """With taps on the card, the overlap-save route's first call reads
+    them back and puts their table on the card; later calls launch the
+    kernel once each and copy nothing from the card."""
+    _reads_card_taps_back_once(*fir_cell_rows, tfk.fir_os)
+
+
+def test_fir_apply_best_banded_route_reads_card_taps_back_once(
+        dev, fir_cell_rows):
+    """The same of the banded route, at bf16x3."""
+    with config.matmul_precision("high"):
+        _reads_card_taps_back_once(*fir_cell_rows, tuf.upfirdn_banded)
+
+
+def test_fir_cell_call_runs_the_os_route_only(dev, fir_cell_rows):
+    """The cell's call is one overlap-save call: route_calls["os"] and
+    fir_os.launches move by one, no other route or kernel moves."""
+    h, x = fir_cell_rows
+    before = dict(tfk.fir_apply_best.route_calls)
+    launches = [f.launches for f in _counters()]
+    tfk.fir_apply_best(h, x)
+    torch.cuda.synchronize()
+    after = tfk.fir_apply_best.route_calls
+    assert {k: after[k] - before[k] for k in after} == {
+        "direct": 0, "mxu": 0, "banded": 0, "os": 1}
+    assert [f.launches - b for f, b in zip(_counters(), launches)] == [
+        1 if f is tfk.fir_os else 0 for f in _counters()]
+
+
+# the overlap-save kernel against its plain version (the same segments and
+# table through cuFFT): 1e-6 of max |y| (float32 FFTs of 4,096 points in
+# another order, measured 3.9e-7 at the cell's shape), and below n = taps,
+# where the outputs are the filter's first taps alone, 1e-6 of the largest
+# output the filter gives on the input (tests/test_torch_fir_os.py)
+OS_TOL = 1e-6
+
+
+def _os_err(got, want, h, x):
+    err = (got.double() - want.double()).abs().max().item()
+    scale = want.double().abs().max().item()
+    if x.shape[-1] < len(h):
+        scale = float(np.abs(h).sum()) * x.abs().max().item()
+    return err / scale
+
+
+def test_fir_os_matches_plain_at_the_cell_shape(dev, fir_cell_rows):
+    h, x = fir_cell_rows
+    table = tfk.os_table(h, dev)
+    before = tfk.fir_os.launches
+    got = tfk.fir_os(x, table, 1024)
+    again = tfk.fir_os(x, table, 1024)
+    torch.cuda.synchronize()
+    assert tfk.fir_os.launches == before + 2
+    assert torch.equal(got, again)
+    for r0 in range(0, x.shape[0], 16):
+        rows = x[r0:r0 + 16]
+        want = tfk.fir_os_plain(rows, table, 1024)
+        assert _os_err(got[r0:r0 + 16], want, h, rows) < OS_TOL
+
+
+@pytest.mark.parametrize("taps", [1, 17, 512, 513, 1024, 2047, 2048])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_fir_os_matches_plain_at_its_edges(dev, gen, taps, channels):
+    """n = 1, 7, 100, one block either side of one and two blocks, past
+    them; each row's segments start off the card's 8-byte lines where n is
+    odd."""
+    h = _lowpass(taps)
+    table = tfk.os_table(h, dev)
+    block = tfk.os_geometry(taps)[1]
+    for n in (1, 7, 100, block - 1, block, block + 1, 2 * block + 3, 40001):
+        x = torch.as_tensor(gen.standard_normal((channels, n)),
+                            dtype=torch.float32, device=dev)
+        got = tfk.fir_os(x, table, taps)
+        assert got.shape == x.shape
+        assert _os_err(got, tfk.fir_os_plain(x, table, taps), h, x) < OS_TOL
+
+
+def test_fir_os_on_an_unaligned_row(dev, gen):
+    h = _lowpass(1024)
+    table = tfk.os_table(h, dev)
+    flat = torch.as_tensor(gen.standard_normal(3 * 9001 + 1),
+                           dtype=torch.float32, device=dev)
+    x = flat[1:].reshape(3, 9001)
+    assert x.data_ptr() % 8 and x.is_contiguous()
+    got = tfk.fir_os(x, table, 1024)
+    assert _os_err(got, tfk.fir_os_plain(x, table, 1024), h, x) < OS_TOL
+
+
+def test_fir_os_refuses_what_it_does_not_take(dev):
+    x = torch.zeros((2, 5000), device=dev)
+    table = tfk.os_table(_lowpass(64), dev)
+    with pytest.raises(TypeError):
+        tfk.fir_os(x.double(), table, 64)
+    with pytest.raises(ValueError):
+        tfk.fir_os(x[:, ::2], table, 64)
+    with pytest.raises(ValueError):
+        tfk.fir_os(x, table.cpu(), 64)
+    with pytest.raises(ValueError):
+        tfk.fir_os(x, table[:-1], 64)
+    with pytest.raises(ValueError):
+        tfk.fir_os(x, table, tfk.KERNEL_MAX_TAPS + 1)
+    assert tfk.fir_os(x[:, :0], table, 64).shape == (2, 0)
 
 
 def test_fir_apply_best_card_taps_are_the_host_taps_bit_for_bit(
@@ -1852,6 +1959,7 @@ def _rows_cases(dev):
     n_st = tik.ola_norm(h128, 32, stft_num_frames(256, 128, 32), 256, dev)
     n_ist = tik.ola_norm(h128, 32, 2, 160, dev)
     lp = _lowpass(16)
+    os_table = tfk.os_table(_lowpass(64), dev)
     f32, c64 = torch.float32, torch.complex64
     return {
         "upfirdn_banded": (
@@ -1926,6 +2034,10 @@ def _rows_cases(dev):
             lambda x: tfk.resample_poly_kernel(x, 4, 3),
             lambda x: tfk.resample_poly_plain(x, 4, 3), (64,), f32,
             POLY_TOL, None),
+        "fir_os": (
+            tfk.fir_os, lambda x: tfk.fir_os(x, os_table, 64),
+            lambda x: tfk.fir_os_plain(x, os_table, 64), (300,), f32,
+            OS_TOL, None),
     }
 
 
@@ -1934,7 +2046,7 @@ ROWS_WRAPPERS = ("upfirdn_banded", "stft_spectrum", "stft_power",
                  "stft_spectrum_stockham", "stft_power_stockham",
                  "stft_mel_stockham", "stft_gate_stockham",
                  "istft_stockham", "stft_power_dft", "fir_direct",
-                 "resample_poly_kernel")
+                 "resample_poly_kernel", "fir_os")
 
 
 @pytest.mark.parametrize("name", ROWS_WRAPPERS)

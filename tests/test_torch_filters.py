@@ -1,6 +1,8 @@
 """The port's filter and resample entry points against the JAX package and
 float64 scipy, on the CPU (the kernels' plain versions): the direct FIR,
-the per-phase polyphase resampler, ``fir_apply_best``,
+the per-phase polyphase resampler, ``fir_apply_best`` (its routes, the
+overlap-save route at the f32 tier and the banded one at bf16x3, and its
+tally of calls by route),
 ``resample_poly_best``, ``resample_multistage``, the banded route's
 geometry rule, the fused head's short-signal and equal-rate branches, and
 the staged ``NorthStarChain``.
@@ -29,6 +31,7 @@ from vv_dsp_tpu.ops import fir as jfir
 from vv_dsp_tpu.ops import pallas_kernels as jpk
 from vv_dsp_tpu.ops import pallas_upfirdn as jpu
 from vv_dsp_tpu.ops import resample as jrs
+from vv_dsp_tpu_torch import config
 from vv_dsp_tpu_torch.models import NorthStarChain
 from vv_dsp_tpu_torch.ops import filter_kernels as tfk
 from vv_dsp_tpu_torch.ops import fir as tfir
@@ -70,7 +73,7 @@ def spy(monkeypatch):
 
         monkeypatch.setattr(module, name, f)
 
-    for name in ("fir_direct", "upfirdn_banded", "fir_apply_mxu",
+    for name in ("fir_direct", "upfirdn_banded", "fir_apply_mxu", "fir_os",
                  "resample_poly_mxu", "resample_poly_plain", "resample_poly"):
         wrap(tfk, name)
     return calls
@@ -155,18 +158,24 @@ def test_poly_kernel_equal_rate_returns_the_input(sig, spy):
     assert spy == []
 
 
-# taps -> the route the JAX package takes on the TPU
+# taps -> fir_apply_best's route: the JAX package's TPU route, but for the
+# overlap-save kernel in place of the banded one at the f32 tier; the
+# banded route's cases run at bf16x3 (the matmul-precision knob at "high"),
+# where it keeps the banded kernel
 FIR_ROUTES = [(1, "fir_direct"), (16, "fir_direct"), (17, "fir_apply_mxu"),
               (64, "fir_apply_mxu"), (256, "fir_apply_mxu"),
               (511, "fir_apply_mxu"), (512, "upfirdn_banded"),
-              (1024, "upfirdn_banded")]
+              (1024, "upfirdn_banded"), (512, "fir_os"), (1024, "fir_os"),
+              (2048, "fir_os")]
 
 
 @pytest.mark.parametrize("taps,route", FIR_ROUTES)
 def test_fir_apply_best_routes_and_values(rng, spy, taps, route):
     x = rng.standard_normal((2, 4000)).astype(np.float32)
     h = _lowpass(taps)
-    got = tfk.fir_apply_best(h, torch.as_tensor(x))
+    precision = "high" if route == "upfirdn_banded" else "highest"
+    with config.matmul_precision(precision):
+        got = tfk.fir_apply_best(h, torch.as_tensor(x))
     assert spy[0] == route
     assert got.shape == x.shape
     want = np.asarray(jpk.fir_apply_best(jnp.asarray(h, jnp.float32),
@@ -176,13 +185,47 @@ def test_fir_apply_best_routes_and_values(rng, spy, taps, route):
 
 
 def test_fir_apply_best_learned_taps_stay_on_the_matmul_route(rng, spy):
-    """Taps that require grad never reach the banded kernel, as traced taps
-    in JAX (pallas_kernels.py:459-461)."""
+    """Taps that require grad never reach the overlap-save or the banded
+    kernel, as traced taps in JAX (pallas_kernels.py:459-461); the same
+    taps without grad take the overlap-save kernel at the f32 tier and the
+    banded one at bf16x3."""
     x = torch.as_tensor(rng.standard_normal((2, 3000)), dtype=torch.float32)
     h = torch.as_tensor(_lowpass(1024), dtype=torch.float32)
     tfk.fir_apply_best(h.clone().requires_grad_(True), x)
     tfk.fir_apply_best(h, x)
-    assert spy == ["fir_apply_mxu", "upfirdn_banded"]
+    with config.matmul_precision("high"):
+        tfk.fir_apply_best(h.clone().requires_grad_(True), x)
+        tfk.fir_apply_best(h, x)
+    assert spy == ["fir_apply_mxu", "fir_os", "fir_apply_mxu",
+                   "upfirdn_banded"]
+
+
+@pytest.mark.parametrize("precision,taps,route", [
+    ("highest", 16, "direct"), ("highest", 64, "mxu"),
+    ("highest", 1024, "os"), ("highest", 2049, "banded"),
+    ("high", 1024, "banded"), ("high", 16, "direct")])
+def test_fir_apply_best_tallies_its_routes(rng, precision, taps, route):
+    """fir_apply_best.route_calls counts each call once, by its route, at
+    any rank (a (2, 3, n) call is one call)."""
+    x = torch.as_tensor(rng.standard_normal((2, 3, 3000)),
+                        dtype=torch.float32)
+    h = _lowpass(taps)
+    before = dict(tfk.fir_apply_best.route_calls)
+    with config.matmul_precision(precision):
+        tfk.fir_apply_best(h, x)
+        tfk.fir_apply_best(h, x[0, 0])
+    after = tfk.fir_apply_best.route_calls
+    assert set(after) == {"direct", "mxu", "banded", "os"}
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 2 if k == route else 0 for k in after}
+
+
+def test_fir_apply_best_learned_taps_tally_the_matmul_route(rng):
+    h = torch.as_tensor(_lowpass(1024), dtype=torch.float32)
+    x = torch.as_tensor(rng.standard_normal((2, 3000)), dtype=torch.float32)
+    before = tfk.fir_apply_best.route_calls["mxu"]
+    tfk.fir_apply_best(h.requires_grad_(True), x)
+    assert tfk.fir_apply_best.route_calls["mxu"] == before + 1
 
 
 def test_fir_apply_best_collapses_leading_axes(rng):
@@ -385,7 +428,7 @@ def test_staged_chain_matches_jax_and_fused_chain(rng, spy):
     want = JaxChain(fused_head=False)(jnp.asarray(x))
     staged = NorthStarChain(fused_head=False, device="cpu")
     got = staged(torch.as_tensor(x))
-    assert spy == ["upfirdn_banded", "upfirdn_banded"]
+    assert spy == ["fir_os", "upfirdn_banded"]
     assert got.shape == want.shape == (2, 60, 20)
     assert _rel(got, want) < 5e-5
     fused = NorthStarChain(device="cpu")(torch.as_tensor(x))
@@ -404,8 +447,8 @@ def test_staged_chain_f64_oracle(rng):
 @pytest.mark.parametrize("taps", [16, 64, 1024])
 def test_fir_apply_best_gradients_are_the_plain_ones(rng, taps):
     """The kernel routes differentiate their plain form: d/dh and d/dx of
-    fir_apply_best equal those of fir_apply at the same inputs (the banded
-    route's numpy taps take no gradient)."""
+    fir_apply_best equal those of fir_apply at the same inputs (the
+    overlap-save route's numpy taps take no gradient)."""
     x = torch.as_tensor(rng.standard_normal((2, 1500)), dtype=torch.float32)
     h = torch.as_tensor(_lowpass(taps), dtype=torch.float32)
     cot = torch.as_tensor(rng.standard_normal((2, 1500)), dtype=torch.float32)
@@ -430,3 +473,24 @@ def test_fir_apply_best_gradients_are_the_plain_ones(rng, taps):
         assert _rel(gx, want_x) < FIR_TOL
         if gh is not None:
             assert _rel(gh, want_h) < FIR_TOL
+
+
+@pytest.mark.parametrize("taps,precision,route", [
+    (1024, "highest", "fir_os"), (2048, "highest", "fir_os"),
+    (1024, "high", "upfirdn_banded")])
+def test_fir_apply_best_kernel_routes_differentiate_x(rng, spy, taps,
+                                                      precision, route):
+    """The overlap-save route (and the banded one) differentiate their
+    plain form: d/dx equals fir_apply's at the same inputs, a float32
+    FFT's rounding apart."""
+    x = torch.as_tensor(rng.standard_normal((2, 5000)), dtype=torch.float32)
+    h = _lowpass(taps)
+    cot = torch.as_tensor(rng.standard_normal((2, 5000)), dtype=torch.float32)
+    xa = x.clone().requires_grad_(True)
+    with config.matmul_precision(precision):
+        (gx,) = torch.autograd.grad(tfk.fir_apply_best(h, xa), xa, cot)
+    assert spy[0] == route      # then the backward's plain form
+    xb = x.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(
+        tfir.fir_apply(torch.as_tensor(h, dtype=torch.float32), xb), xb, cot)
+    assert _rel(gx, want) < FIR_TOL

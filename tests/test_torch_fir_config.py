@@ -1,12 +1,14 @@
 """The benchmark's ``fir_lowpass_1024`` configuration on the CPU: the entry's
 callable (``fir_apply_best`` with taps from ``design_lowpass``, its plain
-path) against the configuration's float64 reference on each of the three
-routes, the entry at the fields' tier whatever the matmul-precision knob
-says, that reference against ``scipy.signal.lfilter``, the reference's
-imports, planted faults and the control (the program at bf16x3) against
-the cell's limit, and the banded route's per-tensor host taps (read once,
+path) against the configuration's float64 reference on each of the four
+routes (the banded one at bf16x3, where it keeps the banded kernel), the
+entry at the fields' tier whatever the matmul-precision knob says, that
+reference against ``scipy.signal.lfilter``, the reference's imports,
+planted faults and the control (the program at bf16x3) against the cell's
+limit, and the kernel routes' per-tensor host taps and tables (read once,
 read again after an in-place write, dropped with their tensor, the same
-bits as host taps)."""
+bits as host taps): the banded route's at bf16x3, the overlap-save
+route's at the configuration's f32."""
 
 from __future__ import annotations
 
@@ -71,10 +73,13 @@ def _spy(monkeypatch, name: str) -> list:
 
 @pytest.mark.parametrize("taps,route", [(16, "fir_direct"),
                                         (64, "fir_apply_mxu"),
-                                        (1024, "upfirdn_banded")])
+                                        (1024, "upfirdn_banded"),
+                                        (1024, "fir_os")])
 @pytest.mark.parametrize("seed", [0, 2**31 + 3])
 def test_entry_matches_the_reference(monkeypatch, taps, route, seed):
     fields = dict(FIELDS, fir_taps=taps)
+    if route == "upfirdn_banded":   # the banded kernel's tier
+        fields["algorithm"] = "bf16x3"
     call = _entry(fields)
     calls = _spy(monkeypatch, route)
     x = _noise(2, 16384, seed)
@@ -158,7 +163,7 @@ def test_banded_taps_read_once_and_rebuilt_after_an_in_place_write():
     h = design_lowpass(FIELDS["fir_taps"], FIELDS["fir_cutoff"],
                        device="cpu")
     x = _noise(2, 4096, 29)
-    with one_thread():
+    with one_thread(), config.matmul_precision("high"):
         first = tfk.fir_apply_best(h, x)
         host = tfk._host_taps(h)
         again = tfk.fir_apply_best(h, x)
@@ -180,8 +185,57 @@ def test_banded_taps_read_once_and_rebuilt_after_an_in_place_write():
 def test_banded_taps_entry_dies_with_its_tensor():
     h = design_lowpass(FIELDS["fir_taps"], FIELDS["fir_cutoff"],
                        device="cpu")
-    tfk.fir_apply_best(h, _noise(1, 2048, 31))
+    with config.matmul_precision("high"):
+        tfk.fir_apply_best(h, _noise(1, 2048, 31))
     assert h in tfk._HOST_TAPS._hits
+    entries = len(tfk._HOST_TAPS._hits)
+    alive = weakref.ref(h)
+    del h
+    gc.collect()
+    assert alive() is None
+    assert len(tfk._HOST_TAPS._hits) == entries - 1
+
+
+def test_os_table_read_once_and_rebuilt_after_an_in_place_write(
+        monkeypatch):
+    """The overlap-save route's table, kept per taps tensor: the taps read
+    to the host and the table built once; an in-place write reads the taps
+    and builds the table again, a halved filter's table halved."""
+    h = design_lowpass(FIELDS["fir_taps"], FIELDS["fir_cutoff"],
+                       device="cpu")
+    x = _noise(2, 4096, 37)
+    builds = _spy(monkeypatch, "os_table_np")
+    before = tfk.fir_apply_best.route_calls["os"]
+    with one_thread():
+        first = tfk.fir_apply_best(h, x)
+        table = tfk.os_table(h, CPU)
+        host = tfk._host_taps(h)
+        again = tfk.fir_apply_best(h, x)
+        assert tfk.fir_apply_best.route_calls["os"] == before + 2
+        assert tfk.os_table(h, CPU) is table and tfk._host_taps(h) is host
+        assert builds == ["os_table_np"] and torch.equal(first, again)
+        h.mul_(0.5)
+        halved = tfk.fir_apply_best(h, x)
+        assert tfk._host_taps(h) is not host
+        assert builds == ["os_table_np"] * 2
+        halved_table = tfk.os_table(h, CPU)
+        assert halved_table is not table
+        torch.testing.assert_close(halved_table, 0.5 * table, rtol=1e-6,
+                                   atol=0)
+        torch.testing.assert_close(halved, 0.5 * first, rtol=1e-6,
+                                   atol=1e-6 * float(first.abs().max()))
+        # a fresh tensor of the same values, and the same taps on the
+        # host, give the same bits
+        assert torch.equal(halved, tfk.fir_apply_best(h.clone(), x))
+        assert torch.equal(halved, tfk.fir_apply_best(
+            h.double().numpy(), x))
+
+
+def test_os_table_entry_dies_with_its_tensor():
+    h = design_lowpass(FIELDS["fir_taps"], FIELDS["fir_cutoff"],
+                       device="cpu")
+    tfk.fir_apply_best(h, _noise(1, 2048, 41))
+    assert ("os_table", CPU) in tfk._HOST_TAPS._hits[h][1]
     entries = len(tfk._HOST_TAPS._hits)
     alive = weakref.ref(h)
     del h

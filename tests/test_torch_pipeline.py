@@ -259,5 +259,5 @@ def test_counters_start_as_plain_integers():
     from vv_dsp_tpu_torch.ops import istft_kernels as tik
     for fn in (tuf.upfirdn_banded, tsk.stft_mfcc, tsk.stft_spectrum,
                tsk.stft_power, tik.istft, tfk.fir_direct,
-               tfk.resample_poly_kernel):
+               tfk.resample_poly_kernel, tfk.fir_os):
         assert isinstance(fn.launches, int)

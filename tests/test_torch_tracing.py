@@ -6,7 +6,7 @@ the live stream leave no record and call no ``record_function``. Under a
 CPU profiler each entry records exactly the spans of PERF.md's table (the
 chain's two stages, the gate's two on its split route and one on its
 full-nfft route, the stream's four steps, the STFT entry, one ``fir`` root
-a ``fir_apply_best`` call on each of its three routes at any rank; a kernel
+a ``fir_apply_best`` call on each of its four routes at any rank; a kernel
 wrapper's span opens only past its CPU return, so on the CPU there is
 none), with their parents, one call id a root and its descendants, each
 span inside its parent's host interval, and each a ``user_annotation`` of
@@ -14,7 +14,7 @@ its name in the exported Chrome trace.
 The ring drops its oldest records past its bound and counts them; a
 device span's timing events are reused once the card has passed them; no
 span takes a name of the benchmark harness's own ranges; the gate counts
-its calls by route. On the card (``cuda`` marker), every one of the 14
+its calls by route. On the card (``cuda`` marker), every one of the 15
 kernel wrappers records one ``kernel.<wrapper>`` span a call, inside the
 entry's span, the chain's and the gate's two stages carry device
 times, and the ``fir`` span does on its first and ninth call, holding its
@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from vv_dsp_tpu_torch import config
 from vv_dsp_tpu_torch.models import (NorthStarChain, SpectralGate,
                                      StreamingNorthStar)
 from vv_dsp_tpu_torch.ops import filter_kernels
@@ -46,10 +47,14 @@ KERNELS = ("upfirdn_banded", "stft_spectrum", "stft_power", "stft_mfcc",
            "istft", "stft_gate_packed", "stft_spectrum_stockham",
            "stft_power_stockham", "stft_mel_stockham", "stft_gate_stockham",
            "istft_stockham", "stft_power_dft", "fir_direct",
-           "resample_poly_kernel")
+           "resample_poly_kernel", "fir_os")
 # fir_apply_best's taps on each of its routes: the direct kernel, the
-# block-Toeplitz matmuls, the banded upfirdn
-FIR_TAPS = {"fir_direct": 16, "fir_mxu": 64, "fir_banded": 1024}
+# block-Toeplitz matmuls, the banded upfirdn (at bf16x3, FIR_PRECISION),
+# the overlap-save kernel
+FIR_TAPS = {"fir_direct": 16, "fir_mxu": 64, "fir_banded": 1024,
+            "fir_os": 1024}
+# the matmul-precision knob each route's calls run under
+FIR_PRECISION = {"fir_banded": "high"}
 # each entry's spans on the CPU as (name, parent), in the order they start
 ENTRY_SPANS = {
     "chain": [("chain", None), ("chain.head", "chain"),
@@ -59,6 +64,7 @@ ENTRY_SPANS = {
     "fir_banded": [("fir", None)],
     "fir_direct": [("fir", None)],
     "fir_mxu": [("fir", None)],
+    "fir_os": [("fir", None)],
     "gate": [("gate", None), ("gate.analysis", "gate"),
              ("gate.synthesis", "gate")],
     "stft": [("stft", None)],
@@ -79,7 +85,7 @@ def _entry(name: str, device):
     if name.startswith("fir"):
         h = design_lowpass(FIR_TAPS[name], 0.45, device=device)
         x = torch.randn((2, 4800), generator=g).to(device)
-        return lambda: fir_apply_best(h, x)
+        return lambda: _fir_call(name, h, x)
     if name == "gate":
         gate = SpectralGate(device=device)
         x = torch.randn((2, 4800), generator=g).to(device)
@@ -93,6 +99,12 @@ def _entry(name: str, device):
     state = stream.init((2,), device=device)
     block = torch.randn((2, 1536), generator=g).to(device)
     return lambda: stream.process(state, block)
+
+
+def _fir_call(route: str, h, x):
+    """fir_apply_best(h, x) under the precision that takes `route`."""
+    with config.matmul_precision(FIR_PRECISION.get(route, "highest")):
+        return fir_apply_best(h, x)
 
 
 def _profiled(fn, activities=(torch.profiler.ProfilerActivity.CPU,)):
@@ -333,8 +345,8 @@ def test_gate_fused_route_records_its_span():
 def test_fir_records_one_root_a_call_at_any_rank(route, shape):
     h = design_lowpass(FIR_TAPS[route], 0.45, device="cpu")
     x = torch.randn(shape, generator=torch.Generator().manual_seed(12))
-    want = fir_apply_best(h, x)
-    _profiled(lambda: (fir_apply_best(h, x), fir_apply_best(h, x)))
+    want = _fir_call(route, h, x)
+    _profiled(lambda: (_fir_call(route, h, x), _fir_call(route, h, x)))
     recs = profiling.spans()
     assert [(r.name, r.parent) for r in recs] == [("fir", None)] * 2
     assert recs[0].call != recs[1].call
@@ -463,14 +475,15 @@ def test_stft_span_holds_its_wrapper_on_the_card(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("route,kernel", [("fir_direct", "fir_direct"),
                                           ("fir_banded", "upfirdn_banded"),
-                                          ("fir_mxu", None)])
+                                          ("fir_mxu", None),
+                                          ("fir_os", "fir_os")])
 def test_fir_span_holds_its_wrapper_on_the_card(dev, route, kernel):
     h = design_lowpass(FIR_TAPS[route], 0.45, device=dev)
     x = torch.randn((2, 3, 16000), device=dev)
-    fir_apply_best(h, x)
+    _fir_call(route, h, x)
     torch.cuda.synchronize()
     profiling.clear_spans()
-    _profiled(lambda: [fir_apply_best(h, x) for _ in range(9)], CUDA_ACTS)
+    _profiled(lambda: [_fir_call(route, h, x) for _ in range(9)], CUDA_ACTS)
     recs = profiling.spans()
     roots = [r for r in recs if r.parent is None]
     assert [r.name for r in roots] == ["fir"] * 9

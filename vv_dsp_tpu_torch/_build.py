@@ -128,12 +128,13 @@ def load(path) -> ctypes.CDLL:
                                       P]
     lib.vv_stft_gate_packed.argtypes = [P, P, P, P, P, P, I, L, I, I, I, F,
                                         L, I, P]
+    lib.vv_fir_os.argtypes = [P, P, P, P, I, L, I, I, I, P]
     for fn in (lib.vv_upfirdn, lib.vv_stft_spectrum, lib.vv_stft_mfcc,
                lib.vv_stft_power, lib.vv_istft, lib.vv_stockham_spectrum,
                lib.vv_stockham_power, lib.vv_stockham_mel,
                lib.vv_stockham_gate, lib.vv_fir_direct, lib.vv_poly,
                lib.vv_dft_power, lib.vv_istft_stockham,
-               lib.vv_stft_gate_packed):
+               lib.vv_stft_gate_packed, lib.vv_fir_os):
         fn.restype = I
     lib.vv_error_string.argtypes = [I]
     lib.vv_error_string.restype = ctypes.c_char_p

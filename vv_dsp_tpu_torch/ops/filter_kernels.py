@@ -9,16 +9,26 @@ versions, and the best-path dispatch of FIR and resampling (counterpart of
 - ``resample_poly_kernel`` runs ``csrc/filter.cu::poly_kernel`` on a CUDA
   tensor, in the layout of its host plan ``ops/poly_plan.py``, and
   ``resample_poly_plain`` (``resample.resample_poly``) on a CPU tensor.
+- ``fir_os`` runs ``csrc/fir_os.cu::fir_os_kernel`` (overlap-save on the
+  register-resident FFT, one fused kernel; the JAX package's
+  ``fir.fir_apply_os`` is XLA rffts, so it ports no TPU kernel) on a CUDA
+  tensor and its plain version ``fir_os_plain`` (the same segments and
+  table through ``torch.fft``) on a CPU tensor.
 
 On a CUDA tensor each wrapper launches its kernel (once per 65,535 rows,
 ``_build.launch``) or raises. The best
-paths route as the JAX package routes on the TPU, on every device:
+paths route as the JAX package routes on the TPU, on every device, but
+for fir_apply_best's overlap-save route, which this card takes in place of
+the banded kernel's f32 tier:
 
-- ``fir_apply_best``: up to 16 taps the direct kernel; from 512 taps that
-  need no grad, where ``banded_supported(1, 1, taps, 0)``, the banded
-  upfirdn at up = down = 1 (tensor taps read back to the host once per
-  tensor, ``_host_taps``); anything else (taps that require grad
-  included) ``fir.fir_apply_mxu``.
+- ``fir_apply_best``: up to 16 taps the direct kernel; at the f32 tier,
+  from ``OS_MIN_TAPS`` to 2,048 taps that need no grad, ``fir_os``; else
+  from 512 taps that need no grad, where ``banded_supported(1, 1, taps,
+  0)``, the banded upfirdn at up = down = 1 (the bf16x3 and bf16 tiers,
+  as the JAX package routes every tier); anything else (taps that require
+  grad included) ``fir.fir_apply_mxu``. Tensor taps are read back to the
+  host once per tensor (``_host_taps``) for either kernel's table. The
+  calls of each route are tallied in ``fir_apply_best.route_calls``.
 - ``resample_poly_best``: up < 32 (after the gcd) where
   ``banded_supported`` the banded upfirdn at offset half_len; anything else
   ``resample.resample_poly_mxu``.
@@ -30,12 +40,15 @@ With no tier named, the banded routes run ``config.dot_algorithm(None)``,
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vv_dsp_tpu_torch import _build, config
 from vv_dsp_tpu_torch._build import ptr
-from vv_dsp_tpu_torch.ops import poly_plan
+from vv_dsp_tpu_torch.ops import fft_plan, poly_plan
 from vv_dsp_tpu_torch.ops.fir import fir_apply, fir_apply_mxu, taps_like
 from vv_dsp_tpu_torch.ops.resample import (_reduce, _resample_poly_filter,
                                            resample_poly, resample_poly_mxu)
@@ -47,9 +60,12 @@ from vv_dsp_tpu_torch.utils.shapes import collapse_leading
 from vv_dsp_tpu_torch.utils.tensor_cache import PerTensor
 
 DIRECT_MAX_TAPS = 16      # fir_apply_best's direct-kernel route
-BANDED_MIN_TAPS = 512     # ... and its banded route
+BANDED_MIN_TAPS = 512     # ... its banded route
+OS_MIN_TAPS = 512         # ... and its overlap-save route (the f32 tier)
+OS_NFFT = 4096            # fir_os's segment: the 4,096-point real FFT
 # fir_apply_pallas's limit: its tile, 8 MiB over taps x 8 channels x 4
-# bytes, falls below 128 samples past 2048 taps
+# bytes, falls below 128 samples past 2048 taps; fir_os's too, whose
+# OS_NFFT-point segment still gives 2,048 outputs there
 KERNEL_MAX_TAPS = 2048
 # resample_poly_pallas's up * taps_pp limit
 POLY_MAX_WEIGHTS = poly_plan.POLY_MAX_WEIGHTS
@@ -85,6 +101,106 @@ def fir_direct(h, x: torch.Tensor) -> torch.Tensor:
         lib, dev, stream = _build.target(x)
         _build.launch(fir_direct, c, lambda r0, k: lib.vv_fir_direct(
             ptr(x, r0), ptr(h), ptr(y, r0), k, n, taps, dev, stream))
+        return y
+
+
+def os_geometry(taps: int) -> tuple[int, int]:
+    """(lead, block) of fir_os's segments: segment b reads OS_NFFT samples
+    from b * block - lead and gives the outputs b * block .. + block - 1.
+    lead is taps - 1 rounded up to even and block = OS_NFFT - lead, so each
+    segment starts at an even sample and its outputs at an even offset."""
+    if not 1 <= taps <= KERNEL_MAX_TAPS:
+        raise ValueError(f"taps={taps} outside fir_os's range "
+                         f"[1, {KERNEL_MAX_TAPS}]")
+    lead = taps - 1 + (taps - 1) % 2
+    return lead, OS_NFFT - lead
+
+
+def os_table_np(h, dtype=np.float32) -> np.ndarray:
+    """(OS_NFFT/2, 4) table of fir_os: for bin k of the packed
+    M-point transform (M = OS_NFFT/2), (conj alpha_k, conj beta_k), with
+    Z'[k] = alpha_k Z[k] + beta_k conj Z[(M - k) mod M] the packed output's
+    spectrum: the unpack, the product with the taps' OS_NFFT-point
+    spectrum H, the repack and the 1/OS_NFFT of the inverse in one
+    (``csrc/fir_os.cu``). Built in float64 and cast to dtype."""
+    h = np.asarray(h, np.float64).reshape(-1)
+    m = OS_NFFT // 2
+    spec = np.fft.rfft(h, OS_NFFT)
+    k = np.arange(m)
+    hk, g = spec[:m], np.conj(spec[m - k])
+    t = 2.0 * np.pi * k / OS_NFFT
+    alpha = ((hk + g) - (hk - g) * np.sin(t)) / OS_NFFT
+    beta = 1j * (hk - g) * np.cos(t) / OS_NFFT
+    return np.stack([alpha.real, -alpha.imag, beta.real, -beta.imag],
+                    axis=-1).astype(dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _os_table_on(h_key: bytes, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(os_table_np(np.frombuffer(h_key, np.float64)),
+                           device=device)
+
+
+def os_table(h, device) -> torch.Tensor:
+    """os_table_np of taps h on `device`, built and put on the device once:
+    for a tensor, kept for it per device beside its host taps
+    (``_HOST_TAPS``: read back once, built again after an in-place write,
+    dropped with the tensor); for host taps, cached per filter as the
+    banded route's polyphase table is."""
+    device = torch.device(device)
+    if isinstance(h, torch.Tensor):
+        return _HOST_TAPS.get(h, ("os_table", device), lambda: torch.as_tensor(
+            os_table_np(_host_taps(h)), device=device))
+    h_np = np.ascontiguousarray(np.asarray(h, np.float64).reshape(-1))
+    return _os_table_on(h_np.tobytes(), device)
+
+
+def fir_os_plain(x: torch.Tensor, table: torch.Tensor,
+                 taps: int) -> torch.Tensor:
+    """Plain version of the overlap-save kernel, its arithmetic in
+    ``torch.fft``: each segment of os_geometry(taps) packed as complex
+    points, its M-point FFT Z, conj Z' = table . (conj Z[k], Z[M - k]), the
+    FFT of that conjugated, and the segment's block of outputs. (..., n)
+    -> (..., n)."""
+    lead, block = os_geometry(taps)
+    m = OS_NFFT // 2
+    n = x.shape[-1]
+    nb = -(-n // block)
+    xp = F.pad(x, (lead, (nb - 1) * block + OS_NFFT - lead - n))
+    segs = xp.unfold(-1, OS_NFFT, block).contiguous()
+    z = torch.view_as_complex(segs.reshape(segs.shape[:-1] + (m, 2)))
+    tab = torch.view_as_complex(table.reshape(m, 2, 2))
+    spec = torch.fft.fft(z)
+    mirror = spec[..., (-torch.arange(m, device=x.device)) % m]
+    w = torch.fft.fft(tab[:, 0] * spec.conj() + tab[:, 1] * mirror)
+    w = w.conj().resolve_conj()
+    y = torch.view_as_real(w).reshape(segs.shape)[..., lead:lead + block]
+    return y.reshape(x.shape[:-1] + (nb * block,))[..., :n]
+
+
+@_build.counted
+def fir_os(x: torch.Tensor, table: torch.Tensor, taps: int) -> torch.Tensor:
+    """Causal FIR, lfilter(h, [1], x), (c, n) -> (c, n), by overlap-save on
+    OS_NFFT-point segments, one fused kernel: each segment's transform,
+    its product with the taps' spectrum and its inverse stay on chip.
+    table: ``os_table(h, x.device)``; taps: len(h), at most 2,048. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel
+    (float32), or raises."""
+    lead, block = os_geometry(taps)
+    if x.device.type == "cpu":
+        return fir_os_plain(x, table, taps)
+    with profiling.span("kernel.fir_os"):
+        _build.require_rows(x, "fir_os")
+        _build.require(table, "table", x.device, (OS_NFFT // 2, 4))
+        c, n = x.shape
+        y = torch.empty_like(x)
+        if n == 0:
+            return y
+        tw = fft_plan.pass_twiddles(OS_NFFT // 2, x.device)
+        lib, dev, stream = _build.target(x)
+        _build.launch(fir_os, c, lambda r0, k: lib.vv_fir_os(
+            ptr(x, r0), ptr(table), ptr(tw), ptr(y, r0), k, n, lead, block,
+            dev, stream))
         return y
 
 
@@ -132,7 +248,7 @@ def resample_poly_kernel(x: torch.Tensor, up: int,
 
 def fir_apply_best(h, x: torch.Tensor) -> torch.Tensor:
     """Causal FIR, lfilter(h, [1], x), over the last axis, routed as the
-    JAX package routes on the TPU (module docstring). Span (while a
+    module docstring says. Span (while a
     profiler runs): ``fir`` around the call, one a call at any rank, timed
     on the device."""
     x = config.as_compute(x)
@@ -146,22 +262,38 @@ def fir_apply_best(h, x: torch.Tensor) -> torch.Tensor:
 def _fir_apply_best_2d(h, x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     taps = np.shape(h)[-1]
-    if taps <= DIRECT_MAX_TAPS and isinstance(h, torch.Tensor):
-        return kernel_with_torch_vjp(fir_direct, fir_direct_plain)(
-            taps_like(h, x), x)
+    calls = fir_apply_best.route_calls
     if taps <= DIRECT_MAX_TAPS:
+        calls["direct"] += 1
+        if isinstance(h, torch.Tensor):
+            return kernel_with_torch_vjp(fir_direct, fir_direct_plain)(
+                taps_like(h, x), x)
         return kernel_with_torch_vjp(lambda xv: fir_direct(h, xv),
                                      lambda xv: fir_direct_plain(h, xv))(x)
     learned = isinstance(h, torch.Tensor) and h.requires_grad
+    if (OS_MIN_TAPS <= taps <= KERNEL_MAX_TAPS and not learned
+            and config.dot_algorithm(None) == "f32"):
+        calls["os"] += 1
+        table = os_table(h, x.device)
+        return kernel_with_torch_vjp(
+            lambda xv: fir_os(xv, table, taps),
+            lambda xv: fir_os_plain(xv, table, taps))(x)
     if (taps >= BANDED_MIN_TAPS and not learned
             and banded_supported(1, 1, taps, 0)):
+        calls["banded"] += 1
         h_np = _host_taps(h)
         table = polyphase_table(h_np, 1, x.device)
         return kernel_with_torch_vjp(
             lambda xv: upfirdn_banded(xv, table, 1, 1, 0, xv.shape[-1]),
             lambda xv: fir_apply_mxu(h_np, xv),
         )(x)
+    calls["mxu"] += 1
     return fir_apply_mxu(h, x)
+
+
+# calls of each route, counted always (as SpectralGate.route_calls)
+fir_apply_best.route_calls = dict.fromkeys(("direct", "mxu", "banded", "os"),
+                                           0)
 
 
 _HOST_TAPS = PerTensor()
